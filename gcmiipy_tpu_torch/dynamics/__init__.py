@@ -1,0 +1,1 @@
+"""dynamics layer of the PyTorch port (mirrors gcmiipy_tpu.dynamics)."""

@@ -1,0 +1,110 @@
+"""Run configuration.
+
+Port of ``gcmiipy_tpu/model/config.py:ModelConfig``.  Every field of the JAX
+dataclass is accepted with the same default, so a configuration written for
+one package reads in the other; the fields this slice of the port runs are
+listed in :data:`PORTED`.  A non-default value of any other field names a
+feature the port does not have yet and raises ``NotImplementedError``
+(:func:`check_ported`); nothing is ignored silently.
+"""
+
+import dataclasses
+from typing import Callable, Optional
+
+from gcmiipy_tpu_torch.grid import geometry
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Configuration of a 2.5D model run (see the JAX twin for each field)."""
+
+    height: int = 24
+    width: int = 36
+    layers: int = 9
+    sig_func: Callable = geometry.manabe_sig
+    giss_sige: bool = False
+    ptop: float = 0.0
+
+    topography: str = "flat"
+    sea_level_temp: float = 288.0
+    land_cover: str = "none"
+    albedo_land: float = 0.35
+
+    dt: float = 1800.0
+
+    physics: bool = False
+    physics_every: int = 1
+    seasonal: bool = False
+    obliquity: float = 23.44
+    year_days: float = 365.0
+    coriolis: bool = False
+    convection: bool = False
+    evaporation: bool = False
+    gw0: float = 0.0
+    precipitation: bool = False
+    rh_crit: float = 1.0
+    drag_tau: float = 0.0
+    shapiro_every: int = 0
+    shapiro_order: int = 8
+    shapiro_fields: str = "p"
+    shapiro_slp: Optional[bool] = None
+    t_lw: float = 0.1
+    t_sw: float = 0.9
+    albedo: float = 0.3
+    radiation: str = "grey"
+
+    dtype: str = "float32"
+    # 'fft' only in the port so far (torch.fft, outside any kernel)
+    polar_filter: str = "fft"
+    # 'xla' (the plain PyTorch core; the name is the JAX package's) or
+    # 'fused' (K1, csrc/fused_parts.cu, twice per step)
+    backend: str = "xla"
+    stream_pipeline: bool = False
+    stream_steps: int = 20
+    stream_wide_native: bool = False
+    q_limiter: bool = False
+    filter_precision: str = "high"
+    filter_split_tau: float = 0.125
+
+    stats: bool = True
+    guard: bool = False
+    guard_p_max: float = 115000.0
+    guard_p_min: float = 0.0
+    guard_t_max: float = 0.0
+    guard_t_min: float = 0.0
+
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    metrics_path: Optional[str] = None
+
+
+# Fields the ported path reads; any other field must keep its default.
+PORTED = frozenset((
+    "height", "width", "layers", "sig_func", "giss_sige", "ptop", "dt",
+    "coriolis", "dtype", "polar_filter", "backend", "q_limiter", "stats",
+    "guard", "guard_p_max", "guard_p_min", "guard_t_max", "guard_t_min",
+))
+BACKENDS = ("xla", "fused")
+POLAR_FILTERS = ("fft",)
+
+
+def check_ported(config):
+    """Raise ``NotImplementedError`` naming the first feature of ``config``
+    that the port does not run, ``ValueError`` on an unknown dtype."""
+    for f in dataclasses.fields(config):
+        if f.name not in PORTED and getattr(config, f.name) != f.default:
+            raise NotImplementedError(
+                f"ModelConfig.{f.name}={getattr(config, f.name)!r}: not "
+                "ported to gcmiipy_tpu_torch yet")
+    if config.backend not in BACKENDS:
+        raise NotImplementedError(
+            f"ModelConfig.backend={config.backend!r}: the port runs "
+            f"{BACKENDS} so far")
+    if config.polar_filter not in POLAR_FILTERS:
+        raise NotImplementedError(
+            f"ModelConfig.polar_filter={config.polar_filter!r}: the port "
+            f"runs {POLAR_FILTERS} so far")
+    if config.dtype not in ("float32", "float64"):
+        raise ValueError(f"dtype must be 'float32' or 'float64', got "
+                         f"{config.dtype!r}")
+    return config

@@ -1,0 +1,71 @@
+"""Model state tuples and initial conditions.
+
+Port of ``gcmiipy_tpu/model/state.py``: the reference's ``PrognosticVars`` /
+``GroundVars`` namedtuples (reference no_limits_2_5d.py:142-143) holding
+tensors, plus the reference initial conditions.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from gcmiipy_tpu_torch.physics import humidity, thermo
+
+
+class PrognosticVars(NamedTuple):
+    """Prognostic atmosphere state: p [j,i]; u,v,t,q [k,j,i]."""
+    p: torch.Tensor   # surface pressure minus ptop [Pa]
+    u: torch.Tensor   # zonal velocity at i+1/2 [m/s]
+    v: torch.Tensor   # meridional velocity at j+1/2 [m/s]
+    t: torch.Tensor   # potential temperature [K]
+    q: torch.Tensor   # specific humidity [kg/kg]
+
+
+class GroundVars(NamedTuple):
+    """Ground state (reference no_limits_2_5d.py:143)."""
+    gt: torch.Tensor    # ground temperature [K]
+    gw: torch.Tensor    # ground water [m]
+    snow: torch.Tensor  # snow depth [m]
+    ice: torch.Tensor   # ice depth [m]
+
+
+class ModelState(NamedTuple):
+    """Atmosphere + ground + model time [s] (0-dim, working dtype) + exact
+    integer step count (0-dim int32)."""
+    prog: PrognosticVars
+    ground: GroundVars
+    utc: torch.Tensor
+    step: torch.Tensor
+
+
+def gen_initial_conditions(geom, dtype=torch.float32, surface_pressure=None):
+    """Reference initial conditions (reference no_limits_2_5d.py:146-168):
+    p = 1e5 Pa - ptop, u = 1 m/s, v = 0, tt = 360 K isothermal,
+    q = max(3e-6, Manabe RH profile converted to mmr), ground at 360 K.
+
+    ``surface_pressure``: optional (J, I) absolute surface pressure [Pa]
+    replacing the uniform 1e5.  Tensors land on ``geom``'s device.
+    """
+    dev = geom.device
+    full = (geom.layers, geom.height, geom.width)
+    surface = (geom.height, geom.width)
+    sig = geom.sig.to(dtype)
+    ptop = geom.ptop.to(dtype)
+
+    if surface_pressure is None:
+        p = torch.full(surface, 100000.0, dtype=dtype, device=dev) - ptop
+    else:
+        p = torch.as_tensor(surface_pressure).to(dtype=dtype, device=dev) - ptop
+    u = torch.full(full, 1.0, dtype=dtype, device=dev)
+    v = torch.zeros(full, dtype=dtype, device=dev)
+    tt = torch.full(full, 360.0, dtype=dtype, device=dev)
+    tp = p * sig + ptop
+    t = thermo.to_potential_temp(tt, tp)
+    q = torch.full(full, 3.0e-6, dtype=dtype, device=dev)
+    q = torch.maximum(q, humidity.rh_to_mmr(humidity.manabe_rh(sig), tp, tt))
+
+    gt = torch.full(surface, 360.0, dtype=dtype, device=dev)
+    gw = torch.zeros(surface, dtype=dtype, device=dev)
+    snow = torch.zeros(surface, dtype=dtype, device=dev)
+    ice = torch.zeros(surface, dtype=dtype, device=dev)
+    return PrognosticVars(p, u, v, t, q), GroundVars(gt, gw, snow, ice)

@@ -1,0 +1,118 @@
+"""K1: the half-step parts of the v1 'fused' backend, as a CUDA kernel.
+
+Replaces ``gcmiipy_tpu/ops/pallas_stencil.py:make_fused_parts_padded`` (its
+``pl.pallas_call`` at :324).  :func:`fused_parts` computes what
+:func:`gcmiipy_tpu_torch.dynamics.core25d.half_timestep_parts` computes, on
+unpadded contiguous tensors:
+
+* on CPU tensors it runs the plain version :func:`fused_parts_ref`;
+* on CUDA tensors it launches ``csrc/fused_parts.cu`` (built at first use,
+  see :mod:`gcmiipy_tpu_torch.ops.cuda_lib`) or raises; it never falls back.
+
+``fused_parts.launches`` counts the kernel launches.  The kernel is bound by
+bytes: about 0.081 ms per call at 9x512x1024 float32 on an H100's 3.35 TB/s
+(the source's header works the number out).
+"""
+
+import ctypes
+
+import torch
+
+from gcmiipy_tpu_torch import constants
+from gcmiipy_tpu_torch.dynamics import core25d
+from gcmiipy_tpu_torch.ops import cuda_lib
+
+MAX_LAYERS = 32  # kMaxLayers of csrc/fused_parts.cu
+_GEOM_FIELDS = ("dx_j", "dx_h", "lat", "heightmap", "sig", "sigt", "sigb",
+                "dsig", "dy", "ptop")
+
+
+def fused_parts_ref(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
+                    coriolis=False, q_limiter=False):
+    """Plain PyTorch version of K1: ``core25d.half_timestep_parts``."""
+    return core25d.half_timestep_parts(p, u, v, t, q, sp, su, sv, st, sq, spu,
+                                       dt, geom, coriolis=coriolis,
+                                       q_limiter=q_limiter)
+
+
+def _library():
+    lib = cuda_lib.load("fused_parts")
+    fn = lib.gcm_fused_parts
+    if fn.argtypes is None:
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        fn.argtypes = [ctypes.c_int, ptrs, ptrs, ptrs, ptrs, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(fields, geom):
+    """Device, dtype, shape and contiguity checks; raises on anything the
+    kernel does not take."""
+    p = fields[0]
+    L, H, W = geom.layers, geom.height, geom.width
+    if p.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fused_parts takes float32 or float64, got {p.dtype}")
+    if not 1 <= L <= MAX_LAYERS:
+        raise ValueError(f"fused_parts takes 1..{MAX_LAYERS} layers, got {L}")
+    for n, x in enumerate(fields):
+        want = (H, W) if n in (0, 5) else (L, H, W)
+        if x.device != p.device or x.dtype != p.dtype:
+            raise ValueError(f"fused_parts argument {n}: {x.dtype} on "
+                             f"{x.device}, expected {p.dtype} on {p.device}")
+        if tuple(x.shape) != want:
+            raise ValueError(f"fused_parts argument {n}: shape "
+                             f"{tuple(x.shape)}, expected {want}")
+        if not x.is_contiguous():
+            raise ValueError(f"fused_parts argument {n} is not contiguous")
+    for name in _GEOM_FIELDS:
+        g = getattr(geom, name)
+        if g.device != p.device or g.dtype != p.dtype or not g.is_contiguous():
+            raise ValueError(f"geom.{name} must be a contiguous {p.dtype} "
+                             f"tensor on {p.device}, got {g.dtype} on "
+                             f"{g.device}")
+
+
+def fused_parts(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
+                coriolis=False, q_limiter=False):
+    """K1: returns ``(p_n, v_n, t_n, q_n, pu_partial, pg_phi)`` exactly as
+    :func:`fused_parts_ref`.  ``p``/``sp`` are (H,W), the rest (L,H,W)."""
+    fields = (p, u, v, t, q, sp, su, sv, st, sq, spu)
+    device = p.device
+    if device.type == "cpu":
+        if any(x.device.type != "cpu" for x in fields):
+            raise ValueError("fused_parts: mixed devices")
+        return fused_parts_ref(*fields, dt, geom, coriolis=coriolis,
+                               q_limiter=q_limiter)
+    if device.type != "cuda":
+        raise ValueError(f"fused_parts runs on cuda or cpu, not {device}")
+    _check(fields, geom)
+    fn = _library()
+    L, H, W = geom.layers, geom.height, geom.width
+    outs = [torch.empty((H, W), dtype=p.dtype, device=device)] + [
+        torch.empty((L, H, W), dtype=p.dtype, device=device) for _ in range(5)]
+    scratch = [torch.empty((L, H, W), dtype=p.dtype, device=device)
+               for _ in range(3)]
+
+    def ptr_array(tensors):
+        return (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+
+    dt = float(dt)
+    consts = (ctypes.c_double * 8)(
+        dt, 1.0 / dt, constants.kappa, constants.Rd, constants.Cp, constants.G,
+        1.0 / constants.P0, 2 * constants.earth_omega)
+    with torch.cuda.device(device):
+        err = fn(int(p.dtype == torch.float64), ptr_array(fields),
+                 ptr_array([getattr(geom, n) for n in _GEOM_FIELDS]),
+                 ptr_array(outs), ptr_array(scratch), L, H, W, consts,
+                 int(bool(coriolis)), int(bool(q_limiter)),
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_parts kernel launch failed: CUDA error {err}")
+    fused_parts.launches += 1
+    return tuple(outs)
+
+
+fused_parts.launches = 0

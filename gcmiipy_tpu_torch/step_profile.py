@@ -1,0 +1,98 @@
+"""Where the time of one Matsuno step goes on the GPU.
+
+    python -m gcmiipy_tpu_torch.step_profile [--height 512 --width 1024
+        --layers 9 --dt 30 --steps 10 --backend fused xla --trace-dir DIR]
+
+For each backend it runs ``--steps`` warm steps of the dynamics step under
+``torch.profiler`` (CPU + CUDA activities) and prints one JSON line: the
+wall ms per step (host clock around as many synchronised steps run without
+the profiler), the device busy ms
+per step (sum of the device-side events' time; one stream, so they do
+not overlap), the idle share, and the kernels by device time.  With
+``--trace-dir`` it also writes a Chrome trace per backend there.
+"""
+
+import argparse
+import json
+import os
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from gcmiipy_tpu_torch.device import resolve_device
+from gcmiipy_tpu_torch.grid import geometry
+from gcmiipy_tpu_torch.model import driver
+from gcmiipy_tpu_torch.model.config import ModelConfig
+
+
+def _device_us(event):
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(event, name):
+            return getattr(event, name)
+    return 0.0
+
+
+def profile_backend(backend, height, width, layers, dt, steps, device,
+                    trace_dir=None, top=8):
+    """Profile ``steps`` steps of one backend; returns the summary dict."""
+    config = ModelConfig(backend=backend, dt=dt)
+    geom = geometry.gen_geometry(height, width, layers,
+                                 sig_func=geometry.manabe_sig,
+                                 dtype=torch.float32, device=device)
+    step = driver.make_dynamics_step(geom, config,
+                                     driver.make_filter_fn(config, geom))
+    state = tuple(driver.gen_model_state(geom, config).prog)
+    for _ in range(3):
+        state = step(*state)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        state = step(*state)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state = step(*state)
+        torch.cuda.synchronize()
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, f"{backend}.json"))
+    # the device-side events themselves (kernels, copies), not the host ops
+    # that launched them, so no time is counted twice
+    kernels = [(e.key, _device_us(e) / 1e3 / steps, e.count // steps)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels)
+    return {
+        "backend": backend, "grid": [layers, height, width], "dt": dt,
+        "steps": steps, "device": torch.cuda.get_device_name(device),
+        "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+        "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+        "kernels_per_step": sum(k[2] for k in kernels),
+        "top": [{"name": n[:80], "ms_per_step": ms, "calls_per_step": c}
+                for n, ms, c in kernels[:top]],
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--height", type=int, default=512)
+    ap.add_argument("--width", type=int, default=1024)
+    ap.add_argument("--layers", type=int, default=9)
+    ap.add_argument("--dt", type=float, default=30.0)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--backend", nargs="+", default=["fused", "xla"])
+    ap.add_argument("--trace-dir", default=None)
+    args = ap.parse_args()
+    device = resolve_device("cuda")
+    for backend in args.backend:
+        print(json.dumps(profile_backend(
+            backend, args.height, args.width, args.layers, args.dt,
+            args.steps, device, args.trace_dir)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

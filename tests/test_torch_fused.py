@@ -1,0 +1,208 @@
+"""PyTorch port: K1 (``ops/fused_parts.py``) and the 'fused' Matsuno step.
+
+On the CPU the wrapper runs its plain version, which is held against the
+JAX package's K1 (``pallas_stencil.make_fused_parts_padded``) in interpret
+mode, as tests/test_pallas_fused.py runs it, at float64.  The CUDA kernel
+itself is held against the plain version by the ``gpu`` tests (skipped
+without a card) and by chip_smoke.py.
+"""
+
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gcmiipy_tpu.dynamics import core25d as jcore
+from gcmiipy_tpu.dynamics import fused as jfused
+from gcmiipy_tpu.grid import geometry as jgeometry
+from gcmiipy_tpu.ops import pallas_stencil as ps
+from gcmiipy_tpu_torch.dynamics import core25d, fused
+from gcmiipy_tpu_torch.grid import geometry
+from gcmiipy_tpu_torch.ops import cuda_lib
+from gcmiipy_tpu_torch.ops.fused_parts import (
+    MAX_LAYERS, _check, fused_parts, fused_parts_ref)
+
+from torch_port_helpers import (
+    FIELDS, as_jax, as_torch, assert_close, port_geom, random_state)
+
+torch.set_num_threads(1)
+
+OUTS = ("p_n", "v_n", "t_n", "q_n", "pu_partial", "pg_phi")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _geom(hill=False, layers=3):
+    hm = None
+    if hill:  # tests/test_pallas_fused.py:46-60
+        hm = np.zeros((16, 128))
+        hm[4:8, 10:40] = 1500.0
+    return jgeometry.gen_geometry(16, 128, layers,
+                                  sig_func=jgeometry.manabe_sig, heightmap=hm)
+
+
+def _k1_args(jg, seed=0):
+    base, seval = random_state(jg, seed), random_state(jg, seed + 1)
+    spu = np.asarray(jcore.calc_pu(*as_jax(seval[:2])))
+    return base + seval + (spu,)
+
+
+@pytest.mark.parametrize("coriolis,q_limiter,hill", [
+    (False, False, False), (True, False, True), (False, True, False)])
+def test_fused_parts_ref_matches_jax_k1_interpret(coriolis, q_limiter, hill):
+    jg = _geom(hill)
+    args = _k1_args(jg)
+    k1 = ps.make_fused_parts_padded(jg, 300.0, coriolis=coriolis,
+                                    dtype=jnp.float64, interpret=True,
+                                    q_limiter=q_limiter)
+    ref = k1(*(ps.pad_state(x) for x in as_jax(args)))
+    ref = tuple(ps.core(x) for x in ref[:4]) + tuple(ref[4:])
+    out = fused_parts_ref(*as_torch(args), 300.0, port_geom(jg),
+                          coriolis=coriolis, q_limiter=q_limiter)
+    assert_close(out, ref, 1e-11, 1e-11, OUTS)
+
+
+def test_fused_parts_on_cpu_runs_the_plain_version():
+    jg = _geom(hill=True)
+    args = as_torch(_k1_args(jg, seed=4))
+    before = fused_parts.launches
+    out = fused_parts(*args, 300.0, port_geom(jg), coriolis=True,
+                      q_limiter=True)
+    ref = core25d.half_timestep_parts(*args, 300.0, port_geom(jg),
+                                      coriolis=True, q_limiter=True)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert fused_parts.launches == before  # no kernel launched on the CPU
+
+
+def test_fused_parts_refuses_other_devices():
+    jg = _geom()
+    args = list(as_torch(_k1_args(jg)))
+    with pytest.raises(ValueError, match="mixed devices"):
+        fused_parts(*args[:-1], args[-1].to("meta"), 300.0, port_geom(jg))
+    meta = [x.to("meta") for x in args]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_parts(*meta, 300.0, port_geom(jg))
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity",
+                                   "geom_dtype", "layers"])
+def test_fused_parts_checks_its_arguments(fault):
+    jg = _geom()
+    geom = port_geom(jg)
+    args = list(as_torch(_k1_args(jg)))
+    if fault == "dtype":
+        args = [x.to(torch.float16) for x in args]
+    elif fault == "shape":
+        args[3] = args[3][:, :8]
+    elif fault == "contiguity":
+        args[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
+    elif fault == "geom_dtype":
+        geom = geom.to(dtype=torch.float32)
+    else:
+        geom = port_geom(jgeometry.gen_geometry(16, 128, MAX_LAYERS + 1))
+    with pytest.raises((TypeError, ValueError)):
+        _check(args, geom)
+
+
+def test_fused_parts_checks_accept_valid_arguments():
+    jg = _geom()
+    _check(as_torch(_k1_args(jg)), port_geom(jg))
+
+
+def test_fused_step_matches_jax_fused_and_port_core():
+    jg = _geom(hill=True)
+    tg = port_geom(jg)
+    s = random_state(jg, seed=7)
+    jstep = jfused.make_fused_step(jg, 300.0, coriolis=True,
+                                   dtype=jnp.float64, interpret=True)
+    tstep = fused.make_fused_step(tg, 300.0, coriolis=True)
+    sj, st, sc = as_jax(s), as_torch(s), as_torch(s)
+    for _ in range(2):
+        sj, st = jstep(*sj), tstep(*st)
+        sc = core25d.matsuno_timestep(*sc, 300.0, tg, coriolis=True)
+    assert_close(st, sj, 1e-11, 1e-11, FIELDS)
+    assert_close(st, [x.numpy() for x in sc], 1e-12, 1e-12, FIELDS)
+    assert torch.all(st[2][:, -1, :] == 0)  # polar wall
+
+
+@pytest.mark.parametrize("shape", [(9, 24, 36), (3, 8, 8)])
+def test_fused_step_runs_k1_on_an_off_tile_grid(shape):
+    """Unlike the JAX package (which takes its plain core on grids that are
+    not 8 | height and 128 | width), the port runs K1 on every grid."""
+    L, H, W = shape
+    jg = jgeometry.gen_geometry(H, W, L)
+    tg = port_geom(jg)
+    s = random_state(jg, seed=1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tstep = fused.make_fused_step(tg, 300.0)
+    sc = as_torch(s)
+    st = tstep(*as_torch(s))
+    sc = core25d.matsuno_timestep(*sc, 300.0, tg)
+    sj = jcore.matsuno_timestep(*as_jax(s), 300.0, jg)
+    assert_close(st, [x.numpy() for x in sc], 1e-12, 1e-12, FIELDS)
+    assert_close(st, sj, 1e-11, 1e-11, FIELDS)
+
+
+def test_kernel_library_is_named_by_source_and_flags(tmp_path, monkeypatch):
+    src, lib = cuda_lib.library_path("fused_parts")
+    assert src.endswith("csrc/fused_parts.cu") and lib.endswith(".so")
+    assert lib.startswith(cuda_lib.BUILD_DIR)
+    monkeypatch.setattr(cuda_lib, "NVCC_FLAGS", cuda_lib.NVCC_FLAGS + ("-g",))
+    assert cuda_lib.library_path("fused_parts")[1] != lib
+    text = open(src).read()
+    assert "torch/extension.h" not in text and "extern \"C\"" in text
+    assert "--use_fast_math" not in cuda_lib.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
+
+
+def test_nvcc_missing_raises(monkeypatch):
+    monkeypatch.setattr(cuda_lib.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_lib.os.path, "isfile", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_lib.nvcc_path()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12),
+                                         (torch.float32, 1e-5)])
+@pytest.mark.parametrize("coriolis,q_limiter,hill", [
+    (False, False, False), (True, True, True)])
+def test_kernel_matches_plain_version_on_gpu(cuda_device, dtype, bound,
+                                             coriolis, q_limiter, hill):
+    jg = _geom(hill)
+    geom = port_geom(jg).to(dtype=dtype, device=cuda_device)
+    args = [x.to(dtype=dtype, device=cuda_device)
+            for x in as_torch(_k1_args(jg, seed=3))]
+    before = fused_parts.launches
+    out = fused_parts(*args, 900.0, geom, coriolis=coriolis,
+                      q_limiter=q_limiter)
+    torch.cuda.synchronize()
+    assert fused_parts.launches == before + 1
+    ref = fused_parts_ref(*args, 900.0, geom, coriolis=coriolis,
+                          q_limiter=q_limiter)
+    for name, a, b in zip(OUTS, out, ref):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= bound, (name, err)
+
+
+@pytest.mark.gpu
+def test_fused_step_on_gpu_launches_k1_on_an_off_tile_grid(cuda_device):
+    jg = jgeometry.gen_geometry(24, 36, 9)
+    tg = port_geom(jg)
+    s = as_torch(random_state(jg, seed=2))
+    before = fused_parts.launches
+    out = fused.make_fused_step(tg.to(device=cuda_device), 300.0)(
+        *[x.to(cuda_device) for x in s])
+    torch.cuda.synchronize()
+    assert fused_parts.launches == before + 2
+    ref = core25d.matsuno_timestep(*s, 300.0, tg)
+    assert_close(out, [x.numpy() for x in ref], 1e-12, 1e-12, FIELDS)
