@@ -6,14 +6,20 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 # Phases, one log line each (with elapsed seconds); any failure exits
 # non-zero and prints no result:
 #   device   the card's name and power limit (nvidia-smi) and torch's name;
-#   build    nvcc builds the kernel source of the path (csrc/fused_parts.cu);
-#   kernels  each kernel against its plain PyTorch version on the card;
-#   main     run_model(512, 1024, 9, 30.0, 20, backend='fused', guard=True)
-#            with the launch counts read around it, held against the same
-#            run on the plain core (backend='xla'); then both backends from
-#            a perturbed start, compared after 1 and after 20 steps;
-#   timing   ms/step of both backends (windows of 20 steps between CUDA
-#            events), each kernel's ms beside its bound.
+#   build    nvcc builds the kernel sources of the paths (csrc/fused_parts.cu
+#            and csrc/mega_step.cu, both at once) and prints ptxas' counts;
+#   kernels  each kernel against its plain PyTorch version on the card: K1
+#            (fused_parts) and K6 (mega_step);
+#   main     each path with its launch counts set to 0 just before it and
+#            read just after: run_model(512, 1024, 9, 30.0, 20, guard=True)
+#            with backend='fused' (K1) and backend='mega4' (K6), held against
+#            the plain core (backend='xla', and for mega4 also xla with
+#            polar_filter='dft' and the fused run); then the backends from a
+#            perturbed start, compared after 1 and after 20 steps; then one
+#            step of make_fused_matsuno (K2's path, K1's kernel);
+#   timing   ms/step of the three backends (windows of 20 steps between CUDA
+#            events, each backend twice), each kernel's ms beside its bound,
+#            its plain version's and, for K6's filter, torch.fft's.
 # The line before the last is the kernels JSON, the last the result JSON.
 # Imports nothing of JAX: the card's machine needs none.
 
@@ -28,12 +34,18 @@ import torch
 
 T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core
+# Peak rate of each arithmetic type: float32 outside the tensor cores, and
+# float64 on them (DMMA; 34e12 outside), the least time the work could take
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
 # bounds of scripts/tpu_parity.py: fused pipeline vs the plain core
 STEP1_REL, RUN_REL, DRIFT_PA = 1e-4, 2e-3, 0.5
 # kernel vs its plain version: same operations in the same order (fmad off),
 # so only pow/sin ulps and the compiler's choices can differ
 KERNEL_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# K6 vs its plain version after one call: the DFT filter sums W terms in the
+# kernel's order against cuBLAS's, so agreement is to rounding, not bitwise
+MEGA_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
+SOURCES = ("fused_parts", "mega_step")
 # The flagship bench grid at its full width.  dt is bench.py's for this grid:
 # at 512 latitude rows dt=900 breaks the meridional CFL limit (the polar
 # filter acts zonally only), and the guard stops the run at step 1-2, in the
@@ -63,18 +75,8 @@ def abs_err(out, ref):
 
 def random_state(geom, seed, device, dtype):
     """(p, u, v, t, q): the recipe of tests/test_pallas_fused.py:_initial."""
-    from gcmiipy_tpu_torch import constants
-    rng = np.random.default_rng(seed)
-    L, H, W = geom.layers, geom.height, geom.width
-    p = 1e5 * (1 + 1e-3 * rng.standard_normal((H, W)))
-    u = 0.5 * rng.standard_normal((L, H, W))
-    v = 0.5 * rng.standard_normal((L, H, W))
-    tp = p[None] * geom.sig.double().cpu().numpy() + float(geom.ptop)
-    t = ((300 + 5 * rng.standard_normal((L, H, W)))
-         * (constants.P0 / tp) ** constants.kappa)
-    q = 1e-5 * (1 + 0.1 * rng.random((L, H, W)))
-    return tuple(torch.as_tensor(x).to(device=device, dtype=dtype)
-                 for x in (p, u, v, t, q))
+    from gcmiipy_tpu_torch.model.state import random_prognostics
+    return tuple(random_prognostics(geom, seed, dtype))
 
 
 def k1_inputs(shape, dtype, hill, device):
@@ -96,10 +98,11 @@ def k1_inputs(shape, dtype, hill, device):
     return geom, base + seval + (spu,)
 
 
-def count_ops(fn, *args, **kw):
+def count_ops(fn, *args, dtypes=None, **kw):
     """Arithmetic operations the plain version performs: one per output
     element of each elementwise arithmetic op (rolls, copies and
-    concatenations move data and are not counted)."""
+    concatenations move data and are not counted), of the ``dtypes`` given
+    (all when None)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     arith = {"add", "sub", "mul", "div", "pow", "neg", "reciprocal", "sin",
              "maximum", "minimum", "clamp", "rsub"}
@@ -109,7 +112,8 @@ def count_ops(fn, *args, **kw):
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
-            if func.__name__.split(".")[0] in arith and torch.is_tensor(out):
+            if (func.__name__.split(".")[0] in arith and torch.is_tensor(out)
+                    and (dtypes is None or out.dtype in dtypes)):
                 Count.ops += out.numel()
             return out
 
@@ -146,17 +150,21 @@ def phase_device():
 
 
 def phase_build():
+    """Both sources at once (one nvcc each), with ptxas' register counts."""
     from gcmiipy_tpu_torch.ops import cuda_lib
     t = time.perf_counter()
-    text = cuda_lib.build("fused_parts")
-    entry = "?"
-    for line in (text or "").splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "registers" in line or "spill" in line:
-            log("build", f"fused_parts {entry}: {line.split(':', 1)[-1].strip()}")
-    log("build", f"fused_parts {'built' if text is not None else 'found'} in "
-                 f"{time.perf_counter() - t:.1f}s ({cuda_lib.BUILD_DIR})")
+    built = cuda_lib.build_many(SOURCES)
+    for name, (text, seconds) in built.items():
+        entry = "?"
+        for line in (text or "").splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log("build", f"{name} {entry}: {line.split(':', 1)[-1].strip()}")
+        log("build", f"{name} {'built' if text is not None else 'found'} in "
+                     f"{seconds:.1f}s")
+    log("build", f"all sources in {time.perf_counter() - t:.1f}s "
+                 f"({cuda_lib.BUILD_DIR})")
 
 
 def phase_kernels(device):
@@ -196,11 +204,70 @@ def phase_kernels(device):
     return main_abs
 
 
-def _config(backend):
+def k6_inputs(shape, dtype, hill, device):
+    """Geometry, the K6 step (:class:`MegaStep`) and a random state."""
+    from gcmiipy_tpu_torch.grid import geometry
+    L, H, W = shape
+    hm = None
+    if hill:
+        hm = np.zeros((H, W))
+        hm[H // 4:H // 2, W // 8:W // 3] = 1500.0
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 heightmap=hm, dtype=dtype, device=device)
+    return geom, random_state(geom, 2, device, dtype)
+
+
+def phase_kernels_k6(device):
+    """K6 against its plain version after one call: float32 at the main
+    path's shape (flat without Coriolis; hill with Coriolis; the q limiter),
+    float64 at 3x24x36 (rows of 0 and 1 chunk, and the q limiter) and at
+    3x512x1024 (128 rows each of 1, 2, 3 and 4 chunks)."""
+    from gcmiipy_tpu_torch.ops import polar_filter
+    from gcmiipy_tpu_torch.ops.mega_step import MegaStep, mega_step_ref
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    cases = [(main_shape, torch.float32, False, False, False),
+             (main_shape, torch.float32, True, False, True),
+             (main_shape, torch.float32, False, True, False),
+             ((3, 24, 36), torch.float64, False, False, False),
+             ((3, 24, 36), torch.float64, True, True, True),
+             ((3, 512, 1024), torch.float64, True, False, True)]
+    worst = {}
+    main_abs = 0.0
+    for shape, dtype, coriolis, q_limiter, hill in cases:
+        geom, state = k6_inputs(shape, dtype, hill, device)
+        step = MegaStep(geom, MAIN["dt"], coriolis=coriolis,
+                        q_limiter=q_limiter)
+        out = step(*state)
+        torch.cuda.synchronize()
+        ref = mega_step_ref(*state, MAIN["dt"], geom, step.consts,
+                            coriolis=coriolis, q_limiter=q_limiter)
+        if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(out, ref)):
+            fail("kernels", "mega_step output shapes differ")
+        if not all(torch.isfinite(a).all() for a in out):
+            fail("kernels", "mega_step output not finite")
+        if not bool((out[2][:, -1] == 0).all()):
+            fail("kernels", "mega_step: v not 0 on the wall row")
+        rel = rel_err(out, ref)
+        chunks = np.bincount(polar_filter.band_chunk_counts(geom.polar_mask))
+        tag = (f"mega_step {tuple(shape)} {str(dtype)[6:]} coriolis={coriolis}"
+               f" q_limiter={q_limiter} hill={hill} (rows by chunk count "
+               f"{chunks.tolist()})")
+        log("kernels", f"{tag}: max rel {rel:.3e} (bound {MEGA_REL[dtype]:g})")
+        if not rel <= MEGA_REL[dtype]:
+            fail("kernels", tag + " disagrees with mega_step_ref")
+        worst[dtype] = max(worst.get(dtype, 0.0), rel)
+        if dtype == torch.float32:
+            main_abs = max(main_abs, abs_err(out, ref))
+    log("kernels", "mega_step ok: max rel float32 "
+                   f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
+    return main_abs
+
+
+def _config(backend, polar_filter="fft"):
     from gcmiipy_tpu_torch.model.config import ModelConfig
     return ModelConfig(height=MAIN["height"], width=MAIN["width"],
                        layers=MAIN["layers"], dt=MAIN["dt"], backend=backend,
-                       guard=True)
+                       polar_filter=polar_filter, guard=True)
 
 
 def _check_run(tag, state, stats, guard=None):
@@ -213,20 +280,21 @@ def _check_run(tag, state, stats, guard=None):
         fail("main", f"{tag}: stats not finite")
 
 
-def _run_model(backend, device):
+def _run_model(backend, device, steps, polar_filter="fft"):
     """The user's entry point, from the reference's quiescent start."""
     from gcmiipy_tpu_torch.model.driver import run_model
+    tag = f"run_model {backend}/{polar_filter} {steps} steps"
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         out = run_model(MAIN["height"], MAIN["width"], MAIN["layers"],
-                        MAIN["dt"], MAIN["steps"], config=_config(backend),
-                        device=device)
+                        MAIN["dt"], steps,
+                        config=_config(backend, polar_filter), device=device)
         torch.cuda.synchronize()
     for w in caught:
         if "blew up" in str(w.message):
-            fail("main", f"run_model {backend}: {w.message}")
-        log("main", f"run_model {backend} warned: {w.message}")
-    _check_run(f"run_model {backend}", out[:5], out[7])
+            fail("main", f"{tag}: {w.message}")
+        log("main", f"{tag} warned: {w.message}")
+    _check_run(tag, out[:5], out[7])
     return out[:5], out[7]
 
 
@@ -240,107 +308,236 @@ def perturbed_state(geom, device):
         *random_state(geom, 5, device, torch.float32)))
 
 
-def _run_from(backend, geom, state, steps):
+def _run_from(backend, geom, state, steps, polar_filter="fft"):
     """``make_run_fn`` (the loop under ``run_model``) from ``state``."""
     from gcmiipy_tpu_torch.model.driver import make_run_fn
-    state, stats, guard = make_run_fn(geom, _config(backend), steps)(state)
-    _check_run(f"{backend} from the perturbed state", state.prog, stats, guard)
-    return state
+    state, stats, guard = make_run_fn(
+        geom, _config(backend, polar_filter), steps)(state)
+    _check_run(f"{backend}/{polar_filter} from the perturbed state",
+               state.prog, stats, guard)
+    return state.prog
+
+
+def _held(tag, one, run, one_ref, run_ref, moved=None):
+    """The tpu_parity.py bounds: step-1 rel, n-step rel, p drift."""
+    rel1 = rel_err(one, one_ref) if one is not None else None
+    rel_n = rel_err(run, run_ref)
+    drift = float((run[0] - run_ref[0]).abs().max())
+    msg = (f"{tag}: " + (f"step-1 rel {rel1:.3e} (< {STEP1_REL:g}), "
+                         if rel1 is not None else "")
+           + f"{MAIN['steps']}-step rel {rel_n:.3e} (< {RUN_REL:g}), "
+           f"p drift {drift:.3e} Pa (< {DRIFT_PA:g})")
+    log("main", msg + (f"; {moved}" if moved else ""))
+    if not ((rel1 is None or rel1 < STEP1_REL) and rel_n < RUN_REL
+            and drift < DRIFT_PA):
+        fail("main", tag + " outside the tpu_parity.py bounds")
+
+
+def _counted(kernels, fn):
+    """Run ``fn`` with the kernels' launch counts set to 0 just before it;
+    returns (fn's result, the counts just after)."""
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [k.launches for k in kernels]
 
 
 def phase_main(device):
-    """The main path: run_model with backend='fused', launches counted
-    around it, held against the plain core (backend='xla') at the bounds of
-    scripts/tpu_parity.py; then the same comparison from a perturbed start,
-    where every field moves, after 1 and after 20 steps."""
+    """Each path with its launches counted: run_model with backend='fused'
+    (K1) against the plain core; run_model with backend='mega4' (K6)
+    against the plain core with the DFT filter and against 'fused'; both
+    from a perturbed start after 1 and 20 steps; one step of K2's path."""
+    from gcmiipy_tpu_torch.dynamics import core25d, fused
     from gcmiipy_tpu_torch.grid import geometry
     from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
+    from gcmiipy_tpu_torch.ops.mega_step import mega_step
+    kernels = (fused_parts, mega_step)
     n = MAIN["steps"]
-    fused_parts.launches = 0
+    launches = {}
+
     t = time.perf_counter()
-    fused_n, stats = _run_model("fused", device)
-    launches = fused_parts.launches
+    (fused_n, stats), counts = _counted(kernels, lambda: _run_model(
+        "fused", device, n))
+    launches["fused_parts"] = counts[0]
     log("main", f"run_model fused {n} steps in {time.perf_counter() - t:.2f}s, "
-                f"fused_parts launches {launches}, total energy drift "
+                f"launches fused_parts {counts[0]} mega_step {counts[1]}, "
+                f"total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if launches != 2 * n:
-        fail("main", f"fused_parts launched {launches} times, expected {2 * n}")
-    xla_n, _ = _run_model("xla", device)
-    rel_n = rel_err(fused_n, xla_n)
-    drift = float((fused_n[0] - xla_n[0]).abs().max())
-    log("main", f"run_model fused vs plain core: {n}-step rel {rel_n:.3e} "
-                f"(< {RUN_REL:g}), p drift {drift:.3e} Pa (< {DRIFT_PA:g})")
-    if not (rel_n < RUN_REL and drift < DRIFT_PA):
-        fail("main", "run_model fused outside the tpu_parity.py bounds")
+    if counts != [2 * n, 0]:
+        fail("main", f"run_model fused launched {counts}, expected [{2 * n}, 0]")
+
+    t = time.perf_counter()
+    (mega_n, stats), counts = _counted(kernels, lambda: _run_model(
+        "mega4", device, n))
+    launches["mega_step"] = counts[1]
+    log("main", f"run_model mega4 {n} steps in {time.perf_counter() - t:.2f}s, "
+                f"launches fused_parts {counts[0]} mega_step {counts[1]}, "
+                f"total energy drift "
+                f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
+    if counts != [0, n]:
+        fail("main", f"run_model mega4 launched {counts}, expected [0, {n}]")
+
+    xla_n, _ = _run_model("xla", device, n)
+    dft_n, _ = _run_model("xla", device, n, "dft")
+    one = {b: _run_model(b, device, 1, pf)[0] for b, pf in
+           (("mega4", "fft"), ("fused", "fft"), ("xla", "dft"))}
+    _held("run_model fused vs plain core (fft)", None, fused_n, None, xla_n)
+    _held("run_model mega4 vs plain core (dft)", one["mega4"], mega_n,
+          one["xla"], dft_n)
+    _held("run_model mega4 vs fused", one["mega4"], mega_n, one["fused"],
+          fused_n)
 
     geom = geometry.gen_geometry(MAIN["height"], MAIN["width"], MAIN["layers"],
                                  sig_func=geometry.manabe_sig,
                                  dtype=torch.float32, device=device)
     start = perturbed_state(geom, device)
-    out = {b: (_run_from(b, geom, start, 1), _run_from(b, geom, start, n))
-           for b in ("fused", "xla")}
-    rel1 = rel_err(out["fused"][0].prog, out["xla"][0].prog)
-    rel_n = rel_err(out["fused"][1].prog, out["xla"][1].prog)
-    drift = float((out["fused"][1].prog.p - out["xla"][1].prog.p).abs().max())
-    moved = rel_err(out["xla"][1].prog, start.prog)
-    moved_p = float((out["xla"][1].prog.p - start.prog.p).abs().max())
-    log("main", f"perturbed start, fused vs plain core: step-1 rel {rel1:.3e} "
-                f"(< {STEP1_REL:g}), {n}-step rel {rel_n:.3e} (< {RUN_REL:g}), "
-                f"p drift {drift:.3e} Pa (< {DRIFT_PA:g}); the plain run moved "
-                f"the state by rel {moved:.3e}, p by {moved_p:.3e} Pa")
-    if not (rel1 < STEP1_REL and rel_n < RUN_REL and drift < DRIFT_PA):
-        fail("main", "fused run outside the tpu_parity.py bounds")
-    if not moved_p > DRIFT_PA:
+    runs = (("fused", "fft"), ("mega4", "fft"), ("xla", "fft"), ("xla", "dft"))
+    out = {(b, pf): (_run_from(b, geom, start, 1, pf),
+                     _run_from(b, geom, start, n, pf)) for b, pf in runs}
+    moved = (f"the plain run moved the state by rel "
+             f"{rel_err(out['xla', 'fft'][1], start.prog):.3e}, p by "
+             f"{float((out['xla', 'fft'][1][0] - start.prog.p).abs().max()):.3e} Pa")
+    _held("perturbed start, fused vs plain core (fft)", *out["fused", "fft"],
+          *out["xla", "fft"], moved)
+    _held("perturbed start, mega4 vs plain core (dft)", *out["mega4", "fft"],
+          *out["xla", "dft"])
+    _held("perturbed start, mega4 vs fused", *out["mega4", "fft"],
+          *out["fused", "fft"])
+    if not float((out["xla", "fft"][1][0] - start.prog.p).abs().max()) > DRIFT_PA:
         fail("main", "the perturbed run did not move p past the drift bound")
-    return launches, geom, start
+
+    # K2's path: make_fused_matsuno on unpadded fields, one step
+    prog = tuple(start.prog)
+    k2_step = fused.make_fused_matsuno(geom, MAIN["dt"])
+    k2_out, counts = _counted(kernels, lambda: k2_step(*prog))
+    launches["k2"] = counts[0]
+    if counts != [2, 0]:
+        fail("main", f"make_fused_matsuno launched {counts}, expected [2, 0]")
+    ref = core25d.matsuno_timestep(*prog, MAIN["dt"], geom)
+    k2_rel = rel_err(k2_out, ref)
+    log("main", f"make_fused_matsuno (K2's path) one step, fused_parts "
+                f"launches {counts[0]}: vs plain core rel {k2_rel:.3e} "
+                f"(< {STEP1_REL:g})")
+    if not k2_rel < STEP1_REL:
+        fail("main", "make_fused_matsuno outside the step-1 bound")
+    return launches, geom, start, abs_err(k2_out, ref)
+
+
+def _bytes(tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def _row(name, source, replaces, launches, max_abs, ms, plain_ms, nbytes,
+         ops, library_ms, tag):
+    """A kernels-JSON row; ``ops`` maps each arithmetic type to the
+    operations done in it, each timed at that type's peak rate."""
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = sum(1e3 * n / PEAK_OPS_PER_S[t] for t, n in ops.items())
+    bound_ms = max(bytes_ms, ops_ms)
+    op_text = " + ".join(f"{n / 1e9:.3f} Gop {str(t)[6:]}"
+                         for t, n in ops.items())
+    log("timing", f"{tag} {ms:.4f} ms/call, plain {plain_ms:.4f} ms; bound "
+                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f}"
+                  f" ms; {op_text} -> {ops_ms:.4f} ms); "
+                  f"{100 * bound_ms / ms:.1f}% of bound")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": max_abs,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
 
 
 def phase_timing(device, launches, max_abs, geom, start):
+    from gcmiipy_tpu_torch.dynamics import core25d
     from gcmiipy_tpu_torch.model.driver import make_run_fn
-    from gcmiipy_tpu_torch.ops.fused_parts import fused_parts, fused_parts_ref
+    from gcmiipy_tpu_torch.ops import polar_filter
+    from gcmiipy_tpu_torch.ops.fused_parts import (
+        GEOM_FIELDS, fused_parts, fused_parts_ref)
+    from gcmiipy_tpu_torch.ops.mega_step import MegaStep, mega_step_ref
 
     # ms/step of the whole loop (make_run_fn with the guard and the stats):
     # windows of STEP_WINDOW steps between CUDA events, no host sync inside
-    # a window, in the order plain, fused, fused, plain.
-    runs = {b: make_run_fn(geom, _config(b), STEP_WINDOW)
-            for b in ("xla", "fused")}
+    # a window, each backend twice, in the order x f m m f x.
+    backends = ("xla", "fused", "mega4")
+    runs = {b: make_run_fn(geom, _config(b), STEP_WINDOW) for b in backends}
     for run in runs.values():
         run(start)
-    windows = {"xla": [], "fused": []}
-    for backend in ("xla", "fused", "fused", "xla"):
+    windows = {b: [] for b in backends}
+    for backend in backends + backends[::-1]:
         ms = cuda_ms(lambda: runs[backend](start), 1, warmup=0)
         windows[backend].append(ms / STEP_WINDOW)
     step_ms = {b: statistics.mean(v) for b, v in windows.items()}
-    log("timing", f"ms/step over 2 windows of {STEP_WINDOW} steps: fused "
-                  f"{step_ms['fused']:.4f} ({windows['fused'][0]:.4f}, "
-                  f"{windows['fused'][1]:.4f}), plain core {step_ms['xla']:.4f} "
-                  f"({windows['xla'][0]:.4f}, {windows['xla'][1]:.4f})")
+    log("timing", f"ms/step over 2 windows of {STEP_WINDOW} steps: " + ", ".join(
+        f"{b} {step_ms[b]:.4f} ({windows[b][0]:.4f}, {windows[b][1]:.4f})"
+        for b in backends))
+    rows = []
+
+    def k1_timed(args, kgeom):
+        call = (*args, MAIN["dt"], kgeom)
+        geo = [getattr(kgeom, n) for n in GEOM_FIELDS]
+        return dict(source="gcmiipy_tpu_torch/csrc/fused_parts.cu",
+                    ms=cuda_ms(lambda: fused_parts(*call), 50),
+                    plain_ms=cuda_ms(lambda: fused_parts_ref(*call), 10),
+                    nbytes=_bytes((*args, *geo, *fused_parts_ref(*call))),
+                    ops={torch.float32: count_ops(fused_parts_ref, *call)},
+                    library_ms=None)
 
     # K1 alone at the main path's shape
-    geom, args = k1_inputs((MAIN["layers"], MAIN["height"], MAIN["width"]),
-                           torch.float32, False, device)
-    call = (*args, MAIN["dt"], geom)
-    ms = cuda_ms(lambda: fused_parts(*call), 50)
-    plain_ms = cuda_ms(lambda: fused_parts_ref(*call), 10)
-    outs = fused_parts_ref(*call)
-    geo = [getattr(geom, n) for n in ("dx_j", "dx_h", "lat", "heightmap", "sig",
-                                      "sigt", "sigb", "dsig", "dy", "ptop")]
-    nbytes = sum(x.numel() * x.element_size() for x in (*args, *geo, *outs))
-    ops = count_ops(fused_parts_ref, *call)
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * ops / PEAK_OPS_PER_S[torch.float32]
-    bound_ms = max(bytes_ms, ops_ms)
-    log("timing", f"fused_parts {ms:.4f} ms/launch, plain {plain_ms:.4f} ms; "
-                  f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB -> "
-                  f"{bytes_ms:.4f} ms; {ops / 1e9:.3f} Gop -> {ops_ms:.4f} ms); "
-                  f"{100 * bound_ms / ms:.1f}% of bound")
-    return {"name": "fused_parts", "route": "cuda",
-            "source": "gcmiipy_tpu_torch/csrc/fused_parts.cu",
-            "replaces": "gcmiipy_tpu/ops/pallas_stencil.py:221",
-            "launches": launches, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+    kgeom, args = k1_inputs((MAIN["layers"], MAIN["height"], MAIN["width"]),
+                            torch.float32, False, device)
+    rows.append(_row("fused_parts", replaces="gcmiipy_tpu/ops/pallas_stencil.py:221",
+                     launches=launches["fused_parts"], max_abs=max_abs["k1"],
+                     tag="fused_parts", **k1_timed(args, kgeom)))
+    # K2's path: the kernel on the inputs of make_fused_matsuno's predictor
+    # half from the perturbed start (base and evaluated state both the start)
+    prog = tuple(start.prog)
+    spu = polar_filter.arakawa_1977(core25d.calc_pu(prog[0], prog[1]), geom)
+    rows.append(_row("fused_parts (make_fused_matsuno, K2's path)",
+                     replaces="gcmiipy_tpu/ops/pallas_stencil.py:41",
+                     launches=launches["k2"], max_abs=max_abs["k2"],
+                     tag="fused_parts on K2's path",
+                     **k1_timed((*prog, *prog, spu), geom)))
+
+    # K6 alone at the main path's shape, from the perturbed start
+    step = MegaStep(geom, MAIN["dt"])
+    state = prog
+    ms = cuda_ms(lambda: step(*state), 20)
+    plain_ms = cuda_ms(lambda: mega_step_ref(*state, MAIN["dt"], geom,
+                                             step.consts), 5)
+    fc = step.consts
+    geo = [getattr(geom, n) for n in GEOM_FIELDS]
+    nbytes = _bytes((*state, *geo, *fc, *mega_step_ref(*state, MAIN["dt"], geom,
+                                                       fc)))
+    # the float32 elementwise operations of the plain version (its float64
+    # mask products and adds in the filter are counted with the filter),
+    # and the filter's float64 multiply-adds from this run's trip counts:
+    # 2 rounds, each listed row c chunks of (W x 256 forward + 256 x W
+    # inverse), 2 operations each
+    chunk_rows = int(fc.row_counts.sum())
+    filter_ops = 2 * chunk_rows * 2 * 256 * MAIN["width"] * 2
+    ops = {torch.float32: count_ops(mega_step_ref, *state, MAIN["dt"], geom,
+                                    fc, dtypes=(torch.float32,)),
+           torch.float64: filter_ops}
+    # the library yardstick of the filter stage only: torch.fft on the same
+    # stacked (2L,H,W) rows, twice (a step's two rounds, which are the four
+    # L-plane filter calls of the fused step)
+    stack = torch.cat(core25d.pgf_forces(state[0], state[1], state[3],
+                                         geom)[:2], dim=0)
+    fft_ms = cuda_ms(lambda: [polar_filter.arakawa_1977(stack, geom)
+                              for _ in range(2)], 20)
+    log("timing", f"mega_step filter stage: {filter_ops / 1e9:.2f} GFLOP over "
+                  f"{chunk_rows} row-chunks, "
+                  f"{1e3 * filter_ops / PEAK_OPS_PER_S[torch.float64]:.4f} ms at "
+                  f"the float64 peak; torch.fft rfft*mask*irfft of the same "
+                  f"stacked rows, 2 rounds: {fft_ms:.4f} ms (an FFT needs fewer "
+                  f"operations: the banded DFT form, not the card, sets this "
+                  f"bound)")
+    rows.append(_row("mega_step", "gcmiipy_tpu_torch/csrc/mega_step.cu",
+                     "gcmiipy_tpu/ops/pallas_stencil.py:1337",
+                     launches["mega_step"], max_abs["k6"], ms, plain_ms, nbytes,
+                     ops, fft_ms, "mega_step"))
+    return rows
 
 
 def main():
@@ -348,13 +545,15 @@ def main():
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     phase_build()
-    max_abs = phase_kernels(device)
-    launches, geom, start = phase_main(device)
-    row = phase_timing(device, launches, max_abs, geom, start)
+    max_abs = {"k1": phase_kernels(device)}
+    max_abs["k6"] = phase_kernels_k6(device)
+    launches, geom, start, max_abs["k2"] = phase_main(device)
+    rows = phase_timing(device, launches, max_abs, geom, start)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,0 +1,302 @@
+// Device code shared by the port's stencil kernels: the column recurrences
+// and the horizontal stencils of one half step of the 2.5D core
+// (gcmiipy_tpu_torch/dynamics/core25d.py).  K1 (fused_parts.cu) and K6
+// (mega_step.cu) both build their stages from these pieces, so the two
+// kernels round every expression alike.
+//
+// Every expression keeps the operand order of the plain PyTorch version,
+// and the library is built with -fmad=false, so each a*b+c rounds twice as
+// the separate PyTorch elementwise ops do.  Fields are unpadded contiguous
+// (L,H,W) / (H,W) arrays; every j and i index wraps periodically, as
+// torch.roll does in the plain version.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace gcm {
+
+constexpr int kMaxLayers = 32;
+constexpr int kBlock = 128;
+
+__device__ __forceinline__ float power(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double power(double x, double y) { return pow(x, y); }
+__device__ __forceinline__ float sine(float x) { return sinf(x); }
+__device__ __forceinline__ double sine(double x) { return sin(x); }
+
+template <typename T>
+struct Params {
+  // base state (p is (H,W), the rest (L,H,W))
+  const T *p, *u, *v, *t, *q;
+  // state the tendencies are evaluated at (sp is (H,W))
+  const T *sp, *su, *sv, *st, *sq;
+  // filtered zonal mass flux (L,H,W)
+  const T *spu;
+  // geometry: rows (H), heightmap (H,W), sigma ladder (L), scalars
+  const T *dx_j, *dx_h, *lat, *heightmap, *sig, *sigt, *sigb, *dsig, *dy, *ptop;
+  // new surface pressure (H,W), written by aflux_column
+  T* p_n;
+  // column scratch (L,H,W): sigma-dot, geopotential, density
+  T *sd, *phi, *rho;
+  int L, H, W;
+  // Python floats of the plain version, cast to T as PyTorch casts them
+  T dt, inv_dt, kappa, rd, cp, g, inv_p0, two_omega;
+  int coriolis, q_limiter;
+};
+
+// Params from the pointer tables of the C entry points.  in: p,u,v,t,q,
+// sp,su,sv,st,sq, spu.  geo: dx_j, dx_h, lat, heightmap, sig, sigt, sigb,
+// dsig, dy, ptop.  consts: dt, 1/dt, kappa, Rd, Cp, G, 1/P0, 2*omega.
+template <typename T>
+Params<T> make_params(void* const* in, void* const* geo, int L, int H, int W,
+                      const double* c, int coriolis, int q_limiter) {
+  Params<T> a;
+  const T* const* fin = reinterpret_cast<const T* const*>(in);
+  a.p = fin[0]; a.u = fin[1]; a.v = fin[2]; a.t = fin[3]; a.q = fin[4];
+  a.sp = fin[5]; a.su = fin[6]; a.sv = fin[7]; a.st = fin[8]; a.sq = fin[9];
+  a.spu = fin[10];
+  const T* const* g = reinterpret_cast<const T* const*>(geo);
+  a.dx_j = g[0]; a.dx_h = g[1]; a.lat = g[2]; a.heightmap = g[3];
+  a.sig = g[4]; a.sigt = g[5]; a.sigb = g[6]; a.dsig = g[7]; a.dy = g[8]; a.ptop = g[9];
+  a.p_n = nullptr; a.sd = nullptr; a.phi = nullptr; a.rho = nullptr;
+  a.L = L; a.H = H; a.W = W;
+  a.dt = T(c[0]); a.inv_dt = T(c[1]); a.kappa = T(c[2]); a.rd = T(c[3]);
+  a.cp = T(c[4]); a.g = T(c[5]); a.inv_p0 = T(c[6]); a.two_omega = T(c[7]);
+  a.coriolis = coriolis; a.q_limiter = q_limiter;
+  return a;
+}
+
+inline bool bad_shape(int L, int H, int W) {
+  return L < 1 || L > kMaxLayers || H < 1 || H > 65535 || W < 1;
+}
+
+// aflux (core25d.aflux) on column (j,i): the convergence of the filtered
+// mass flux, its column sum pit (from k = 0) and suffix sum sd (from the
+// top, sd[0] = 0); p_n = p - pit*dt.  Writes a.sd and a.p_n.
+template <typename T>
+__device__ __forceinline__ void aflux_column(const Params<T>& a, int j, int i) {
+  const int L = a.L, H = a.H, W = a.W;
+  const size_t HW = (size_t)H * W;
+  const int jp = j + 1 == H ? 0 : j + 1;
+  const int jm = j == 0 ? H - 1 : j - 1;
+  const int im = i == 0 ? W - 1 : i - 1;
+  const size_t c = (size_t)j * W + i;
+  const size_t c_jm = (size_t)jm * W + i;
+  const size_t c_im = (size_t)j * W + im;
+  const T half = T(0.5), one = T(1);
+  const T rdx_j = one / a.dx_j[j];
+  const T rdy = one / a.dy[0];
+  const T sp_c = a.sp[c];
+  const T jph_sp = (sp_c + a.sp[(size_t)jp * W + i]) * half;
+  const T jph_sp_m = (a.sp[c_jm] + sp_c) * half;
+
+  T conv[kMaxLayers];
+  for (int k = 0; k < L; ++k) {
+    const size_t o = k * HW;
+    const T spv_c = a.sv[o + c] * jph_sp;
+    const T spv_m = a.sv[o + c_jm] * jph_sp_m;
+    conv[k] = ((a.spu[o + c] - a.spu[o + c_im]) * rdx_j + (spv_c - spv_m) * rdy) * a.dsig[k];
+  }
+  T pit = conv[0];
+  for (int k = 1; k < L; ++k) pit = pit + conv[k];
+  T acc = conv[L - 1];
+  for (int k = L - 1; k >= 0; --k) {
+    if (k < L - 1) acc = acc + conv[k];
+    a.sd[k * HW + c] = k == 0 ? T(0) : acc - pit * a.sigb[k];
+  }
+  a.p_n[c] = a.p[c] - pit * a.dt;
+}
+
+// The pgf column (core25d.pgf) on column (j,i): p^kappa, rho and the
+// geopotential ladder phi.  Writes a.rho and a.phi.
+template <typename T>
+__device__ __forceinline__ void pgf_column(const Params<T>& a, int j, int i) {
+  const int L = a.L;
+  const size_t HW = (size_t)a.H * a.W;
+  const size_t c = (size_t)j * a.W + i;
+  const T half = T(0.5);
+  const T sp_c = a.sp[c];
+  const T ptop = a.ptop[0];
+  T pk[kMaxLayers], s1[kMaxLayers];
+  for (int k = 0; k < L; ++k) {
+    const T tp = sp_c * a.sig[k] + ptop;
+    pk[k] = power(tp * a.inv_p0, a.kappa);
+    const T tt = a.st[k * HW + c] * pk[k];
+    const T rho = tp / (a.rd * tt);
+    a.rho[k * HW + c] = rho;
+    s1[k] = ((a.sig[k] * sp_c) / rho) * a.dsig[k];
+  }
+  T stp[kMaxLayers];
+  for (int k = 0; k < L; ++k) {
+    const int kn = k + 1 == L ? 0 : k + 1;
+    const T kph_t = (a.st[k * HW + c] + a.st[kn * HW + c]) * half;
+    stp[k] = (a.cp * kph_t) * (pk[k] - pk[kn]);
+  }
+  T base = s1[0] - a.sigt[0] * stp[0];
+  for (int k = 1; k < L; ++k) base = base + (s1[k] - a.sigt[k] * stp[k]);
+  base = base + a.heightmap[c] * a.g;
+  T ph = base;
+  a.phi[c] = ph;
+  for (int k = 1; k < L; ++k) {
+    ph = ph + stp[k - 1];
+    a.phi[k * HW + c] = ph;
+  }
+}
+
+// The horizontal stencils (reach 2) at point (k,j,i).  The column scratch
+// (sd, phi, rho) and p_n of the neighbour columns come from a column pass
+// launched before.
+template <typename T>
+struct Point {
+  const Params<T>& a;
+  int k, j, i, ip, im, jp, jm, kn, L, H, W;
+  size_t HW, o;
+  T half, one, rdx_j, rdx_h, rdy, rdsig;
+
+  __device__ __forceinline__ Point(const Params<T>& a_, int k_, int j_, int i_)
+      : a(a_), k(k_), j(j_), i(i_), L(a_.L), H(a_.H), W(a_.W) {
+    HW = (size_t)H * W;
+    ip = i + 1 == W ? 0 : i + 1;
+    im = i == 0 ? W - 1 : i - 1;
+    jp = j + 1 == H ? 0 : j + 1;
+    jm = j == 0 ? H - 1 : j - 1;
+    kn = k + 1 == L ? 0 : k + 1;   // kp(), periodic as torch.roll
+    o = k * HW + (size_t)j * W + i;
+    half = T(0.5);
+    one = T(1);
+    rdx_j = one / a.dx_j[j];
+    rdx_h = one / a.dx_h[j];
+    rdy = one / a.dy[0];
+    rdsig = one / a.dsig[k];
+  }
+
+  __device__ __forceinline__ int wj(int jj) const { return jj == H ? 0 : (jj < 0 ? H - 1 : jj); }
+  __device__ __forceinline__ int wi(int ii) const { return ii == W ? 0 : (ii < 0 ? W - 1 : ii); }
+  // (H,W) plane and layer-kk plane of an (L,H,W) field
+  __device__ __forceinline__ T s2(const T* x, int jj, int ii) const { return x[(size_t)jj * W + ii]; }
+  __device__ __forceinline__ T s3(const T* x, int kk, int jj, int ii) const {
+    return x[kk * HW + (size_t)jj * W + ii];
+  }
+  // spv = sv * jph(sp) at layer k (calc_pv)
+  __device__ __forceinline__ T spv(int jj, int ii) const {
+    return s3(a.sv, k, jj, ii) * ((s2(a.sp, jj, ii) + s2(a.sp, wj(jj + 1), ii)) * half);
+  }
+
+  // advec_m_pu(sp, su, sv, spu, spv), with the optional Coriolis term
+  __device__ __forceinline__ void momentum(T& dut, T& dvt) const {
+    auto puum = [&](int ii) {
+      const int iim = wi(ii - 1);
+      return ((s3(a.su, k, j, ii) + s3(a.su, k, j, iim)) * half) *
+             ((s3(a.spu, k, j, ii) + s3(a.spu, k, j, iim)) * half);
+    };
+    auto puvp = [&](int jj) {
+      return ((spv(jj, i) + spv(jj, ip)) * half) *
+             ((s3(a.su, k, jj, i) + s3(a.su, k, wj(jj + 1), i)) * half);
+    };
+    auto pvvm = [&](int jj) {
+      const int jjm = wj(jj - 1);
+      return ((s3(a.sv, k, jj, i) + s3(a.sv, k, jjm, i)) * half) *
+             ((spv(jj, i) + spv(jjm, i)) * half);
+    };
+    auto pvup = [&](int ii) {
+      return ((s3(a.sv, k, j, ii) + s3(a.sv, k, j, wi(ii + 1))) * half) *
+             ((s3(a.spu, k, j, ii) + s3(a.spu, k, jp, ii)) * half);
+    };
+    T cor_u = T(0), cor_v = T(0);
+    if (a.coriolis) {
+      auto jph_spu = [&](int ii) {
+        return (s3(a.spu, k, j, ii) + s3(a.spu, k, jp, ii)) * half;
+      };
+      auto jmh_spv = [&](int ii) { return (spv(j, ii) + spv(jm, ii)) * half; };
+      const T pu_at_pv = (jph_spu(i) + jph_spu(im)) * half;
+      const T pv_at_pu = (jmh_spv(i) + jmh_spv(ip)) * half;
+      const T cp_at_u = sine(a.lat[j]) * a.two_omega;
+      const T cp_at_v = sine((a.lat[j] + a.lat[jp]) * half) * a.two_omega;
+      cor_u = cp_at_u * -pv_at_pu;
+      cor_v = cp_at_v * pu_at_pv;
+    }
+    dut = (puum(i) - puum(ip)) * rdx_j + (puvp(jm) - puvp(j)) * rdy + cor_u;
+    dvt = (pvvm(j) - pvvm(jp)) * rdy + (pvup(im) - pvup(i)) * rdx_h + cor_v;
+  }
+
+  // pgf(sp, st): the forces from the column pass's rho and phi
+  __device__ __forceinline__ void pgf(T& pgu, T& pgv, T& phiu, T& phiv) const {
+    const T sp_c = s2(a.sp, j, i), sp_ip = s2(a.sp, j, ip), sp_jp = s2(a.sp, jp, i);
+    const T sig = a.sig[k];
+    const T rho_c = s3(a.rho, k, j, i);
+    const T phi_c = s3(a.phi, k, j, i);
+    pgu = ((sig * sp_c + sig * sp_ip) * half) / ((rho_c + s3(a.rho, k, j, ip)) * half) *
+          ((sp_ip - sp_c) * rdx_j);
+    pgv = ((sig * sp_c + sig * sp_jp) * half) / ((rho_c + s3(a.rho, k, jp, i)) * half) *
+          ((sp_jp - sp_c) * rdy);
+    phiu = ((sp_c + sp_ip) * half) * ((s3(a.phi, k, j, ip) - phi_c) * rdx_j);
+    phiv = ((sp_c + sp_jp) * half) * ((s3(a.phi, k, jp, i) - phi_c) * rdy);
+  }
+
+  // advec_sig: vertical flux at layer kk of q with the sigma-dot sdv
+  __device__ __forceinline__ T vflux(const T* q, int kk, T sdv) const {
+    const int kkm = kk == 0 ? L - 1 : kk - 1;
+    return ((s3(q, kk, j, i) + s3(q, kkm, j, i)) * half) * sdv;
+  }
+
+  // advec_sig(iph(sd), su) and advec_sig(jph(sd), sv)
+  __device__ __forceinline__ void sigma(T& dus, T& dvs) const {
+    auto sd_iph = [&](int kk) { return (s3(a.sd, kk, j, i) + s3(a.sd, kk, j, ip)) * half; };
+    auto sd_jph = [&](int kk) { return (s3(a.sd, kk, j, i) + s3(a.sd, kk, jp, i)) * half; };
+    dus = -((vflux(a.su, k, sd_iph(k)) - vflux(a.su, kn, sd_iph(kn))) * rdsig);
+    dvs = -((vflux(a.sv, k, sd_jph(k)) - vflux(a.sv, kn, sd_jph(kn))) * rdsig);
+  }
+
+  // advec_t(spu, spv, x) with x = st or sq
+  __device__ __forceinline__ T adv_h(const T* x) const {
+    auto tpu = [&](int ii) {
+      return s3(a.spu, k, j, ii) * ((s3(x, k, j, ii) + s3(x, k, j, wi(ii + 1))) * half);
+    };
+    auto tpv = [&](int jj) {
+      return spv(jj, i) * ((s3(x, k, jj, i) + s3(x, k, wj(jj + 1), i)) * half);
+    };
+    return (tpu(i) - tpu(im)) * rdx_j + (tpv(j) - tpv(jm)) * rdy;
+  }
+
+  __device__ __forceinline__ T adv_sig(const T* x) const {
+    return -((vflux(x, k, s3(a.sd, k, j, i)) - vflux(x, kn, s3(a.sd, kn, j, i))) * rdsig);
+  }
+
+  // The new potential temperature and humidity: advec_t / advec_q_limited
+  // (the ADVECQ clamp) plus advec_sig, over the new surface pressure.
+  __device__ __forceinline__ void tracers(T& t_n, T& q_n) const {
+    const T dt = a.dt;
+    const T p_c = s2(a.p, j, i);
+    const T rp_n = one / s2(a.p_n, j, i);
+    t_n = (a.t[o] * p_c - (adv_h(a.st) + adv_sig(a.st)) * dt) * rp_n;
+
+    T adv_q;
+    if (a.q_limiter) {
+      // advec_q_limited: faces clamped to half the donor cell's q*p
+      auto hq = [&](int jj, int ii) { return half * (s3(a.q, k, jj, ii) * s2(a.p, jj, ii)); };
+      auto clamp = [](T x, T lo, T hi) {
+        x = x < lo ? lo : x;
+        return x > hi ? hi : x;
+      };
+      const T dt_rdx = dt * rdx_j, dt_rdy = dt * rdy;
+      auto fx = [&](int ii) {
+        const int iip = wi(ii + 1);
+        const T f = (s3(a.spu, k, j, ii) * ((s3(a.sq, k, j, ii) + s3(a.sq, k, j, iip)) * half)) * dt_rdx;
+        return clamp(f, -hq(j, iip), hq(j, ii));
+      };
+      auto fy = [&](int jj) {
+        const int jjp = wj(jj + 1);
+        const T f = (spv(jj, i) * ((s3(a.sq, k, jj, i) + s3(a.sq, k, jjp, i)) * half)) * dt_rdy;
+        return clamp(f, -hq(jjp, i), hq(jj, i));
+      };
+      adv_q = ((fx(i) - fx(im)) + (fy(j) - fy(jm))) * a.inv_dt;
+    } else {
+      adv_q = adv_h(a.sq);
+    }
+    q_n = (a.q[o] * p_c - (adv_q + adv_sig(a.sq)) * dt) * rp_n;
+  }
+};
+
+}  // namespace gcm

@@ -1,28 +1,47 @@
-"""Matsuno step through the K1 kernel (the v1 'fused' backend).
+"""Matsuno steps through the port's CUDA kernels.
 
-Port of the v1 pipeline of ``gcmiipy_tpu/dynamics/fused.py``
-(``make_fused_matsuno_padded`` :45-95 and the v1 branch of
-``make_fused_step`` :218): per half step, the polar filter of the zonal mass
-flux, one :func:`gcmiipy_tpu_torch.ops.fused_parts.fused_parts` call, the
-polar wall, the second filter and the momentum update.  Same numerics as
-:func:`core25d.matsuno_timestep`.
+``pipeline="v1"`` (the 'fused' backend) ports the v1 pipeline of
+``gcmiipy_tpu/dynamics/fused.py`` (``make_fused_matsuno_padded`` :45-95 and
+the v1 branch of ``make_fused_step`` :218): per half step, the polar filter
+of the zonal mass flux, one :func:`gcmiipy_tpu_torch.ops.fused_parts.fused_parts`
+call (K1), the polar wall, the second filter and the momentum update.  Same
+numerics as :func:`core25d.matsuno_timestep`.  :func:`make_fused_matsuno`
+(the JAX package's unpadded K2 path, ``make_fused_matsuno`` :15) is the same
+function and runs the same kernel.
 
-The JAX package's (8,128) padded-state layout, and its fall-back to the
-plain core for grids that are not 8 | height and 128 | width
-(``fused_grid_supported`` :212), exist for Mosaic's tiling only.  The CUDA
-kernel wraps its indices itself, so the port keeps the plain layout and runs
-K1 on every grid; the wrapper raises on anything the kernel cannot take.
+``pipeline="mega4"`` (the 'mega4' backend) runs one
+:class:`gcmiipy_tpu_torch.ops.mega_step.MegaStep` call per step (K6): the
+whole step with the banded DFT polar filter inside.
+
+The JAX package's padded-state layouts, its fall-back to the plain core for
+grids that are not 8 | height and 128 | width (``fused_grid_supported``
+:212) and its fall-back from 'mega4' to v1 above ``MEGA_MAX_WIDTH = 1024``
+(a TPU v5e VMEM limit) exist for the TPU only.  The CUDA kernels wrap their
+indices themselves and keep the factor matrices in device memory, so the
+port runs its kernels on every grid and width; the wrappers raise on
+anything the kernels cannot take.
 """
 
 from gcmiipy_tpu_torch.dynamics import core25d
 from gcmiipy_tpu_torch.ops import polar_filter
 from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
+from gcmiipy_tpu_torch.ops.mega_step import MegaStep
+
+PIPELINES = ("v1", "mega4")
 
 
 def make_fused_step(geom, dt, coriolis=False, filter_fn=None,
-                    q_limiter=False):
+                    q_limiter=False, pipeline="v1"):
     """Drop-in fused replacement for ``core25d.matsuno_timestep``:
-    ``step(p,u,v,t,q) -> (p,u,v,t,q)`` running K1 twice per step."""
+    ``step(p,u,v,t,q) -> (p,u,v,t,q)``.  ``"v1"`` runs K1 twice per step
+    with ``filter_fn`` (default: the FFT filter) outside it; ``"mega4"``
+    runs K6 once per step with its own banded DFT filter (``filter_fn`` is
+    not used, as in the JAX package)."""
+    if pipeline == "mega4":
+        return MegaStep(geom, dt, coriolis=coriolis, q_limiter=q_limiter)
+    if pipeline != "v1":
+        raise NotImplementedError(
+            f"fused pipeline {pipeline!r}: the port runs {PIPELINES}")
     if filter_fn is None:
         filter_fn = polar_filter.arakawa_1977
 
@@ -43,3 +62,10 @@ def make_fused_step(geom, dt, coriolis=False, filter_fn=None,
 
     return step
 
+
+def make_fused_matsuno(geom, dt, coriolis=False, filter_fn=None,
+                       q_limiter=False):
+    """The K2 path (JAX ``make_fused_matsuno``, whose kernel pads unpadded
+    fields inside its wrapper): the v1 step, K1 on the unpadded fields."""
+    return make_fused_step(geom, dt, coriolis=coriolis, filter_fn=filter_fn,
+                           q_limiter=q_limiter, pipeline="v1")

@@ -54,16 +54,26 @@ class ModelConfig:
     radiation: str = "grey"
 
     dtype: str = "float32"
-    # 'fft' only in the port so far (torch.fft, outside any kernel)
+    # 'fft' (torch.fft), 'matmul' (per-row circulant) or 'dft' (shared DFT
+    # factors): the filter of the 'xla' and 'fused' backends
     polar_filter: str = "fft"
-    # 'xla' (the plain PyTorch core; the name is the JAX package's) or
-    # 'fused' (K1, csrc/fused_parts.cu, twice per step)
+    # 'xla' (the plain PyTorch core; the name is the JAX package's),
+    # 'fused' (K1, csrc/fused_parts.cu, twice per step) or 'mega4' (K6,
+    # csrc/mega_step.cu, the whole step with its banded DFT filter)
     backend: str = "xla"
     stream_pipeline: bool = False
     stream_steps: int = 20
     stream_wide_native: bool = False
     q_limiter: bool = False
+    # Precision of the 'mega4' filter.  'high' and 'highest' both run it at
+    # full precision: no TF32, no bf16 split, as the JAX package does off
+    # the TPU; its products and sums run in float64 for float32 fields too
+    # (float32 sums lose 1e-4 of the field on the polar rows, see
+    # ops/mega_step.py).  The bf16 modes 'fwd_high' and 'default' were
+    # measured unsound and are not ported.
     filter_precision: str = "high"
+    # Accepted for compatibility; no effect, since every chunk of the
+    # port's filter runs at full precision (there is no cheaper 1-pass tail).
     filter_split_tau: float = 0.125
 
     stats: bool = True
@@ -83,9 +93,11 @@ PORTED = frozenset((
     "height", "width", "layers", "sig_func", "giss_sige", "ptop", "dt",
     "coriolis", "dtype", "polar_filter", "backend", "q_limiter", "stats",
     "guard", "guard_p_max", "guard_p_min", "guard_t_max", "guard_t_min",
+    "filter_precision", "filter_split_tau",
 ))
-BACKENDS = ("xla", "fused")
-POLAR_FILTERS = ("fft",)
+BACKENDS = ("xla", "fused", "mega4")
+POLAR_FILTERS = ("fft", "matmul", "dft")
+FILTER_PRECISIONS = ("high", "highest")
 
 
 def check_ported(config):
@@ -104,6 +116,14 @@ def check_ported(config):
         raise NotImplementedError(
             f"ModelConfig.polar_filter={config.polar_filter!r}: the port "
             f"runs {POLAR_FILTERS} so far")
+    if config.filter_precision in ("fwd_high", "default"):
+        raise NotImplementedError(
+            f"ModelConfig.filter_precision={config.filter_precision!r}: the "
+            "bf16 filter modes are not ported (measured unsound); the port "
+            f"runs {FILTER_PRECISIONS}, both at full precision")
+    if config.filter_precision not in FILTER_PRECISIONS:
+        raise ValueError(
+            f"bad filter_precision {config.filter_precision!r}")
     if config.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be 'float32' or 'float64', got "
                          f"{config.dtype!r}")

@@ -15,6 +15,7 @@ import dataclasses
 import warnings
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gcmiipy_tpu_torch.device import resolve_device, torch_dtype
@@ -47,21 +48,37 @@ class GuardInfo(NamedTuple):
 
 
 def make_filter_fn(config, geom):
-    """The polar-filter implementation: 'fft' (torch.fft) is the one the
-    port has."""
+    """The polar filter of the 'xla' and 'fused' backends (JAX
+    ``driver.make_filter_fn``): 'fft' (``torch.fft``), 'matmul' (per-row
+    circulant, O(J*I^2) memory: small grids) or 'dft' (shared real-DFT
+    factors, correction form; with 'xla' the plain yardstick of 'mega4').
+    The matrices are built once on the geometry's device: the circulant in
+    the config's dtype, the DFT factors in float64, in which the 'dft'
+    filter sums as 'mega4''s does (see ``polar_filter.arakawa_1977_dft``)."""
     check_ported(config)
+    if config.polar_filter == "matmul":
+        F = torch.as_tensor(polar_filter.build_filter_matrices(
+            geom, dtype=np.dtype(config.dtype))).to(geom.device)
+        return lambda q, geom: polar_filter.arakawa_1977_matmul(q, F)
+    if config.polar_filter == "dft":
+        mats = tuple(torch.as_tensor(m).to(geom.device) for m in
+                     polar_filter.build_dft_matrices(geom.width,
+                                                     dtype=np.float64))
+        return lambda q, geom: polar_filter.arakawa_1977_dft(q, geom, mats)
     return polar_filter.arakawa_1977
 
 
 def make_dynamics_step(geom, config, filter_fn):
     """The stencil backend: 'xla' runs the plain PyTorch core, 'fused' the
-    K1 kernel pipeline (:mod:`gcmiipy_tpu_torch.dynamics.fused`)."""
+    K1 kernel pipeline, 'mega4' the K6 whole-step kernel
+    (:mod:`gcmiipy_tpu_torch.dynamics.fused`; 'mega4' has its own filter
+    and does not use ``filter_fn``)."""
     check_ported(config)
-    if config.backend == "fused":
-        return fused.make_fused_step(geom, config.dt,
-                                     coriolis=config.coriolis,
-                                     filter_fn=filter_fn,
-                                     q_limiter=config.q_limiter)
+    if config.backend in ("fused", "mega4"):
+        return fused.make_fused_step(
+            geom, config.dt, coriolis=config.coriolis, filter_fn=filter_fn,
+            q_limiter=config.q_limiter,
+            pipeline="mega4" if config.backend == "mega4" else "v1")
     return lambda *s: core25d.matsuno_timestep(
         *s, config.dt, geom, filter_fn=filter_fn, coriolis=config.coriolis,
         q_limiter=config.q_limiter)

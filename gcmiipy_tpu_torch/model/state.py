@@ -7,8 +7,10 @@ tensors, plus the reference initial conditions.
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from gcmiipy_tpu_torch import constants
 from gcmiipy_tpu_torch.physics import humidity, thermo
 
 
@@ -69,3 +71,23 @@ def gen_initial_conditions(geom, dtype=torch.float32, surface_pressure=None):
     snow = torch.zeros(surface, dtype=dtype, device=dev)
     ice = torch.zeros(surface, dtype=dtype, device=dev)
     return PrognosticVars(p, u, v, t, q), GroundVars(gt, gw, snow, ice)
+
+
+def random_prognostics(geom, seed, dtype=None):
+    """A random (p, u, v, t, q) from numpy's generator seeded with ``seed``
+    (the recipe of tests/test_pallas_fused.py:_initial), in ``dtype``
+    (``geom``'s by default) on ``geom``'s device: a start where every field
+    moves from the first step, for the kernel checks and measurements."""
+    rng = np.random.default_rng(seed)
+    L, H, W = geom.layers, geom.height, geom.width
+    p = 1e5 * (1 + 1e-3 * rng.standard_normal((H, W)))
+    u = 0.5 * rng.standard_normal((L, H, W))
+    v = 0.5 * rng.standard_normal((L, H, W))
+    tp = p[None] * geom.sig.double().cpu().numpy() + float(geom.ptop)
+    t = ((300 + 5 * rng.standard_normal((L, H, W)))
+         * (constants.P0 / tp) ** constants.kappa)
+    q = 1e-5 * (1 + 0.1 * rng.random((L, H, W)))
+    dtype = geom.sig.dtype if dtype is None else dtype
+    return PrognosticVars(*(torch.as_tensor(x).to(device=geom.device,
+                                                  dtype=dtype)
+                            for x in (p, u, v, t, q)))

@@ -2,16 +2,20 @@
 shared library with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so``, the hash taken
-over the source and the flags.  The library is written under a temporary
-name and moved into place with ``os.replace``, so a stale or half-written
-library is never loaded and no lock file exists.  Nothing builds at import.
+over the source, the shared headers ``csrc/*.cuh`` and the flags.  The
+library is written under a temporary name and moved into place with
+``os.replace``, so a stale or half-written library is never loaded and no
+lock file exists.  Nothing builds at import.
 """
 
+import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -42,8 +46,10 @@ def nvcc_path():
 def library_path(name):
     """(source, library) paths of kernel source ``csrc/<name>.cu``."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -69,6 +75,20 @@ def build(name):
             proc.stdout if proc else f"timed out after {BUILD_TIMEOUT_S} s"))
     os.replace(tmp, lib)
     return proc.stdout
+
+
+def build_many(names):
+    """Build several sources at once, one ``nvcc`` each, all started
+    together.  Returns ``{name: (log or None, seconds)}``; raises with the
+    first failure's log after every build has ended."""
+    def timed(name):
+        t = time.perf_counter()
+        return build(name), time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+        concurrent.futures.wait(futures.values())
+    return {name: fut.result() for name, fut in futures.items()}
 
 
 def load(name):

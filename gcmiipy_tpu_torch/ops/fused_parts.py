@@ -22,9 +22,9 @@ from gcmiipy_tpu_torch import constants
 from gcmiipy_tpu_torch.dynamics import core25d
 from gcmiipy_tpu_torch.ops import cuda_lib
 
-MAX_LAYERS = 32  # kMaxLayers of csrc/fused_parts.cu
-_GEOM_FIELDS = ("dx_j", "dx_h", "lat", "heightmap", "sig", "sigt", "sigb",
-                "dsig", "dy", "ptop")
+MAX_LAYERS = 32  # kMaxLayers of csrc/gcm_stencil.cuh
+GEOM_FIELDS = ("dx_j", "dx_h", "lat", "heightmap", "sig", "sigt", "sigb",
+               "dsig", "dy", "ptop")
 
 
 def fused_parts_ref(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
@@ -48,31 +48,52 @@ def _library():
     return fn
 
 
-def _check(fields, geom):
-    """Device, dtype, shape and contiguity checks; raises on anything the
-    kernel does not take."""
+def check_args(kernel, fields, shapes, geom):
+    """Device, dtype, shape and contiguity checks of a kernel's tensor
+    arguments and of the geometry it reads; raises on anything the kernel
+    does not take."""
     p = fields[0]
-    L, H, W = geom.layers, geom.height, geom.width
     if p.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_parts takes float32 or float64, got {p.dtype}")
-    if not 1 <= L <= MAX_LAYERS:
-        raise ValueError(f"fused_parts takes 1..{MAX_LAYERS} layers, got {L}")
-    for n, x in enumerate(fields):
-        want = (H, W) if n in (0, 5) else (L, H, W)
+        raise TypeError(f"{kernel} takes float32 or float64, got {p.dtype}")
+    if not 1 <= geom.layers <= MAX_LAYERS:
+        raise ValueError(f"{kernel} takes 1..{MAX_LAYERS} layers, got "
+                         f"{geom.layers}")
+    for n, (x, want) in enumerate(zip(fields, shapes)):
         if x.device != p.device or x.dtype != p.dtype:
-            raise ValueError(f"fused_parts argument {n}: {x.dtype} on "
+            raise ValueError(f"{kernel} argument {n}: {x.dtype} on "
                              f"{x.device}, expected {p.dtype} on {p.device}")
-        if tuple(x.shape) != want:
-            raise ValueError(f"fused_parts argument {n}: shape "
-                             f"{tuple(x.shape)}, expected {want}")
+        if tuple(x.shape) != tuple(want):
+            raise ValueError(f"{kernel} argument {n}: shape "
+                             f"{tuple(x.shape)}, expected {tuple(want)}")
         if not x.is_contiguous():
-            raise ValueError(f"fused_parts argument {n} is not contiguous")
-    for name in _GEOM_FIELDS:
+            raise ValueError(f"{kernel} argument {n} is not contiguous")
+    for name in GEOM_FIELDS:
         g = getattr(geom, name)
         if g.device != p.device or g.dtype != p.dtype or not g.is_contiguous():
             raise ValueError(f"geom.{name} must be a contiguous {p.dtype} "
                              f"tensor on {p.device}, got {g.dtype} on "
                              f"{g.device}")
+
+
+def _check(fields, geom):
+    L, H, W = geom.layers, geom.height, geom.width
+    check_args("fused_parts", fields,
+               [(H, W) if n in (0, 5) else (L, H, W)
+                for n in range(len(fields))], geom)
+
+
+def pointer_array(tensors):
+    """A C array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+
+
+def kernel_consts(dt):
+    """The C array of the scalars the kernels read: dt, 1/dt, kappa, Rd,
+    Cp, G, 1/P0, 2*omega (Python floats, as the plain version uses them)."""
+    dt = float(dt)
+    return (ctypes.c_double * 8)(
+        dt, 1.0 / dt, constants.kappa, constants.Rd, constants.Cp, constants.G,
+        1.0 / constants.P0, 2 * constants.earth_omega)
 
 
 def fused_parts(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
@@ -95,18 +116,11 @@ def fused_parts(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
         torch.empty((L, H, W), dtype=p.dtype, device=device) for _ in range(5)]
     scratch = [torch.empty((L, H, W), dtype=p.dtype, device=device)
                for _ in range(3)]
-
-    def ptr_array(tensors):
-        return (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
-
-    dt = float(dt)
-    consts = (ctypes.c_double * 8)(
-        dt, 1.0 / dt, constants.kappa, constants.Rd, constants.Cp, constants.G,
-        1.0 / constants.P0, 2 * constants.earth_omega)
     with torch.cuda.device(device):
-        err = fn(int(p.dtype == torch.float64), ptr_array(fields),
-                 ptr_array([getattr(geom, n) for n in _GEOM_FIELDS]),
-                 ptr_array(outs), ptr_array(scratch), L, H, W, consts,
+        err = fn(int(p.dtype == torch.float64), pointer_array(fields),
+                 pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
+                 pointer_array(outs), pointer_array(scratch), L, H, W,
+                 kernel_consts(dt),
                  int(bool(coriolis)), int(bool(q_limiter)),
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -1,7 +1,8 @@
 """Where the time of one Matsuno step goes on the GPU.
 
     python -m gcmiipy_tpu_torch.step_profile [--height 512 --width 1024
-        --layers 9 --dt 30 --steps 10 --backend fused xla --trace-dir DIR]
+        --layers 9 --dt 30 --steps 10 --backend mega4 fused xla
+        --trace-dir DIR]
 
 For each backend it runs ``--steps`` warm steps of the dynamics step under
 ``torch.profiler`` (CPU + CUDA activities) and prints one JSON line: the
@@ -84,7 +85,8 @@ def main():
     ap.add_argument("--layers", type=int, default=9)
     ap.add_argument("--dt", type=float, default=30.0)
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--backend", nargs="+", default=["fused", "xla"])
+    ap.add_argument("--backend", nargs="+", default=["fused", "xla"],
+                    choices=["xla", "fused", "mega4"])
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
     device = resolve_device("cuda")

@@ -117,7 +117,7 @@ def test_stats_off_returns_none():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("physics", True), ("backend", "mega4"), ("polar_filter", "matmul"),
+    ("physics", True), ("backend", "stream"), ("stream_steps", 10),
     ("checkpoint_dir", "ck"), ("shapiro_every", 4), ("topography", "hansen"),
     ("drag_tau", 86400.0)])
 def test_unported_features_raise(field, value):

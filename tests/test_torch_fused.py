@@ -7,6 +7,8 @@ itself is held against the plain version by the ``gpu`` tests (skipped
 without a card) and by chip_smoke.py.
 """
 
+import os
+import shutil
 import warnings
 
 import jax.numpy as jnp
@@ -133,6 +135,21 @@ def test_fused_step_matches_jax_fused_and_port_core():
     assert torch.all(st[2][:, -1, :] == 0)  # polar wall
 
 
+@pytest.mark.parametrize("coriolis,hill", [(False, False), (True, True)])
+def test_fused_matsuno_matches_jax_k2_interpret(coriolis, hill):
+    """The K2 path: JAX ``make_fused_matsuno`` (its kernel pads unpadded
+    fields inside) against the port's, which runs K1 on them."""
+    jg = _geom(hill)
+    s = random_state(jg, seed=8)
+    jstep = jfused.make_fused_matsuno(jg, 300.0, coriolis=coriolis,
+                                      dtype=jnp.float64, interpret=True)
+    tstep = fused.make_fused_matsuno(port_geom(jg), 300.0, coriolis=coriolis)
+    sj, st = as_jax(s), as_torch(s)
+    for _ in range(2):
+        sj, st = jstep(*sj), tstep(*st)
+    assert_close(st, sj, 1e-10, 1e-10, FIELDS)
+
+
 @pytest.mark.parametrize("shape", [(9, 24, 36), (3, 8, 8)])
 def test_fused_step_runs_k1_on_an_off_tile_grid(shape):
     """Unlike the JAX package (which takes its plain core on grids that are
@@ -160,8 +177,30 @@ def test_kernel_library_is_named_by_source_and_flags(tmp_path, monkeypatch):
     assert cuda_lib.library_path("fused_parts")[1] != lib
     text = open(src).read()
     assert "torch/extension.h" not in text and "extern \"C\"" in text
+    header = os.path.join(cuda_lib.CSRC_DIR, "gcm_stencil.cuh")
+    assert '#include "gcm_stencil.cuh"' in text and os.path.exists(header)
     assert "--use_fast_math" not in cuda_lib.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
+
+
+def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    for name in ("fused_parts.cu", "gcm_stencil.cuh"):
+        shutil.copy(os.path.join(cuda_lib.CSRC_DIR, name), tmp_path / name)
+    monkeypatch.setattr(cuda_lib, "CSRC_DIR", str(tmp_path))
+    lib = cuda_lib.library_path("fused_parts")[1]
+    with open(tmp_path / "gcm_stencil.cuh", "a") as f:
+        f.write("// edited\n")
+    assert cuda_lib.library_path("fused_parts")[1] != lib
+
+
+def test_build_many_builds_every_source(monkeypatch):
+    seen = []
+    monkeypatch.setattr(cuda_lib, "build",
+                        lambda name: seen.append(name) or f"log {name}")
+    out = cuda_lib.build_many(["fused_parts", "mega_step"])
+    assert sorted(seen) == ["fused_parts", "mega_step"]
+    assert {k: v[0] for k, v in out.items()} == {
+        "fused_parts": "log fused_parts", "mega_step": "log mega_step"}
 
 
 def test_nvcc_missing_raises(monkeypatch):
