@@ -6,20 +6,27 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 # Phases, one log line each (with elapsed seconds); any failure exits
 # non-zero and prints no result:
 #   device   the card's name and power limit (nvidia-smi) and torch's name;
-#   build    nvcc builds the kernel sources of the paths (csrc/fused_parts.cu
-#            and csrc/mega_step.cu, both at once) and prints ptxas' counts;
+#   build    nvcc builds the kernel sources of the paths (csrc/fused_parts.cu,
+#            csrc/mega_step.cu and csrc/stream_steps.cu, all at once) and
+#            prints ptxas' counts;
 #   kernels  each kernel against its plain PyTorch version on the card: K1
-#            (fused_parts) and K6 (mega_step);
+#            (fused_parts), K6 (mega_step) and K7 (stream_steps, with and
+#            without its column-physics epilogue);
 #   main     each path with its launch counts set to 0 just before it and
 #            read just after: run_model(512, 1024, 9, 30.0, 20, guard=True)
 #            with backend='fused' (K1) and backend='mega4' (K6), held against
 #            the plain core (backend='xla', and for mega4 also xla with
 #            polar_filter='dft' and the fused run); then the backends from a
 #            perturbed start, compared after 1 and after 20 steps; then one
-#            step of make_fused_matsuno (K2's path, K1's kernel);
-#   timing   ms/step of the three backends (windows of 20 steps between CUDA
-#            events, each backend twice), each kernel's ms beside its bound,
-#            its plain version's and, for K6's filter, torch.fft's.
+#            step of make_fused_matsuno (K2's path, K1's kernel); then
+#            run_model with backend='stream' and the per-step grey physics
+#            (one K7 call of 20 steps), stream against mega4 for the
+#            dynamics alone, and stream+physics against mega4 with the
+#            per-step physics in plain PyTorch, from the perturbed start;
+#   timing   ms/step of the backends, mega4 and stream also with the
+#            physics (windows of 20 steps between CUDA events, each twice),
+#            each kernel's ms beside its bound, its plain version's and, for
+#            K6's filter, torch.fft's.
 # The line before the last is the kernels JSON, the last the result JSON.
 # Imports nothing of JAX: the card's machine needs none.
 
@@ -45,13 +52,23 @@ KERNEL_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # K6 vs its plain version after one call: the DFT filter sums W terms in the
 # kernel's order against cuBLAS's, so agreement is to rounding, not bitwise
 MEGA_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
-SOURCES = ("fused_parts", "mega_step")
+# K7 vs its plain version after one call of several steps: K6's rounding,
+# carried through the steps and the physics
+STREAM_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
+# stream+physics vs mega4 with the per-step physics in plain PyTorch after a
+# few steps: the bound of scripts/tpu_parity.py's gate 6b (:329-360)
+PHYSICS_REL = 4e-4
+SOURCES = ("fused_parts", "mega_step", "stream_steps")
 # The flagship bench grid at its full width.  dt is bench.py's for this grid:
 # at 512 latitude rows dt=900 breaks the meridional CFL limit (the polar
 # filter acts zonally only), and the guard stops the run at step 1-2, in the
 # JAX package as in the port.
 MAIN = dict(height=512, width=1024, layers=9, dt=30.0, steps=20)
 STEP_WINDOW = 20  # steps per timing window
+# the per-step physics of the main path: grey radiation after every step
+# (the reference's cadence), convection, a one-day surface drag
+PHYSICS = dict(physics=True, physics_every=1, convection=True,
+               drag_tau=86400.0)
 
 
 def log(phase, msg):
@@ -105,7 +122,7 @@ def count_ops(fn, *args, dtypes=None, **kw):
     (all when None)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     arith = {"add", "sub", "mul", "div", "pow", "neg", "reciprocal", "sin",
-             "maximum", "minimum", "clamp", "rsub"}
+             "cos", "log", "lt", "maximum", "minimum", "clamp", "rsub"}
 
     class Count(TorchDispatchMode):
         ops = 0
@@ -263,38 +280,115 @@ def phase_kernels_k6(device):
     return main_abs
 
 
-def _config(backend, polar_filter="fft"):
+def k7_inputs(shape, dtype, physics, device, utc0=3.1e4, seed=2, **kw):
+    """Geometry, the K7 module (:class:`StreamSteps`) with the physics of
+    ``PHYSICS`` (when ``physics``), the packed buffer of a random state
+    (with a ground-temperature plane from ``seed``) and the clock."""
+    from gcmiipy_tpu_torch.grid import geometry
+    from gcmiipy_tpu_torch.ops import stream_steps as ss
+    L, H, W = shape
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 dtype=dtype, device=device)
+    gt = None
+    if physics:
+        rng = np.random.default_rng(seed + 50)
+        gt = torch.as_tensor(290.0 + 20.0 * rng.random((H, W))).to(
+            device=device, dtype=dtype)
+    packed = ss.pack_state(*random_state(geom, seed, device, dtype), gt=gt)
+    S = torch.stack([packed, torch.zeros_like(packed)])
+    phys = (ss.make_physics(geom, **{"drag_tau": PHYSICS["drag_tau"],
+                                     "convection": PHYSICS["convection"],
+                                     **kw})
+            if physics else None)
+    step = ss.StreamSteps(geom, MAIN["dt"], physics=phys)
+    return geom, step, S, torch.tensor(utc0, dtype=dtype, device=device)
+
+
+def _planes(S, L):
+    """p, u, v, t, q (and the ground temperature) of buffer 0."""
+    from gcmiipy_tpu_torch.ops import stream_steps as ss
+    extra = (S[0, ss.n_planes(L)],) if S.shape[1] > ss.n_planes(L) else ()
+    return ss.unpack_state(S[0], L) + extra
+
+
+def phase_kernels_k7(device):
+    """K7 against its plain version after one call of k steps: float32 at
+    the main path's shape with the physics (k=4, with and without the
+    convection) and without it (k=2), and float64 at 3x24x36 (seasonal
+    clock) and 3x512x1024, every field and the ground temperature held to
+    its own scale."""
+    from gcmiipy_tpu_torch.ops.stream_steps import stream_steps_ref
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    cases = [(main_shape, torch.float32, True, 4, {}),
+             (main_shape, torch.float32, True, 4, {"convection": False}),
+             (main_shape, torch.float32, False, 2, {}),
+             ((3, 24, 36), torch.float64, True, 4, {"seasonal": True}),
+             ((3, 24, 36), torch.float64, False, 2, {}),
+             ((3, 512, 1024), torch.float64, True, 4, {})]
+    worst, main_abs = {}, 0.0
+    for shape, dtype, physics, k, kw in cases:
+        geom, step, S, utc0 = k7_inputs(shape, dtype, physics, device, **kw)
+        out = step(S.clone(), utc0, k)
+        torch.cuda.synchronize()
+        ref = stream_steps_ref(S.clone(), utc0, k, MAIN["dt"], geom,
+                               step.consts, physics=step.physics)
+        got, want = _planes(out, shape[0]), _planes(ref, shape[0])
+        if not all(torch.isfinite(a).all() for a in got):
+            fail("kernels", "stream_steps output not finite")
+        if not bool((got[2][:, -1] == 0).all()):
+            fail("kernels", "stream_steps: v not 0 on the wall row")
+        rel = rel_err(got, want)
+        moved = rel_err(got, _planes(S, shape[0]))
+        tag = (f"stream_steps {tuple(shape)} {str(dtype)[6:]} k={k} "
+               f"physics={physics}{' ' + str(kw) if kw else ''}")
+        log("kernels", f"{tag}: max rel {rel:.3e} over p,u,v,t,q"
+                       f"{',gt' if physics else ''} (bound "
+                       f"{STREAM_REL[dtype]:g}); the call moved the state by "
+                       f"rel {moved:.3e}")
+        if not rel <= STREAM_REL[dtype]:
+            fail("kernels", tag + " disagrees with stream_steps_ref")
+        worst[dtype] = max(worst.get(dtype, 0.0), rel)
+        if dtype == torch.float32 and physics and not kw:
+            main_abs = abs_err(got, want)
+    log("kernels", "stream_steps ok: max rel float32 "
+                   f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
+    return main_abs
+
+
+def _config(backend, polar_filter="fft", **extra):
     from gcmiipy_tpu_torch.model.config import ModelConfig
     return ModelConfig(height=MAIN["height"], width=MAIN["width"],
                        layers=MAIN["layers"], dt=MAIN["dt"], backend=backend,
-                       polar_filter=polar_filter, guard=True)
+                       polar_filter=polar_filter, guard=True, **extra)
 
 
 def _check_run(tag, state, stats, guard=None):
     if guard is not None and not bool(guard.ok):
         fail("main", f"{tag}: guard tripped at step {int(guard.blown_step)}")
-    for name, x in zip("puvtq", state):
+    for name, x in zip(("p", "u", "v", "t", "q", "gt"), state):
         if not torch.isfinite(x).all():
             fail("main", f"{tag}: field {name} not finite")
     if not all(torch.isfinite(s).all() for s in stats):
         fail("main", f"{tag}: stats not finite")
 
 
-def _run_model(backend, device, steps, polar_filter="fft"):
+def _run_model(backend, device, steps, polar_filter="fft", **extra):
     """The user's entry point, from the reference's quiescent start."""
     from gcmiipy_tpu_torch.model.driver import run_model
-    tag = f"run_model {backend}/{polar_filter} {steps} steps"
+    tag = (f"run_model {backend}/{polar_filter}"
+           f"{'+physics' if extra else ''} {steps} steps")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         out = run_model(MAIN["height"], MAIN["width"], MAIN["layers"],
                         MAIN["dt"], steps,
-                        config=_config(backend, polar_filter), device=device)
+                        config=_config(backend, polar_filter, **extra),
+                        device=device)
         torch.cuda.synchronize()
     for w in caught:
         if "blew up" in str(w.message):
             fail("main", f"{tag}: {w.message}")
         log("main", f"{tag} warned: {w.message}")
-    _check_run(tag, out[:5], out[7])
+    _check_run(tag, (*out[:5], out[5].gt), out[7])
     return out[:5], out[7]
 
 
@@ -308,27 +402,31 @@ def perturbed_state(geom, device):
         *random_state(geom, 5, device, torch.float32)))
 
 
-def _run_from(backend, geom, state, steps, polar_filter="fft"):
-    """``make_run_fn`` (the loop under ``run_model``) from ``state``."""
+def _run_from(backend, geom, state, steps, polar_filter="fft", **extra):
+    """``make_run_fn`` (the loop under ``run_model``) from ``state``: the
+    prognostics, and with the physics the ground temperature after them."""
     from gcmiipy_tpu_torch.model.driver import make_run_fn
     state, stats, guard = make_run_fn(
-        geom, _config(backend, polar_filter), steps)(state)
-    _check_run(f"{backend}/{polar_filter} from the perturbed state",
-               state.prog, stats, guard)
-    return state.prog
+        geom, _config(backend, polar_filter, **extra), steps)(state)
+    out = tuple(state.prog) + ((state.ground.gt,) if extra else ())
+    _check_run(f"{backend}/{polar_filter}{'+physics' if extra else ''} "
+               "from the perturbed state", out, stats, guard)
+    return out
 
 
-def _held(tag, one, run, one_ref, run_ref, moved=None):
-    """The tpu_parity.py bounds: step-1 rel, n-step rel, p drift."""
+def _held(tag, one, run, one_ref, run_ref, moved=None, short=1,
+          short_rel=STEP1_REL):
+    """The tpu_parity.py bounds: rel after ``short`` steps (1 unless
+    given), rel after the run, p drift."""
     rel1 = rel_err(one, one_ref) if one is not None else None
     rel_n = rel_err(run, run_ref)
     drift = float((run[0] - run_ref[0]).abs().max())
-    msg = (f"{tag}: " + (f"step-1 rel {rel1:.3e} (< {STEP1_REL:g}), "
+    msg = (f"{tag}: " + (f"{short}-step rel {rel1:.3e} (< {short_rel:g}), "
                          if rel1 is not None else "")
            + f"{MAIN['steps']}-step rel {rel_n:.3e} (< {RUN_REL:g}), "
            f"p drift {drift:.3e} Pa (< {DRIFT_PA:g})")
     log("main", msg + (f"; {moved}" if moved else ""))
-    if not ((rel1 is None or rel1 < STEP1_REL) and rel_n < RUN_REL
+    if not ((rel1 is None or rel1 < short_rel) and rel_n < RUN_REL
             and drift < DRIFT_PA):
         fail("main", tag + " outside the tpu_parity.py bounds")
 
@@ -424,6 +522,62 @@ def phase_main(device):
     return launches, geom, start, abs_err(k2_out, ref)
 
 
+def phase_main_stream(device, geom, start):
+    """The 'stream' path with its launches counted: run_model with the
+    per-step physics (one K7 call of 20 steps); stream against mega4 for
+    the dynamics alone after 2 (one K=2 call) and 20 steps; stream+physics
+    (convection off) against mega4 with the per-step physics in plain
+    PyTorch after 4 and 20 steps, from the perturbed start."""
+    from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
+    from gcmiipy_tpu_torch.ops.mega_step import mega_step
+    from gcmiipy_tpu_torch.ops.stream_steps import stream_steps
+    kernels = (fused_parts, mega_step, stream_steps)
+    n = MAIN["steps"]
+
+    t = time.perf_counter()
+    (_, stats), counts = _counted(kernels, lambda: _run_model(
+        "stream", device, n, **PHYSICS))
+    log("main", f"run_model stream+physics {n} steps in "
+                f"{time.perf_counter() - t:.2f}s, launches fused_parts "
+                f"{counts[0]} mega_step {counts[1]} stream_steps {counts[2]}, "
+                f"total energy drift "
+                f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
+    if counts != [0, 0, 1]:
+        fail("main", f"run_model stream+physics launched {counts}, "
+                     "expected [0, 0, 1]")
+    launches = counts[2]
+
+    runs = {}
+    for backend in ("stream", "mega4"):
+        for steps in (2, n):
+            runs[backend, steps], counts = _counted(
+                kernels, lambda: _run_from(backend, geom, start, steps))
+            want = [0, 0, 1] if backend == "stream" else [0, steps, 0]
+            if counts != want:
+                fail("main", f"{backend} {steps} steps launched {counts}, "
+                             f"expected {want}")
+    _held("perturbed start, stream vs mega4 (dynamics)", runs["stream", 2],
+          runs["stream", n], runs["mega4", 2], runs["mega4", n], short=2)
+
+    physics = dict(PHYSICS, convection=False)
+    for backend in ("stream", "mega4"):
+        for steps in (4, n):
+            runs[backend, steps], counts = _counted(
+                kernels, lambda: _run_from(backend, geom, start, steps,
+                                           **physics))
+            want = [0, 0, 1] if backend == "stream" else [0, steps, 0]
+            if counts != want:
+                fail("main", f"{backend}+physics {steps} steps launched "
+                             f"{counts}, expected {want}")
+    moved = (f"the physics moved the ground temperature by "
+             f"{float((runs['mega4', n][5] - start.ground.gt).abs().max()):.3e}"
+             " K")
+    _held("perturbed start, stream+physics vs mega4+physics (p,u,v,t,q,gt)",
+          runs["stream", 4], runs["stream", n], runs["mega4", 4],
+          runs["mega4", n], moved, short=4, short_rel=PHYSICS_REL)
+    return launches
+
+
 def _bytes(tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
@@ -455,12 +609,17 @@ def phase_timing(device, launches, max_abs, geom, start):
     from gcmiipy_tpu_torch.ops.fused_parts import (
         GEOM_FIELDS, fused_parts, fused_parts_ref)
     from gcmiipy_tpu_torch.ops.mega_step import MegaStep, mega_step_ref
+    from gcmiipy_tpu_torch.ops.stream_steps import stream_steps_ref
 
     # ms/step of the whole loop (make_run_fn with the guard and the stats):
     # windows of STEP_WINDOW steps between CUDA events, no host sync inside
-    # a window, each backend twice, in the order x f m m f x.
-    backends = ("xla", "fused", "mega4")
-    runs = {b: make_run_fn(geom, _config(b), STEP_WINDOW) for b in backends}
+    # a window, each backend twice, in the order x f m s m+p s+p, then back.
+    configs = {"xla": _config("xla"), "fused": _config("fused"),
+               "mega4": _config("mega4"), "stream": _config("stream"),
+               "mega4+physics": _config("mega4", **PHYSICS),
+               "stream+physics": _config("stream", **PHYSICS)}
+    backends = tuple(configs)
+    runs = {b: make_run_fn(geom, c, STEP_WINDOW) for b, c in configs.items()}
     for run in runs.values():
         run(start)
     windows = {b: [] for b in backends}
@@ -537,6 +696,38 @@ def phase_timing(device, launches, max_abs, geom, start):
                      "gcmiipy_tpu/ops/pallas_stencil.py:1337",
                      launches["mega_step"], max_abs["k6"], ms, plain_ms, nbytes,
                      ops, fft_ms, "mega_step"))
+
+    # K7 as the main path calls it: one call of STEP_WINDOW steps with the
+    # physics, from a random state (each call restarts from it: the copy
+    # is 0.1% of the call)
+    k = STEP_WINDOW
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    kgeom, step, S0, utc0 = k7_inputs(main_shape, torch.float32, True, device)
+    S = S0.clone()
+    ms = cuda_ms(lambda: step(S.copy_(S0), utc0, k), 5)
+    plain_ms = cuda_ms(lambda: stream_steps_ref(
+        S.copy_(S0), utc0, k, MAIN["dt"], kgeom, step.consts,
+        physics=step.physics), 1, warmup=1)
+    dyn = k7_inputs(main_shape, torch.float32, False, device)
+    S_dyn = dyn[2].clone()
+    dyn_ms = cuda_ms(lambda: dyn[1](S_dyn.copy_(dyn[2]), utc0, k), 5)
+    fc = step.consts
+    geo = [getattr(kgeom, n) for n in GEOM_FIELDS]
+    nbytes = _bytes((S0, S0, *geo, kgeom.long, *fc))
+    filter_ops = k * 2 * int(fc.row_counts.sum()) * 2 * 256 * MAIN["width"] * 2
+    ops = {torch.float32: count_ops(
+               stream_steps_ref, S.copy_(S0), utc0, k, MAIN["dt"], kgeom, fc,
+               physics=step.physics, dtypes=(torch.float32,)),
+           torch.float64: filter_ops}
+    epi_bytes = (2 * MAIN["layers"] + 7) * MAIN["height"] * MAIN["width"] * 4
+    log("timing", f"stream_steps k={k}: {ms / k:.4f} ms/step with the "
+                  f"physics, {dyn_ms / k:.4f} without: the epilogue takes "
+                  f"about {(ms - dyn_ms) / k:.4f} ms a step (its bytes bound "
+                  f"{1e3 * epi_bytes / HBM_BYTES_PER_S:.4f} ms)")
+    rows.append(_row("stream_steps", "gcmiipy_tpu_torch/csrc/stream_steps.cu",
+                     "gcmiipy_tpu/ops/pallas_stream.py:102",
+                     launches["stream_steps"], max_abs["k7"], ms, plain_ms,
+                     nbytes, ops, None, f"stream_steps (k={k}, physics)"))
     return rows
 
 
@@ -549,7 +740,9 @@ def main():
     phase_build()
     max_abs = {"k1": phase_kernels(device)}
     max_abs["k6"] = phase_kernels_k6(device)
+    max_abs["k7"] = phase_kernels_k7(device)
     launches, geom, start, max_abs["k2"] = phase_main(device)
+    launches["stream_steps"] = phase_main_stream(device, geom, start)
     rows = phase_timing(device, launches, max_abs, geom, start)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)

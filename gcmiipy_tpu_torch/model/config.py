@@ -58,8 +58,10 @@ class ModelConfig:
     # factors): the filter of the 'xla' and 'fused' backends
     polar_filter: str = "fft"
     # 'xla' (the plain PyTorch core; the name is the JAX package's),
-    # 'fused' (K1, csrc/fused_parts.cu, twice per step) or 'mega4' (K6,
-    # csrc/mega_step.cu, the whole step with its banded DFT filter)
+    # 'fused' (K1, csrc/fused_parts.cu, twice per step), 'mega4' (K6,
+    # csrc/mega_step.cu, the whole step with its banded DFT filter) or
+    # 'stream' (K7, csrc/stream_steps.cu, stream_steps whole steps a call
+    # with the per-step column physics inside)
     backend: str = "xla"
     stream_pipeline: bool = False
     stream_steps: int = 20
@@ -94,8 +96,12 @@ PORTED = frozenset((
     "coriolis", "dtype", "polar_filter", "backend", "q_limiter", "stats",
     "guard", "guard_p_max", "guard_p_min", "guard_t_max", "guard_t_min",
     "filter_precision", "filter_split_tau",
+    "physics", "physics_every", "seasonal", "obliquity", "year_days",
+    "convection", "drag_tau", "t_lw", "t_sw", "albedo", "radiation",
+    "stream_steps",
 ))
-BACKENDS = ("xla", "fused", "mega4")
+BACKENDS = ("xla", "fused", "mega4", "stream")
+RADIATIONS = ("grey",)
 POLAR_FILTERS = ("fft", "matmul", "dft")
 FILTER_PRECISIONS = ("high", "highest")
 
@@ -124,6 +130,16 @@ def check_ported(config):
     if config.filter_precision not in FILTER_PRECISIONS:
         raise ValueError(
             f"bad filter_precision {config.filter_precision!r}")
+    if config.radiation == "4band":
+        raise NotImplementedError(
+            "ModelConfig.radiation='4band': not ported to gcmiipy_tpu_torch "
+            f"yet; the port runs {RADIATIONS}")
+    if config.radiation not in RADIATIONS:
+        raise ValueError(f"radiation must be 'grey' or '4band', got "
+                         f"{config.radiation!r}")
+    if config.physics_every < 1:
+        raise ValueError(
+            f"physics_every must be >= 1, got {config.physics_every}")
     if config.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be 'float32' or 'float64', got "
                          f"{config.dtype!r}")

@@ -1,8 +1,10 @@
 """Top-level 2.5D model driver.
 
-Port of ``gcmiipy_tpu/model/driver.py`` for the dynamics-only path: builds
-geometry and initial conditions, then advances the Matsuno core for N steps
-with the per-step ``StepStats`` and the blow-up guard.
+Port of ``gcmiipy_tpu/model/driver.py``: builds geometry and initial
+conditions, then advances the Matsuno core for N steps, with the cadenced
+grey-radiation physics, convection and surface drag, the per-step
+``StepStats`` and the blow-up guard.  The 'stream' backend advances
+``stream_steps`` steps a call through K7 (:func:`_make_stream_run_fn`).
 
 Where the JAX driver compiles the run as one ``lax.scan``, this one is an
 eager loop.  The guard is still a device-side flag carried through the loop:
@@ -18,14 +20,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gcmiipy_tpu_torch import constants
 from gcmiipy_tpu_torch.device import resolve_device, torch_dtype
 from gcmiipy_tpu_torch.diagnostics import any_nan
 from gcmiipy_tpu_torch.dynamics import core25d, energy, fused
 from gcmiipy_tpu_torch.grid import geometry
 from gcmiipy_tpu_torch.model.config import ModelConfig, check_ported
 from gcmiipy_tpu_torch.model.state import (
-    ModelState, PrognosticVars, gen_initial_conditions)
-from gcmiipy_tpu_torch.ops import polar_filter
+    GroundVars, ModelState, PrognosticVars, gen_initial_conditions)
+from gcmiipy_tpu_torch.ops import polar_filter, stream_steps
+from gcmiipy_tpu_torch.physics import convection, radiation
+
+# widest grid on which the JAX package runs the per-step physics inside its
+# stream kernel (pallas_stream.STREAM_RESIDENT_MAX_WIDTH, a TPU VMEM limit);
+# kept so that one config chooses the same cadence in both packages
+STREAM_RESIDENT_MAX_WIDTH = 2048
 
 
 class StepStats(NamedTuple):
@@ -68,31 +77,110 @@ def make_filter_fn(config, geom):
     return polar_filter.arakawa_1977
 
 
-def make_dynamics_step(geom, config, filter_fn):
+def make_dynamics_step(geom, config, filter_fn, warn_degrade=True):
     """The stencil backend: 'xla' runs the plain PyTorch core, 'fused' the
     K1 kernel pipeline, 'mega4' the K6 whole-step kernel
     (:mod:`gcmiipy_tpu_torch.dynamics.fused`; 'mega4' has its own filter
-    and does not use ``filter_fn``)."""
+    and does not use ``filter_fn``).  'stream' advances many steps a call
+    (:func:`make_run_fn`); a per-step caller of it gets 'mega4', with a
+    RuntimeWarning unless ``warn_degrade`` is False, as in the JAX
+    package."""
     check_ported(config)
-    if config.backend in ("fused", "mega4"):
+    backend = config.backend
+    if backend == "stream":
+        backend = "mega4"
+        if warn_degrade:
+            warnings.warn(
+                "backend 'stream' does not support a per-step caller "
+                "(callback path); running 'mega4' instead — "
+                "timings/numerics are mega4's", RuntimeWarning, stacklevel=3)
+    if backend in ("fused", "mega4"):
         return fused.make_fused_step(
             geom, config.dt, coriolis=config.coriolis, filter_fn=filter_fn,
             q_limiter=config.q_limiter,
-            pipeline="mega4" if config.backend == "mega4" else "v1")
+            pipeline="mega4" if backend == "mega4" else "v1")
     return lambda *s: core25d.matsuno_timestep(
         *s, config.dt, geom, filter_fn=filter_fn, coriolis=config.coriolis,
         q_limiter=config.q_limiter)
 
 
+def solar_timestep(t, p, g, dt, utc, geom, config):
+    """Radiative heating step (reference no_limits_2_5d.py:66-75), plus the
+    optional Manabe-Strickler convective adjustment; ``dt`` is the cadence
+    interval.  With ``config.seasonal`` the declination follows the clock
+    ``utc``.  Returns (t, GroundVars) with the ground temperature
+    advanced."""
+    sig = geom.sig.to(t.dtype)
+    ptop = geom.ptop.to(t.dtype)
+    tp = p * sig + ptop
+    # one Exner factor serves both conversions (thermo.to_true_temp and
+    # to_potential_temp)
+    exner_inv = (constants.P0 / tp) ** constants.kappa
+    tt = t / exner_inv
+    declination = (radiation.solar_declination(utc, config.obliquity,
+                                               config.year_days)
+                   if config.seasonal else 0.0)
+    dt_air, dt_ground = radiation.basic_grey_radiation(
+        p, tp, tt, g.gt, config.t_lw, config.t_sw, config.albedo, utc,
+        geom, declination=declination)
+    gt_n = g.gt + dt_ground * dt
+    tt_n = tt + dt_air * dt
+    if config.convection:
+        tt_n = convection.convective_adjustment(tt_n, tp,
+                                                p * geom.dsig.to(t.dtype))
+    t_n = tt_n * exner_inv
+    return t_n, GroundVars(gt_n, g.gw, g.snow, g.ice)
+
+
+def physics_extras(prog: PrognosticVars, g: GroundVars, utc, geom, config,
+                   dt_eff):
+    """The per-cadence extras: Rayleigh drag on the surface layer's u and v
+    (implicit, stable at any ``dt_eff``) and the grey-radiation step with
+    the optional convection.  ``dt_eff = physics_every * dt``: the extras
+    integrate over the whole cadence interval.  ``utc`` is the clock at the
+    start of the triggering dynamics step (the reference's call order,
+    no_limits_2_5d.py:97 / :231-232)."""
+    p, u, v, t, q = prog
+    if config.drag_tau > 0:
+        f = 1.0 / (1.0 + dt_eff / config.drag_tau)
+        u = torch.cat([u[:1] * f, u[1:]], dim=0)
+        v = torch.cat([v[:1] * f, v[1:]], dim=0)
+    if config.physics:
+        t, g = solar_timestep(t, p, g, dt_eff, utc, geom, config)
+    return PrognosticVars(p, u, v, t, q), g
+
+
+def apply_cadenced_extras(prog, g, utc, step_next, geom, config,
+                          granularity=1):
+    """Run :func:`physics_extras` iff a ``physics_every`` cadence point falls
+    in the step window ``(step_next - granularity, step_next]``; ``utc``
+    is the clock at the start of the completed step.  ``granularity`` is 1
+    on the per-step paths and the chunk length on the stream path.  The
+    choice is a ``torch.where`` on the device keyed on the step counter
+    tensor ``step_next`` (the JAX package's ``lax.cond``), so there is no
+    host read."""
+    if not (config.drag_tau > 0 or config.physics):
+        return prog, g
+    pe = config.physics_every
+    dt_eff = pe * config.dt
+    if pe <= granularity:
+        return physics_extras(prog, g, utc, geom, config, dt_eff)
+    due = step_next % pe < granularity
+    new_prog, new_g = physics_extras(prog, g, utc, geom, config, dt_eff)
+    return _pick(due, new_prog, prog), _pick(due, new_g, g)
+
+
 def full_timestep(state: ModelState, geom, config, filter_fn,
                   dynamics_step=None) -> ModelState:
-    """One dynamics step (reference no_limits_2_5d.py:79-104).  The physics
-    extras and the Shapiro filter are not ported; :func:`check_ported`
-    refuses a config that asks for them."""
+    """One dynamics step and the cadenced physics extras (reference
+    no_limits_2_5d.py:79-104); the extras key off the state's integer step
+    counter.  The Shapiro filter is not ported; :func:`check_ported`
+    refuses a config that asks for it."""
     if dynamics_step is None:
         dynamics_step = make_dynamics_step(geom, config, filter_fn)
     prog, g, utc, step = state
     prog = PrognosticVars(*dynamics_step(*prog))
+    prog, g = apply_cadenced_extras(prog, g, utc, step + 1, geom, config)
     return ModelState(prog, g, utc + config.dt, step + 1)
 
 
@@ -122,10 +210,14 @@ def state_bad(state: ModelState, config) -> torch.Tensor:
     return bad
 
 
+def _pick(cond, new, old):
+    """``torch.where(cond, new, old)`` over the fields of a NamedTuple."""
+    return type(new)(*(torch.where(cond, x, y) for x, y in zip(new, old)))
+
+
 def _where_state(cond, new: ModelState, old: ModelState) -> ModelState:
-    def pick(a, b):
-        return type(a)(*(torch.where(cond, x, y) for x, y in zip(a, b)))
-    return ModelState(pick(new.prog, old.prog), pick(new.ground, old.ground),
+    return ModelState(_pick(cond, new.prog, old.prog),
+                      _pick(cond, new.ground, old.ground),
                       torch.where(cond, new.utc, old.utc),
                       torch.where(cond, new.step, old.step))
 
@@ -142,8 +234,12 @@ def make_run_fn(geom, config, timesteps):
     GuardInfo)``: the state stops advancing (freezes at the last good step)
     once a step produces NaNs or out-of-bounds values.  ``stats`` is a
     :class:`StepStats` of (timesteps,) tensors, or None with
-    ``config.stats`` off."""
+    ``config.stats`` off.  The 'stream' backend advances ``stream_steps``
+    steps a call; see :func:`_make_stream_run_fn` for its guard and stats
+    granularity."""
     check_ported(config)
+    if config.backend == "stream":
+        return _make_stream_run_fn(geom, config, timesteps)
     filter_fn = make_filter_fn(config, geom)
     dynamics_step = make_dynamics_step(geom, config, filter_fn)
 
@@ -173,6 +269,230 @@ def make_run_fn(geom, config, timesteps):
     return run
 
 
+def _resolve_stream_cadence(config, timesteps):
+    """Resolve the 'stream' launch size K against the physics cadence (JAX
+    ``_resolve_stream_cadence``).  Extras that do not run inside the
+    kernel run between launches, so ``physics_every`` must be a multiple of
+    K, and launches are even (buffer ping-pong).  ``physics_every=1`` with
+    extras promotes to 2 with a warning; odd cadences raise.  Returns
+    ``(config, K)``."""
+    extras = config.physics or config.drag_tau > 0
+    if extras and config.physics_every == 1:
+        warnings.warn(
+            "backend 'stream' runs physics/drag BETWEEN multi-step "
+            "launches: physics_every=1 promotes to 2 (extras every 2 "
+            "steps, dt_eff = 2*dt); set physics_every explicitly to pick "
+            "the cadence", stacklevel=4)
+        config = dataclasses.replace(config, physics_every=2)
+    cadences = [config.physics_every] if extras else []
+    for c in cadences:
+        if c % 2:
+            raise ValueError(
+                f"backend 'stream' applies cadenced extras between even-"
+                f"sized launches; cadence {c} (physics_every / "
+                "shapiro_every) must be even — or use backend 'mega4' "
+                "for odd per-step cadences")
+    K = max(2, config.stream_steps - config.stream_steps % 2)
+    K = min(K, timesteps - timesteps % 2)
+    if cadences:
+        g = cadences[0]
+        if g % K:
+            # the largest even divisor of g that fits in K
+            K = max(d for d in range(2, min(K, g) + 1, 2) if g % d == 0)
+        config = dataclasses.replace(config, stream_steps=K)
+    return config, K
+
+
+def _inkernel_physics(config, geom):
+    """Whether K7 runs the physics inside each step (JAX
+    ``_make_stream_run_fn`` :713-721, mirrored as it stands): grey
+    radiation at ``physics_every=1``; the width limit is the JAX
+    kernel's."""
+    return (config.physics and config.physics_every == 1
+            and config.radiation == "grey" and not config.evaporation
+            and not config.precipitation and config.shapiro_every == 0
+            and config.land_cover == "none" and not config.stream_pipeline
+            and geom.width <= STREAM_RESIDENT_MAX_WIDTH)
+
+
+def _make_stream_run_fn(geom, config, timesteps):
+    """``run`` of the 'stream' backend: the state is packed once into the
+    (2, planes, H, W) ping-pong buffer, advanced ``K`` steps a call by
+    :class:`stream_steps.StreamSteps` (K7), and unpacked at the end.
+
+    With grey physics at ``physics_every=1`` the physics runs inside each
+    step (the ground temperature rides as the extra plane; convection in
+    the fixed 4-sweep form).  Otherwise the extras run between calls at
+    their cadence, which K divides.  An even remainder runs as one shorter
+    call, an odd last step on the per-step 'mega4' path (K6 and the
+    per-step extras).  Fewer than 2 steps run on 'mega4' alone, as the JAX
+    package's fall-back computes.
+
+    Guard and stats act once per call: ``GuardInfo.blown_step`` names the
+    first step of the call that went bad, which :func:`run_model` narrows
+    to the exact step (:func:`localize_blown_step`), and the stats hold one
+    entry per call."""
+    if timesteps < 2:
+        return make_run_fn(geom, dataclasses.replace(config, backend="mega4"),
+                           timesteps)
+    inkernel = _inkernel_physics(config, geom)
+    if inkernel:
+        K = max(2, config.stream_steps - config.stream_steps % 2)
+        K = min(K, timesteps - timesteps % 2)
+        physics = stream_steps.make_physics(
+            geom, t_lw=config.t_lw, t_sw=config.t_sw, albedo=config.albedo,
+            drag_tau=config.drag_tau, convection=config.convection,
+            seasonal=config.seasonal, obliquity=config.obliquity,
+            year_days=config.year_days)
+    else:
+        physics = None
+        config, K = _resolve_stream_cadence(config, timesteps)
+    n_chunks, rem = divmod(timesteps, K)
+    rem_even = rem - rem % 2
+    tail_odd = rem % 2
+    L = geom.layers
+    NP = stream_steps.n_planes(L)
+    dtype = torch_dtype(config.dtype)
+    multi = stream_steps.StreamSteps(geom, config.dt,
+                                     coriolis=config.coriolis,
+                                     q_limiter=config.q_limiter,
+                                     physics=physics)
+    tail_step = (make_dynamics_step(geom, config, None, warn_degrade=False)
+                 if tail_odd else None)
+    has_extras = (config.physics or config.drag_tau > 0) and not inkernel
+
+    def to_model_state(carry):
+        S, g, utc, step = carry
+        if inkernel:
+            g = g._replace(gt=S[0, NP])
+        return ModelState(
+            PrognosticVars(*stream_steps.unpack_state(S[0], L)), g, utc, step)
+
+    def chunk_extras(carry, k):
+        """The between-call extras on the packed buffer, when a cadence
+        point falls in the just-completed k-step call; writes back the
+        planes they change."""
+        if not has_extras:
+            return carry
+        S, g, utc, step = carry
+        prog = PrognosticVars(*stream_steps.unpack_state(S[0], L))
+        # utc at the start of the cadence-triggering step, as the per-step
+        # path passes it
+        prog, g = apply_cadenced_extras(prog, g, utc - config.dt, step,
+                                        geom, config, granularity=k)
+        if config.drag_tau > 0:
+            S[0, 1].copy_(prog.u[0])
+            S[0, 1 + L].copy_(prog.v[0])
+        if config.physics:
+            S[0, 1 + 2 * L:1 + 3 * L].copy_(prog.t)
+        return S, g, utc, step
+
+    def advance_chunk(carry, k):
+        S, g, utc, step = carry
+        multi(S, utc, k)
+        return chunk_extras((S, g, utc + k * config.dt, step + k), k)
+
+    def advance_tail_odd(carry):
+        state = full_timestep(to_model_state(carry), geom, config, None,
+                              tail_step)
+        S = carry[0]
+        S[0].copy_(stream_steps.pack_state(
+            *state.prog, gt=state.ground.gt if inkernel else None))
+        return S, state.ground, state.utc, state.step
+
+    def pack_initial(state):
+        gt = state.ground.gt.to(dtype) if inkernel else None
+        packed = stream_steps.pack_state(
+            *(x.to(dtype) for x in state.prog), gt=gt)
+        return (torch.stack([packed, torch.zeros_like(packed)]),
+                state.ground, state.utc, state.step)
+
+    def stats_of(carry):
+        return collect_stats(to_model_state(carry), geom)
+
+    def run(state):
+        carry = pack_initial(state)
+        stats = []
+        for _ in range(n_chunks):
+            carry = advance_chunk(carry, K)
+            if config.stats:
+                stats.append(stats_of(carry))
+        if rem_even:
+            carry = advance_chunk(carry, rem_even)
+        if tail_odd:
+            carry = advance_tail_odd(carry)
+        if config.stats and (rem_even or tail_odd):
+            stats.append(stats_of(carry))
+        return to_model_state(carry), _stack_stats(stats)
+
+    def guarded_chunk(carry, chunk_start, chunk_fn):
+        """``chunk_fn`` (which updates the buffer in place) with the guard:
+        the state freezes at the last good call once a call ends bad."""
+        inner, ok, blown = carry
+        S, g, utc, step = inner
+        saved = S[0].clone()
+        new = chunk_fn(inner)
+        bad = state_bad(to_model_state(new), config)
+        advance = ok & ~bad
+        S[0].copy_(torch.where(advance, S[0], saved))
+        inner = (S, _pick(advance, new[1], g),
+                 torch.where(advance, new[2], utc),
+                 torch.where(advance, new[3], step))
+        blown = torch.where(ok & bad, torch.full_like(blown, chunk_start),
+                            blown)
+        return inner, advance, blown
+
+    def run_guarded(state):
+        carry = (pack_initial(state),
+                 torch.ones((), dtype=torch.bool, device=geom.device),
+                 torch.full((), -1, dtype=torch.int32, device=geom.device))
+        stats = []
+        for idx in range(n_chunks):
+            carry = guarded_chunk(carry, idx * K,
+                                  lambda c: advance_chunk(c, K))
+            if config.stats:
+                stats.append(stats_of(carry[0]))
+        if rem_even:
+            carry = guarded_chunk(carry, n_chunks * K,
+                                  lambda c: advance_chunk(c, rem_even))
+            if config.stats:
+                stats.append(stats_of(carry[0]))
+        if tail_odd:
+            carry = guarded_chunk(carry, timesteps - 1, advance_tail_odd)
+            if config.stats:
+                stats.append(stats_of(carry[0]))
+        inner, ok, blown = carry
+        return to_model_state(inner), _stack_stats(stats), GuardInfo(ok, blown)
+
+    out = run_guarded if config.guard else run
+    out.chunk_steps = K
+    return out
+
+
+def _blown_chunk_len(blown, n, K):
+    """Length of the stream call that starts at step offset ``blown`` of an
+    ``n``-step run with launch size ``K``: K for the main calls, the even
+    remainder for the remainder call, 1 for the odd tail."""
+    n_chunks, rem = divmod(n, K)
+    rem_even = rem - rem % 2
+    if blown < n_chunks * K:
+        return K
+    if rem_even and blown == n_chunks * K:
+        return rem_even
+    return 1
+
+
+def localize_blown_step(state, geom, config, max_steps):
+    """Replay up to ``max_steps`` steps one at a time on the 'mega4' path
+    from the frozen last-good ``state``; returns the 0-based offset of the
+    first bad step, or None when the replay stays healthy (the call-level
+    report then stands)."""
+    cfg = dataclasses.replace(config, backend="mega4", stats=False,
+                              guard=True)
+    gi = make_run_fn(geom, cfg, max_steps)(state)[2]
+    return None if bool(gi.ok) else int(gi.blown_step)
+
+
 def gen_model_state(geom, config) -> ModelState:
     """Initial state incl. the reference's driver-level tweaks
     (``run_model`` sets u = 0 and seeds v[0,0,0] = 0.1,
@@ -188,7 +508,11 @@ def gen_model_state(geom, config) -> ModelState:
                       torch.zeros((), dtype=torch.int32, device=geom.device))
 
 
-def _warn_blown(guard_info, config):
+def _warn_blown(guard_info, config, geom, state, chunk_steps, n_steps):
+    """Warn that the run blew up, naming the first bad step.  A stream run
+    reports the start of its bad call; the call is replayed step by step
+    from the frozen state to name the exact step (the reference's
+    port.py:295-310 names it)."""
     if bool(guard_info.ok):
         return
     causes = ("NaN or surface pressure out of "
@@ -197,9 +521,21 @@ def _warn_blown(guard_info, config):
         causes += (" or potential temperature out of "
                    f"[{config.guard_t_min}, "
                    f"{config.guard_t_max or float('inf')}] K")
+    step = int(guard_info.blown_step)
+    detail = ""
+    replay = _blown_chunk_len(step, n_steps, chunk_steps) if chunk_steps else 1
+    if replay > 1:
+        off = localize_blown_step(state, geom, config, replay)
+        if off is not None:
+            step += off
+            detail = (" (exact; localized by a per-step replay of the "
+                      f"blown {replay}-step chunk)")
+        else:
+            detail = (f" (chunk granularity {replay}; the per-step replay "
+                      "did not reproduce the blow)")
     warnings.warn(
-        f"run blew up ({causes}) at step {int(guard_info.blown_step)}; "
-        "state frozen at the last good step", RuntimeWarning, stacklevel=3)
+        f"run blew up ({causes}) at step {step}{detail}; state frozen at "
+        "the last good step", RuntimeWarning, stacklevel=3)
 
 
 def run_model(height, width, layers, dt, timesteps, callback=None,
@@ -232,10 +568,12 @@ def run_model(height, width, layers, dt, timesteps, callback=None,
     state = gen_model_state(geom, config)
 
     if callback is None:
-        out = make_run_fn(geom, config, timesteps)(state)
+        run = make_run_fn(geom, config, timesteps)
+        out = run(state)
         state, stats = out[0], out[1]
         if config.guard:
-            _warn_blown(out[2], config)
+            _warn_blown(out[2], config, geom, state,
+                        getattr(run, "chunk_steps", None), timesteps)
     else:
         filter_fn = make_filter_fn(config, geom)
         dynamics_step = make_dynamics_step(geom, config, filter_fn)

@@ -1,15 +1,18 @@
 """Where the time of one Matsuno step goes on the GPU.
 
     python -m gcmiipy_tpu_torch.step_profile [--height 512 --width 1024
-        --layers 9 --dt 30 --steps 10 --backend mega4 fused xla
-        --trace-dir DIR]
+        --layers 9 --dt 30 --steps 10 --backend stream mega4 fused xla
+        --physics --trace-dir DIR]
 
-For each backend it runs ``--steps`` warm steps of the dynamics step under
-``torch.profiler`` (CPU + CUDA activities) and prints one JSON line: the
-wall ms per step (host clock around as many synchronised steps run without
-the profiler), the device busy ms
-per step (sum of the device-side events' time; one stream, so they do
-not overlap), the idle share, and the kernels by device time.  With
+For each backend it runs ``--steps`` warm steps under ``torch.profiler``
+(CPU + CUDA activities) and prints one JSON line: the wall ms per step
+(host clock around as many synchronised steps run without the profiler),
+the device busy ms per step (sum of the device-side events' time; one
+stream, so they do not overlap), the idle share, and the kernels by device
+time.  'stream' runs its steps as one K7 call (``--steps`` even), the
+others one step at a time.  ``--physics`` adds the reference's per-step
+grey radiation, convection and surface drag (two days): inside K7's steps
+for 'stream', as plain PyTorch after each step for the others.  With
 ``--trace-dir`` it also writes a Chrome trace per backend there.
 """
 
@@ -25,6 +28,12 @@ from gcmiipy_tpu_torch.device import resolve_device
 from gcmiipy_tpu_torch.grid import geometry
 from gcmiipy_tpu_torch.model import driver
 from gcmiipy_tpu_torch.model.config import ModelConfig
+from gcmiipy_tpu_torch.ops import stream_steps
+
+# the per-step physics of the main path: grey radiation every step,
+# convection and a two-day surface drag
+PHYSICS = dict(physics=True, physics_every=1, convection=True,
+               drag_tau=2 * 86400.0)
 
 
 def _device_us(event):
@@ -34,32 +43,57 @@ def _device_us(event):
     return 0.0
 
 
+def _stepper(backend, geom, config, steps):
+    """``advance()``: ``steps`` steps of ``backend`` from the reference's
+    start, on state held in the closure (the dynamics step alone without
+    the physics)."""
+    state = driver.gen_model_state(geom, config)
+    if backend == "stream":
+        physics = (stream_steps.make_physics(
+            geom, drag_tau=config.drag_tau, convection=config.convection)
+            if config.physics else None)
+        multi = stream_steps.StreamSteps(geom, config.dt, physics=physics)
+        packed = stream_steps.pack_state(
+            *state.prog, gt=state.ground.gt if config.physics else None)
+        S = torch.stack([packed, torch.zeros_like(packed)])
+        return lambda: multi(S, state.utc, steps)
+    step = driver.make_dynamics_step(geom, config,
+                                     driver.make_filter_fn(config, geom))
+    box = [state]
+
+    def advance():
+        for _ in range(steps):
+            if config.physics:
+                box[0] = driver.full_timestep(box[0], geom, config, None,
+                                              step)
+            else:
+                box[0] = box[0]._replace(prog=step(*box[0].prog))
+    return advance
+
+
 def profile_backend(backend, height, width, layers, dt, steps, device,
-                    trace_dir=None, top=8):
+                    trace_dir=None, top=8, physics=False):
     """Profile ``steps`` steps of one backend; returns the summary dict."""
-    config = ModelConfig(backend=backend, dt=dt)
+    config = ModelConfig(backend=backend, dt=dt,
+                         **(PHYSICS if physics else {}))
     geom = geometry.gen_geometry(height, width, layers,
                                  sig_func=geometry.manabe_sig,
                                  dtype=torch.float32, device=device)
-    step = driver.make_dynamics_step(geom, config,
-                                     driver.make_filter_fn(config, geom))
-    state = tuple(driver.gen_model_state(geom, config).prog)
-    for _ in range(3):
-        state = step(*state)
+    advance = _stepper(backend, geom, config, steps)
+    advance()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for _ in range(steps):
-        state = step(*state)
+    advance()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            state = step(*state)
+        advance()
         torch.cuda.synchronize()
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, f"{backend}.json"))
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"{backend}{'-physics' if physics else ''}.json"))
     # the device-side events themselves (kernels, copies), not the host ops
     # that launched them, so no time is counted twice
     kernels = [(e.key, _device_us(e) / 1e3 / steps, e.count // steps)
@@ -68,7 +102,8 @@ def profile_backend(backend, height, width, layers, dt, steps, device,
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     return {
-        "backend": backend, "grid": [layers, height, width], "dt": dt,
+        "backend": backend, "physics": physics,
+        "grid": [layers, height, width], "dt": dt,
         "steps": steps, "device": torch.cuda.get_device_name(device),
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
@@ -86,14 +121,16 @@ def main():
     ap.add_argument("--dt", type=float, default=30.0)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--backend", nargs="+", default=["fused", "xla"],
-                    choices=["xla", "fused", "mega4"])
+                    choices=["xla", "fused", "mega4", "stream"])
+    ap.add_argument("--physics", action="store_true")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
     device = resolve_device("cuda")
     for backend in args.backend:
         print(json.dumps(profile_backend(
             backend, args.height, args.width, args.layers, args.dt,
-            args.steps, device, args.trace_dir)), flush=True)
+            args.steps, device, args.trace_dir,
+            physics=args.physics)), flush=True)
 
 
 if __name__ == "__main__":

@@ -117,9 +117,9 @@ def test_stats_off_returns_none():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("physics", True), ("backend", "stream"), ("stream_steps", 10),
-    ("checkpoint_dir", "ck"), ("shapiro_every", 4), ("topography", "hansen"),
-    ("drag_tau", 86400.0)])
+    ("evaporation", True), ("stream_pipeline", True),
+    ("stream_wide_native", True), ("checkpoint_dir", "ck"),
+    ("shapiro_every", 4), ("topography", "hansen"), ("precipitation", True)])
 def test_unported_features_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         driver.run_model(8, 8, 3, 1800.0, 1, device="cpu",

@@ -220,9 +220,12 @@ def test_bf16_filter_precisions_are_not_ported(precision):
 
 
 def test_stream_backend_still_raises():
-    with pytest.raises(NotImplementedError, match="backend"):
+    """'stream' runs (tests/test_torch_stream.py); its TPU scheduling
+    switch stays refused."""
+    with pytest.raises(NotImplementedError, match="stream_pipeline"):
         driver.run_model(8, 8, 3, 900.0, 1, device="cpu",
-                         config=ModelConfig(backend="stream"))
+                         config=ModelConfig(backend="stream",
+                                            stream_pipeline=True))
 
 
 def test_float64_sums_filter_float32_fields_to_their_rounding():
