@@ -7,11 +7,13 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 # non-zero and prints no result:
 #   device   the card's name and power limit (nvidia-smi) and torch's name;
 #   build    nvcc builds the kernel sources of the paths (csrc/fused_parts.cu,
-#            csrc/mega_step.cu and csrc/stream_steps.cu, all at once) and
-#            prints ptxas' counts;
+#            csrc/mega_step.cu, csrc/stream_steps.cu, csrc/pgf_rest.cu and
+#            csrc/mega_half.cu, all at once) and prints ptxas' counts;
 #   kernels  each kernel against its plain PyTorch version on the card: K1
-#            (fused_parts), K6 (mega_step) and K7 (stream_steps, with and
-#            without its column-physics epilogue);
+#            (fused_parts), K6 (mega_step), K7 (stream_steps, with and
+#            without its column-physics epilogue), K3 and K4 (pgf_parts,
+#            rest_parts) and K5 (mega_half, and its banded filter against
+#            the TPU kernel's unbanded one, to the bit);
 #   main     each path with its launch counts set to 0 just before it and
 #            read just after: run_model(512, 1024, 9, 30.0, 20, guard=True)
 #            with backend='fused' (K1) and backend='mega4' (K6), held against
@@ -23,10 +25,16 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            (one K7 call of 20 steps), stream against mega4 for the
 #            dynamics alone, and stream+physics against mega4 with the
 #            per-step physics in plain PyTorch, from the perturbed start;
+#            then run_model with backend='mega' (K5 twice a step) against
+#            the plain core with the DFT filter and against mega4, from the
+#            quiescent and the perturbed start; then 20 steps of
+#            make_fused_matsuno_v2 (K3, torch.fft, K4) from the perturbed
+#            start against 'fused';
 #   timing   ms/step of the backends, mega4 and stream also with the
 #            physics (windows of 20 steps between CUDA events, each twice),
-#            each kernel's ms beside its bound, its plain version's and, for
-#            K6's filter, torch.fft's.
+#            the v2 step beside the fused step (dynamics alone), each
+#            kernel's ms beside its bound, its plain version's and, for the
+#            filters of K6 and K5, torch.fft's.
 # The line before the last is the kernels JSON, the last the result JSON.
 # Imports nothing of JAX: the card's machine needs none.
 
@@ -58,7 +66,7 @@ STREAM_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
 # stream+physics vs mega4 with the per-step physics in plain PyTorch after a
 # few steps: the bound of scripts/tpu_parity.py's gate 6b (:329-360)
 PHYSICS_REL = 4e-4
-SOURCES = ("fused_parts", "mega_step", "stream_steps")
+SOURCES = ("fused_parts", "mega_step", "stream_steps", "pgf_rest", "mega_half")
 # The flagship bench grid at its full width.  dt is bench.py's for this grid:
 # at 512 latitude rows dt=900 breaks the meridional CFL limit (the polar
 # filter acts zonally only), and the guard stops the run at step 1-2, in the
@@ -355,6 +363,124 @@ def phase_kernels_k7(device):
     return main_abs
 
 
+def k3k4_inputs(shape, dtype, hill, device):
+    """Geometry, base and evaluated states (seeds 0 and 1, as K1's), and the
+    evaluated state's stack and pg_phiv from K3's plain version with the
+    FFT filter applied to the stack: K4's inputs."""
+    from gcmiipy_tpu_torch.ops import polar_filter
+    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts_ref
+    geom, args = k1_inputs(shape, dtype, hill, device)
+    base, seval = args[:5], args[5:10]
+    stack, pg_phiv = pgf_parts_ref(seval[0], seval[1], seval[3], geom)
+    return geom, base, seval, polar_filter.arakawa_1977(stack, geom), pg_phiv
+
+
+def phase_kernels_k3k4(device):
+    """K3 and K4 against their plain versions: float32 at the main path's
+    shape (flat; a hill with Coriolis; the q limiter) and float64 on two
+    small grids, every flag on.  K4 leaves v's wall row to its caller."""
+    from gcmiipy_tpu_torch.ops.pgf_rest import (
+        pgf_parts, pgf_parts_ref, rest_parts, rest_parts_ref)
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    cases = [(main_shape, torch.float32, False, False, False),
+             (main_shape, torch.float32, True, False, True),
+             (main_shape, torch.float32, False, True, False),
+             ((3, 16, 128), torch.float64, True, True, True),
+             ((9, 24, 36), torch.float64, True, True, True)]
+    worst, main_abs = {}, {"k3": 0.0, "k4": 0.0}
+    for shape, dtype, coriolis, q_limiter, hill in cases:
+        geom, base, seval, filt, pg_phiv = k3k4_inputs(shape, dtype, hill,
+                                                       device)
+        sp, su, st = seval[0], seval[1], seval[3]
+        k3 = pgf_parts(sp, su, st, geom)
+        rest_args = (*base, *seval, filt, pg_phiv, MAIN["dt"], geom)
+        k4 = rest_parts(*rest_args, coriolis=coriolis, q_limiter=q_limiter)
+        torch.cuda.synchronize()
+        ref3 = pgf_parts_ref(sp, su, st, geom)
+        ref4 = rest_parts_ref(*rest_args, coriolis=coriolis,
+                              q_limiter=q_limiter)
+        tag = (f"{tuple(shape)} {str(dtype)[6:]} coriolis={coriolis} "
+               f"q_limiter={q_limiter} hill={hill}")
+        for name, out, ref in (("pgf_parts", k3, ref3),
+                               ("rest_parts", k4, ref4)):
+            if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(out, ref)):
+                fail("kernels", f"{name} output shapes differ")
+            if not all(torch.isfinite(a).all() for a in out):
+                fail("kernels", f"{name} {tag}: output not finite")
+            rel = rel_err(out, ref)
+            log("kernels", f"{name} {tag}: max rel {rel:.3e} (bound "
+                           f"{KERNEL_REL[dtype]:g})")
+            if not rel <= KERNEL_REL[dtype]:
+                fail("kernels", f"{name} {tag} disagrees with its plain version")
+            worst[name, dtype] = max(worst.get((name, dtype), 0.0), rel)
+        if bool((k4[2][:, -1] == 0).all()):
+            fail("kernels", f"rest_parts {tag}: v walled inside the kernel")
+        if dtype == torch.float32:
+            main_abs["k3"] = max(main_abs["k3"], abs_err(k3, ref3))
+            main_abs["k4"] = max(main_abs["k4"], abs_err(k4, ref4))
+    log("kernels", "pgf_parts and rest_parts ok: max rel " + ", ".join(
+        f"{n} {str(d)[6:]} {r:.3e}" for (n, d), r in worst.items()))
+    return main_abs
+
+
+def phase_kernels_k5(device):
+    """K5 against its plain version after one half step: float32 at the
+    main path's shape (a predictor half, flat; a corrector half with a hill
+    and Coriolis; the q limiter), float64 at 3x24x36 and 3x512x1024.  On
+    the corrector cases the kernel with MegaHalf's banded filter equals the
+    kernel given the TPU kernel's unbanded filter (every row over every
+    chunk) to the bit."""
+    from gcmiipy_tpu_torch.ops.mega_half import (
+        MegaHalf, mega_half, mega_half_ref)
+    from gcmiipy_tpu_torch.ops.mega_step import build_filter_consts
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    cases = [(main_shape, torch.float32, False, False, False, True),
+             (main_shape, torch.float32, True, False, True, False),
+             (main_shape, torch.float32, False, True, False, False),
+             ((3, 24, 36), torch.float64, True, True, True, False),
+             ((3, 512, 1024), torch.float64, True, False, True, False)]
+    worst, main_abs = {}, 0.0
+    for shape, dtype, coriolis, q_limiter, hill, predictor in cases:
+        geom, base = k6_inputs(shape, dtype, hill, device)
+        seval = base if predictor else random_state(geom, 3, device, dtype)
+        half = MegaHalf(geom, MAIN["dt"], coriolis=coriolis,
+                        q_limiter=q_limiter)
+        out = half(base, seval)
+        torch.cuda.synchronize()
+        ref = mega_half_ref(base, seval, MAIN["dt"], geom, half.consts,
+                            coriolis=coriolis, q_limiter=q_limiter)
+        if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(out, ref)):
+            fail("kernels", "mega_half output shapes differ")
+        if not all(torch.isfinite(a).all() for a in out):
+            fail("kernels", "mega_half output not finite")
+        if not bool((out[2][:, -1] == 0).all()):
+            fail("kernels", "mega_half: v not 0 on the wall row")
+        rel = rel_err(out, ref)
+        tag = (f"mega_half {tuple(shape)} {str(dtype)[6:]} "
+               f"{'predictor' if predictor else 'corrector'} coriolis="
+               f"{coriolis} q_limiter={q_limiter} hill={hill} "
+               f"({int(half.rows.shape[0])} rows of "
+               f"{int(half.row_counts.max())} chunks)")
+        log("kernels", f"{tag}: max rel {rel:.3e} (bound {MEGA_REL[dtype]:g})")
+        if not rel <= MEGA_REL[dtype]:
+            fail("kernels", tag + " disagrees with mega_half_ref")
+        worst[dtype] = max(worst.get(dtype, 0.0), rel)
+        if dtype == torch.float32:
+            main_abs = max(main_abs, abs_err(out, ref))
+        if not predictor:
+            every = build_filter_consts(geom, band_limit=False)
+            unbanded = mega_half(base, seval, MAIN["dt"], geom, every,
+                                 coriolis=coriolis, q_limiter=q_limiter)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(out, unbanded)):
+                fail("kernels", tag + ": the unbanded filter's result "
+                     f"({int(every.row_counts.sum())} row-chunks) differs "
+                     "from the banded one's")
+    log("kernels", "mega_half ok, banded equal to unbanded: max rel float32 "
+                   f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
+    return main_abs
+
+
 def _config(backend, polar_filter="fft", **extra):
     from gcmiipy_tpu_torch.model.config import ModelConfig
     return ModelConfig(height=MAIN["height"], width=MAIN["width"],
@@ -519,7 +645,7 @@ def phase_main(device):
                 f"(< {STEP1_REL:g})")
     if not k2_rel < STEP1_REL:
         fail("main", "make_fused_matsuno outside the step-1 bound")
-    return launches, geom, start, abs_err(k2_out, ref)
+    return launches, geom, start, abs_err(k2_out, ref), out
 
 
 def phase_main_stream(device, geom, start):
@@ -578,6 +704,90 @@ def phase_main_stream(device, geom, start):
     return launches
 
 
+def _same(tag, a, b):
+    """Fail unless the two runs are equal to the bit (every field)."""
+    rel = rel_err(a, b)
+    log("main", f"{tag}: rel {rel:.3e}, equal to the bit: "
+                f"{all(torch.equal(x, y) for x, y in zip(a, b))}")
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail("main", tag + " differ")
+
+
+def phase_main_mega_v2(device, geom, start, runs):
+    """The 'mega' and v2 paths with their launches counted: run_model with
+    backend='mega' (K5 twice a step) against the plain core with the DFT
+    filter and against mega4 (equal to the bit: K5 is K6's half with the
+    same banded filter), from the quiescent and the perturbed start; 20 steps of
+    make_fused_matsuno_v2 (K3, torch.fft, K4) from the perturbed start
+    against 'fused' (``runs``: phase_main's perturbed runs)."""
+    from gcmiipy_tpu_torch.dynamics import fused
+    from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
+    from gcmiipy_tpu_torch.ops.mega_half import mega_half
+    from gcmiipy_tpu_torch.ops.mega_step import mega_step
+    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts, rest_parts
+    kernels = (fused_parts, mega_step, mega_half, pgf_parts, rest_parts)
+    n = MAIN["steps"]
+    launches = {}
+
+    t = time.perf_counter()
+    (mega_n, stats), counts = _counted(kernels, lambda: _run_model(
+        "mega", device, n))
+    launches["mega_half"] = counts[2]
+    log("main", f"run_model mega {n} steps in {time.perf_counter() - t:.2f}s, "
+                f"launches fused_parts {counts[0]} mega_step {counts[1]} "
+                f"mega_half {counts[2]} pgf_parts {counts[3]} rest_parts "
+                f"{counts[4]}, total energy drift "
+                f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
+    if counts != [0, 0, 2 * n, 0, 0]:
+        fail("main", f"run_model mega launched {counts}, expected "
+                     f"[0, 0, {2 * n}, 0, 0]")
+    mega4_n, _ = _run_model("mega4", device, n)
+    dft_n, _ = _run_model("xla", device, n, "dft")
+    one = {b: _run_model(b, device, 1, pf)[0] for b, pf in
+           (("mega", "fft"), ("mega4", "fft"), ("xla", "dft"))}
+    _held("run_model mega vs plain core (dft)", one["mega"], mega_n,
+          one["xla"], dft_n)
+    _held("run_model mega vs mega4", one["mega"], mega_n, one["mega4"],
+          mega4_n)
+    _same(f"run_model mega vs mega4, {n} steps", mega_n, mega4_n)
+
+    mega_p = {}
+    for steps in (1, n):
+        mega_p[steps], counts = _counted(kernels, lambda: _run_from(
+            "mega", geom, start, steps))
+        if counts != [0, 0, 2 * steps, 0, 0]:
+            fail("main", f"mega {steps} steps launched {counts}")
+    _held("perturbed start, mega vs plain core (dft)", mega_p[1], mega_p[n],
+          *runs["xla", "dft"])
+    _same(f"perturbed start, mega vs mega4, {n} steps", mega_p[n],
+          runs["mega4", "fft"][1])
+
+    v2 = fused.make_fused_matsuno_v2(geom, MAIN["dt"])
+
+    def v2_run(steps):
+        state = tuple(start.prog)
+        for _ in range(steps):
+            state = v2(*state)
+        return state
+
+    v2_1, _ = _counted(kernels, lambda: v2_run(1))
+    t = time.perf_counter()
+    v2_n, counts = _counted(kernels, lambda: v2_run(n))
+    launches["pgf_parts"], launches["rest_parts"] = counts[3], counts[4]
+    log("main", f"make_fused_matsuno_v2 {n} steps from the perturbed start in "
+                f"{time.perf_counter() - t:.2f}s, launches fused_parts "
+                f"{counts[0]} mega_step {counts[1]} mega_half {counts[2]} "
+                f"pgf_parts {counts[3]} rest_parts {counts[4]}")
+    if counts != [0, 0, 0, 2 * n, 2 * n]:
+        fail("main", f"make_fused_matsuno_v2 launched {counts}, expected "
+                     f"[0, 0, 0, {2 * n}, {2 * n}]")
+    _check_run("make_fused_matsuno_v2 from the perturbed state", v2_n, ())
+    if not bool((v2_n[2][:, -1] == 0).all()):
+        fail("main", "make_fused_matsuno_v2: v not 0 on the wall row")
+    _held("perturbed start, v2 vs fused", v2_1, v2_n, *runs["fused", "fft"])
+    return launches
+
+
 def _bytes(tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
@@ -603,7 +813,7 @@ def _row(name, source, replaces, launches, max_abs, ms, plain_ms, nbytes,
 
 
 def phase_timing(device, launches, max_abs, geom, start):
-    from gcmiipy_tpu_torch.dynamics import core25d
+    from gcmiipy_tpu_torch.dynamics import core25d, fused
     from gcmiipy_tpu_torch.model.driver import make_run_fn
     from gcmiipy_tpu_torch.ops import polar_filter
     from gcmiipy_tpu_torch.ops.fused_parts import (
@@ -613,8 +823,10 @@ def phase_timing(device, launches, max_abs, geom, start):
 
     # ms/step of the whole loop (make_run_fn with the guard and the stats):
     # windows of STEP_WINDOW steps between CUDA events, no host sync inside
-    # a window, each backend twice, in the order x f m s m+p s+p, then back.
+    # a window, each backend twice, in the order x f m m4 s m4+p s+p, then
+    # back.
     configs = {"xla": _config("xla"), "fused": _config("fused"),
+               "mega": _config("mega"),
                "mega4": _config("mega4"), "stream": _config("stream"),
                "mega4+physics": _config("mega4", **PHYSICS),
                "stream+physics": _config("stream", **PHYSICS)}
@@ -630,6 +842,26 @@ def phase_timing(device, launches, max_abs, geom, start):
     log("timing", f"ms/step over 2 windows of {STEP_WINDOW} steps: " + ", ".join(
         f"{b} {step_ms[b]:.4f} ({windows[b][0]:.4f}, {windows[b][1]:.4f})"
         for b in backends))
+
+    # the v2 step beside the fused step, the dynamics alone (as bench.py
+    # times 'fused2'): loops of STEP_WINDOW steps, in the order f v2 v2 f
+    prog = tuple(start.prog)
+    steps = {"fused": fused.make_fused_step(geom, MAIN["dt"]),
+             "v2": fused.make_fused_matsuno_v2(geom, MAIN["dt"])}
+
+    def loop(step):
+        state = prog
+        for _ in range(STEP_WINDOW):
+            state = step(*state)
+
+    for step in steps.values():
+        loop(step)
+    dyn = {b: [] for b in steps}
+    for b in ("fused", "v2", "v2", "fused"):
+        dyn[b].append(cuda_ms(lambda: loop(steps[b]), 1, warmup=0) / STEP_WINDOW)
+    log("timing", f"dynamics alone, ms/step over 2 loops of {STEP_WINDOW} steps: "
+                  + ", ".join(f"{b} {statistics.mean(v):.4f} ({v[0]:.4f}, "
+                              f"{v[1]:.4f})" for b, v in dyn.items()))
     rows = []
 
     def k1_timed(args, kgeom):
@@ -650,7 +882,6 @@ def phase_timing(device, launches, max_abs, geom, start):
                      tag="fused_parts", **k1_timed(args, kgeom)))
     # K2's path: the kernel on the inputs of make_fused_matsuno's predictor
     # half from the perturbed start (base and evaluated state both the start)
-    prog = tuple(start.prog)
     spu = polar_filter.arakawa_1977(core25d.calc_pu(prog[0], prog[1]), geom)
     rows.append(_row("fused_parts (make_fused_matsuno, K2's path)",
                      replaces="gcmiipy_tpu/ops/pallas_stencil.py:41",
@@ -728,6 +959,78 @@ def phase_timing(device, launches, max_abs, geom, start):
                      "gcmiipy_tpu/ops/pallas_stream.py:102",
                      launches["stream_steps"], max_abs["k7"], ms, plain_ms,
                      nbytes, ops, None, f"stream_steps (k={k}, physics)"))
+    rows += timing_k345(launches, max_abs, geom, prog)
+    return rows
+
+
+def timing_k345(launches, max_abs, geom, prog):
+    """The rows of K3, K4 and K5 at the main path's shape, each on the
+    inputs of a corrector half from the perturbed start: base the start,
+    evaluated state the predictor's (10 distinct fields)."""
+    from gcmiipy_tpu_torch.ops import polar_filter
+    from gcmiipy_tpu_torch.ops.fused_parts import GEOM_FIELDS
+    from gcmiipy_tpu_torch.ops.mega_half import MegaHalf, mega_half_ref
+    from gcmiipy_tpu_torch.ops.pgf_rest import (
+        pgf_parts, pgf_parts_ref, rest_parts, rest_parts_ref)
+    dt, W = MAIN["dt"], MAIN["width"]
+    geo = [getattr(geom, n) for n in GEOM_FIELDS]
+    half = MegaHalf(geom, dt)
+    seval = half(prog, prog)
+    rows = []
+
+    # K3: reads sp, su, st and the geometry, writes the stack and pg_phiv
+    k3_args = (seval[0], seval[1], seval[3], geom)
+    outs = pgf_parts_ref(*k3_args)
+    rows.append(_row(
+        "pgf_parts", "gcmiipy_tpu_torch/csrc/pgf_rest.cu",
+        "gcmiipy_tpu/ops/pallas_stencil.py:398", launches["pgf_parts"],
+        max_abs["k3"], cuda_ms(lambda: pgf_parts(*k3_args), 50),
+        cuda_ms(lambda: pgf_parts_ref(*k3_args), 10),
+        _bytes((*k3_args[:3], *geo, *outs)),
+        {torch.float32: count_ops(pgf_parts_ref, *k3_args)}, None, "pgf_parts"))
+
+    # K4: the 10 fields, the filtered stack and pg_phiv in, 5 fields out
+    stack, pg_phiv = outs
+    filt = polar_filter.arakawa_1977(stack, geom)
+    k4_args = (*prog, *seval, filt, pg_phiv, dt, geom)
+    outs = rest_parts_ref(*k4_args)
+    rows.append(_row(
+        "rest_parts", "gcmiipy_tpu_torch/csrc/pgf_rest.cu",
+        "gcmiipy_tpu/ops/pallas_stencil.py:492", launches["rest_parts"],
+        max_abs["k4"], cuda_ms(lambda: rest_parts(*k4_args), 50),
+        cuda_ms(lambda: rest_parts_ref(*k4_args), 10),
+        _bytes((*k4_args[:12], *geo, *outs)),
+        {torch.float32: count_ops(rest_parts_ref, *k4_args)}, None,
+        "rest_parts"))
+
+    # K5: one corrector half; the float32 elementwise operations of the
+    # plain version and the filter's float64 multiply-adds from this run's
+    # trip counts: one round, each listed row c chunks of (W x 256 forward
+    # + 256 x W inverse), 2 operations each.  The banded counts are the
+    # chunks whose correction mask is not all 0: the unbanded filter's
+    # other chunks add exact zeros, work the function does not need.
+    fc = half.consts
+    k5_args = (prog, seval, dt, geom, fc)
+    chunk_rows = int(fc.row_counts.sum())
+    filter_ops = chunk_rows * 2 * 256 * W * 2
+    ops = {torch.float32: count_ops(mega_half_ref, *k5_args,
+                                    dtypes=(torch.float32,)),
+           torch.float64: filter_ops}
+    # the library yardstick of the filter stage: torch.fft rfft*mask*irfft
+    # on the same 2L stacked rows, one round
+    fft_ms = cuda_ms(lambda: polar_filter.arakawa_1977(stack, geom), 20)
+    log("timing", f"mega_half filter stage: {filter_ops / 1e9:.2f} GFLOP over "
+                  f"{chunk_rows} row-chunks, "
+                  f"{1e3 * filter_ops / PEAK_OPS_PER_S[torch.float64]:.4f} ms at "
+                  f"the float64 peak; torch.fft rfft*mask*irfft of the same "
+                  f"stacked rows, one round: {fft_ms:.4f} ms")
+    rows.append(_row(
+        "mega_half", "gcmiipy_tpu_torch/csrc/mega_half.cu",
+        "gcmiipy_tpu/ops/pallas_stencil.py:663", launches["mega_half"],
+        max_abs["k5"], cuda_ms(lambda: half(prog, seval), 20),
+        cuda_ms(lambda: mega_half_ref(*k5_args), 5),
+        _bytes((*prog, *seval, *geo, *fc, *mega_half_ref(*k5_args))), ops,
+        fft_ms, "mega_half"))
     return rows
 
 
@@ -741,8 +1044,11 @@ def main():
     max_abs = {"k1": phase_kernels(device)}
     max_abs["k6"] = phase_kernels_k6(device)
     max_abs["k7"] = phase_kernels_k7(device)
-    launches, geom, start, max_abs["k2"] = phase_main(device)
+    max_abs.update(phase_kernels_k3k4(device))
+    max_abs["k5"] = phase_kernels_k5(device)
+    launches, geom, start, max_abs["k2"], runs = phase_main(device)
     launches["stream_steps"] = phase_main_stream(device, geom, start)
+    launches.update(phase_main_mega_v2(device, geom, start, runs))
     rows = phase_timing(device, launches, max_abs, geom, start)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)

@@ -1,7 +1,8 @@
 // The stages of one whole Matsuno step (predictor and corrector) with the
-// banded DFT polar filter, shared by K6 (mega_step.cu, one step a call) and
-// K7 (stream_steps.cu, k steps a call on the packed ping-pong buffer), so
-// that each stage exists once.  gcmiipy_tpu_torch/ops/mega_step.py:
+// banded DFT polar filter, shared by K6 (mega_step.cu, one step a call),
+// K7 (stream_steps.cu, k steps a call on the packed ping-pong buffer), K5
+// (mega_half.cu, one half step a call) and the v2 pair K3/K4 (pgf_rest.cu:
+// stages 1-2 and 5-6, the filter outside), so that each stage exists once.  gcmiipy_tpu_torch/ops/mega_step.py:
 // mega_step_ref is the plain version of one step.
 //
 // They replace the bodies matsuno_block_body (:1290) and
@@ -287,7 +288,8 @@ struct Outs {
 };
 
 // half_timestep_rest with the filtered spu (a.spu) and the momentum
-// epilogue with the filtered pgfu and the polar wall's keep mask.
+// epilogue with the filtered pgfu and the polar wall's keep mask (null:
+// no wall, v's last row left to the caller).
 template <typename T>
 __global__ void rest_stencil_pass(const Params<T> a, const T* pgfu, const T* pg_phiv,
                                   const T* keep, const Outs<T> out) {
@@ -306,8 +308,8 @@ __global__ void rest_stencil_pass(const Params<T> a, const T* pgfu, const T* pg_
   const T pv_partial = pv - (dvt + dvs) * dt;
   const T pn_c = x.s2(a.p_n, j, i);
   out.u_n[x.o] = (pu_partial - pgfu[x.o] * dt) * (one / ((pn_c + x.s2(a.p_n, j, x.ip)) * half));
-  out.v_n[x.o] = ((pv_partial - pg_phiv[x.o] * dt) *
-                  (one / ((pn_c + x.s2(a.p_n, x.jp, i)) * half))) * keep[j];
+  const T v_n = (pv_partial - pg_phiv[x.o] * dt) * (one / ((pn_c + x.s2(a.p_n, x.jp, i)) * half));
+  out.v_n[x.o] = keep ? v_n * keep[j] : v_n;
   T t_n, q_n;
   x.tracers(t_n, q_n);
   out.t_n[x.o] = t_n;
@@ -335,28 +337,65 @@ struct Step {
     if (err_ != cudaSuccess) return (int)err_;       \
   } while (0)
 
-// One half step: base (p,u,v,t,q) advanced with the tendencies at seval;
-// writes out = (p_n, u_n, v_n, t_n, q_n).
+// The Params of one half step: base (p,u,v,t,q) advanced with the
+// tendencies at seval (sp,su,sv,st,sq), spu the filtered zonal mass flux,
+// p_n the new surface pressure, sd/phi/rho the column scratch.  A pointer
+// that the caller's stages do not read may be null.
 template <typename T>
-int half_step(const Step<T>& s, void* const* base, void* const* seval, void* const* out) {
+Params<T> half_params(void* const* base, void* const* seval, const T* spu, void* const* geo,
+                      int L, int H, int W, const double* consts, int coriolis, int q_limiter,
+                      T* p_n, T* sd, T* phi, T* rho) {
   void* in[11];
   for (int n = 0; n < 5; ++n) {
     in[n] = base[n];
     in[5 + n] = seval[n];
   }
-  in[10] = s.X;  // the filtered spu: the first L planes of X after stage 4
-  Params<T> a = gcm::make_params<T>(in, s.geo, s.L, s.H, s.W, s.consts, s.coriolis,
-                                    s.q_limiter);
-  T* const* fo = reinterpret_cast<T* const*>(out);
-  a.p_n = fo[0];
-  a.sd = s.sd; a.phi = s.phi; a.rho = s.rho;
-  const int kb = gcm::kBlock;
-  const dim3 columns((s.W + kb - 1) / kb, s.H), points((s.W + kb - 1) / kb, s.H, s.L);
+  in[10] = const_cast<T*>(spu);
+  Params<T> a = gcm::make_params<T>(in, geo, L, H, W, consts, coriolis, q_limiter);
+  a.p_n = p_n;
+  a.sd = sd; a.phi = phi; a.rho = rho;
+  return a;
+}
 
-  pgf_column_pass<T><<<columns, kb, 0, s.stream>>>(a);
+inline dim3 column_grid(int H, int W) { return dim3((W + kBlock - 1) / kBlock, H); }
+inline dim3 point_grid(int L, int H, int W) { return dim3((W + kBlock - 1) / kBlock, H, L); }
+
+// Stages 1-2: pgf_forces(sp, su, st) into X = [spu_raw; pg_phi] (2L,H,W)
+// and pg_phiv (L,H,W).  Reads a.sp, a.su, a.st; writes a.rho, a.phi.
+template <typename T>
+int pgf_stages(const Params<T>& a, T* X, T* pg_phiv, cudaStream_t stream) {
+  pgf_column_pass<T><<<column_grid(a.H, a.W), kBlock, 0, stream>>>(a);
   GCM_CHECK();
-  pgf_stencil_pass<T><<<points, kb, 0, s.stream>>>(a, s.X, s.pg_phiv);
+  pgf_stencil_pass<T><<<point_grid(a.L, a.H, a.W), kBlock, 0, stream>>>(a, X, pg_phiv);
   GCM_CHECK();
+  return 0;
+}
+
+// Stages 5-6: half_timestep_rest with the filtered a.spu and the momentum
+// epilogue with the filtered pgfu, pg_phiv and the wall's keep (H; null:
+// no wall).
+// Writes a.sd, a.p_n and out.
+template <typename T>
+int rest_stages(const Params<T>& a, const T* pgfu, const T* pg_phiv, const T* keep,
+                const Outs<T>& out, cudaStream_t stream) {
+  aflux_column_pass<T><<<column_grid(a.H, a.W), kBlock, 0, stream>>>(a);
+  GCM_CHECK();
+  rest_stencil_pass<T><<<point_grid(a.L, a.H, a.W), kBlock, 0, stream>>>(a, pgfu, pg_phiv,
+                                                                          keep, out);
+  GCM_CHECK();
+  return 0;
+}
+
+// One half step: base (p,u,v,t,q) advanced with the tendencies at seval;
+// writes out = (p_n, u_n, v_n, t_n, q_n).
+template <typename T>
+int half_step(const Step<T>& s, void* const* base, void* const* seval, void* const* out) {
+  T* const* fo = reinterpret_cast<T* const*>(out);
+  // spu: the filtered spu, the first L planes of X after stage 4
+  const Params<T> a = half_params<T>(base, seval, s.X, s.geo, s.L, s.H, s.W, s.consts,
+                                     s.coriolis, s.q_limiter, fo[0], s.sd, s.phi, s.rho);
+  int err = pgf_stages(a, s.X, s.pg_phiv, s.stream);
+  if (err) return err;
   if (s.f.R > 0) {
     const unsigned mt = (s.f.R + BM - 1) / BM;
     dft_forward<T><<<dim3(mt, s.f.ncols / BN), kThreads, 0, s.stream>>>(
@@ -366,13 +405,9 @@ int half_step(const Step<T>& s, void* const* base, void* const* seval, void* con
         s.X, s.CwSw, s.A, s.f);
     GCM_CHECK();
   }
-  aflux_column_pass<T><<<columns, kb, 0, s.stream>>>(a);
-  GCM_CHECK();
   const T* pgfu = s.X + (size_t)s.L * s.H * s.W;
-  rest_stencil_pass<T><<<points, kb, 0, s.stream>>>(
-      a, pgfu, s.pg_phiv, s.keep, Outs<T>{fo[1], fo[2], fo[3], fo[4]});
-  GCM_CHECK();
-  return 0;
+  return rest_stages(a, pgfu, s.pg_phiv, s.keep, Outs<T>{fo[1], fo[2], fo[3], fo[4]},
+                     s.stream);
 }
 
 // The per-step arguments of half_step from the C entry points' tables.

@@ -1,0 +1,92 @@
+// K3 and K4 of the PyTorch port: the two kernels of the v2 pipeline, whose
+// half step is pgf kernel -> one batched polar filter outside the kernels
+// -> rest kernel (gcmiipy_tpu_torch/ops/pgf_rest.py: pgf_parts_ref and
+// rest_parts_ref are the plain versions).
+//
+// Replace gcmiipy_tpu/ops/pallas_stencil.py:make_pgf_kernel_padded (the
+// pl.pallas_call at :459) and make_rest_kernel_padded (:583).  The TPU
+// kernels tile (lat, lon) blocks with a wrap-padded halo in VMEM; here the
+// fields stay unpadded, every index wraps in the stencils, and each kernel
+// is two launches of the stages in mega_stages.cuh (each stage exists once):
+//
+//   gcm_pgf_parts   pgf_column_pass -> pgf_stencil_pass: pgf_forces into
+//                   the caller's (2L,H,W) stack [spu_raw; pg_phi] and
+//                   pg_phiv (L,H,W);
+//   gcm_rest_parts  aflux_column_pass -> rest_stencil_pass: half_timestep_rest
+//                   with the filtered spu (the stack's first L planes) and
+//                   the momentum epilogue with the filtered pgfu (its planes
+//                   L..2L, read in place: no copy) and pg_phiv, with no
+//                   wall (a null keep): v's wall row stays with the
+//                   caller, as in the JAX package.
+//
+// Bound: bytes.  At 9x512x1024 float32 K3 reads sp, su, st and writes the
+// stack and pg_phiv (about 98 MB with the geometry, 0.03 ms at 3.35 TB/s);
+// K4 reads 10 fields, the stack and pg_phiv and writes 5 fields (about 290
+// MB, 0.09 ms).  Each keeps its column recurrences in registers and writes
+// them (rho, phi; sd) to device memory for the stencil launch that follows,
+// which reads each neighbour column's values once more: the TPU kernel's
+// halo recompute becomes a second launch.  chip_smoke.py works the bounds
+// out from its run's tensors.
+
+#include "mega_stages.cuh"
+
+namespace {
+
+void* const kNone[5] = {nullptr, nullptr, nullptr, nullptr, nullptr};
+
+template <typename T>
+int pgf(void* const* in, void* const* geo, void* X, void* pg_phiv, void* const* scratch, int L,
+        int H, int W, const double* consts, cudaStream_t stream) {
+  if (gcm::bad_shape(L, H, W)) return (int)cudaErrorInvalidValue;
+  void* const seval[5] = {in[0], in[1], nullptr, in[2], nullptr};  // sp, su, st
+  T* const* fs = reinterpret_cast<T* const*>(scratch);
+  const gcm::Params<T> a = gcm::half_params<T>(kNone, seval, nullptr, geo, L, H, W, consts, 0, 0,
+                                               nullptr, nullptr, fs[0], fs[1]);
+  return gcm::pgf_stages(a, static_cast<T*>(X), static_cast<T*>(pg_phiv), stream);
+}
+
+template <typename T>
+int rest(void* const* in, const void* filt_stack, const void* pg_phiv, void* const* geo,
+         void* const* out, void* sd, int L, int H, int W, const double* consts, int coriolis,
+         int q_limiter, cudaStream_t stream) {
+  if (gcm::bad_shape(L, H, W)) return (int)cudaErrorInvalidValue;
+  const T* stack = static_cast<const T*>(filt_stack);
+  T* const* fo = reinterpret_cast<T* const*>(out);
+  const gcm::Params<T> a = gcm::half_params<T>(in, in + 5, stack, geo, L, H, W, consts,
+                                               coriolis, q_limiter, fo[0], static_cast<T*>(sd),
+                                               nullptr, nullptr);
+  const T* const no_wall = nullptr;
+  return gcm::rest_stages(a, stack + (size_t)L * H * W, static_cast<const T*>(pg_phiv), no_wall,
+                          gcm::Outs<T>{fo[1], fo[2], fo[3], fo[4]}, stream);
+}
+
+}  // namespace
+
+// K3: pgf_forces(sp, su, st).  in: sp (H,W), su, st (L,H,W).  geo: dx_j,
+// dx_h, lat, heightmap, sig, sigt, sigb, dsig, dy, ptop.  X: the (2L,H,W)
+// stack out, pg_phiv (L,H,W) out.  scratch: phi, rho (L,H,W).  consts: dt,
+// 1/dt, kappa, Rd, Cp, G, 1/P0, 2*omega (dt is not read).  Returns 0 or the
+// first CUDA error.
+extern "C" int gcm_pgf_parts(int is_double, void* const* in, void* const* geo, void* X,
+                             void* pg_phiv, void* const* scratch, int L, int H, int W,
+                             const double* consts, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double ? pgf<double>(in, geo, X, pg_phiv, scratch, L, H, W, consts, s)
+                   : pgf<float>(in, geo, X, pg_phiv, scratch, L, H, W, consts, s);
+}
+
+// K4: half_timestep_rest and the momentum epilogue.  in: p,u,v,t,q,
+// sp,su,sv,st,sq.  filt_stack: the filtered (2L,H,W) stack [spu; pgfu].
+// pg_phiv (L,H,W).  out: p_n (H,W), u_n, v_n (not walled), t_n, q_n
+// (L,H,W), none of them aliasing an input.  sd: (L,H,W) scratch.  Returns 0 or the
+// first CUDA error.
+extern "C" int gcm_rest_parts(int is_double, void* const* in, const void* filt_stack,
+                              const void* pg_phiv, void* const* geo, void* const* out, void* sd,
+                              int L, int H, int W, const double* consts, int coriolis,
+                              int q_limiter, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double ? rest<double>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
+                                  coriolis, q_limiter, s)
+                   : rest<float>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
+                                 coriolis, q_limiter, s);
+}

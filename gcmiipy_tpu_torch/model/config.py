@@ -58,21 +58,23 @@ class ModelConfig:
     # factors): the filter of the 'xla' and 'fused' backends
     polar_filter: str = "fft"
     # 'xla' (the plain PyTorch core; the name is the JAX package's),
-    # 'fused' (K1, csrc/fused_parts.cu, twice per step), 'mega4' (K6,
-    # csrc/mega_step.cu, the whole step with its banded DFT filter) or
-    # 'stream' (K7, csrc/stream_steps.cu, stream_steps whole steps a call
-    # with the per-step column physics inside)
+    # 'fused' (K1, csrc/fused_parts.cu, twice per step), 'mega' (K5,
+    # csrc/mega_half.cu, twice per step: each half step with the banded
+    # DFT filter), 'mega4' (K6, csrc/mega_step.cu, the whole step with its
+    # banded DFT filter) or 'stream' (K7, csrc/stream_steps.cu,
+    # stream_steps whole steps a call with the per-step column physics
+    # inside)
     backend: str = "xla"
     stream_pipeline: bool = False
     stream_steps: int = 20
     stream_wide_native: bool = False
     q_limiter: bool = False
-    # Precision of the 'mega4' filter.  'high' and 'highest' both run it at
-    # full precision: no TF32, no bf16 split, as the JAX package does off
-    # the TPU; its products and sums run in float64 for float32 fields too
-    # (float32 sums lose 1e-4 of the field on the polar rows, see
-    # ops/mega_step.py).  The bf16 modes 'fwd_high' and 'default' were
-    # measured unsound and are not ported.
+    # Precision of the 'mega' and 'mega4' filters.  'high' and 'highest'
+    # both run them at full precision: no TF32, no bf16 split, as the JAX
+    # package does off the TPU; their products and sums run in float64 for
+    # float32 fields too (float32 sums lose 1e-4 of the field on the polar
+    # rows, see ops/mega_step.py).  The bf16 modes 'fwd_high' and 'default'
+    # were measured unsound and are not ported.
     filter_precision: str = "high"
     # Accepted for compatibility; no effect, since every chunk of the
     # port's filter runs at full precision (there is no cheaper 1-pass tail).
@@ -100,7 +102,7 @@ PORTED = frozenset((
     "convection", "drag_tau", "t_lw", "t_sw", "albedo", "radiation",
     "stream_steps",
 ))
-BACKENDS = ("xla", "fused", "mega4", "stream")
+BACKENDS = ("xla", "fused", "mega", "mega4", "stream")
 RADIATIONS = ("grey",)
 POLAR_FILTERS = ("fft", "matmul", "dft")
 FILTER_PRECISIONS = ("high", "highest")

@@ -79,12 +79,12 @@ def make_filter_fn(config, geom):
 
 def make_dynamics_step(geom, config, filter_fn, warn_degrade=True):
     """The stencil backend: 'xla' runs the plain PyTorch core, 'fused' the
-    K1 kernel pipeline, 'mega4' the K6 whole-step kernel
-    (:mod:`gcmiipy_tpu_torch.dynamics.fused`; 'mega4' has its own filter
-    and does not use ``filter_fn``).  'stream' advances many steps a call
-    (:func:`make_run_fn`); a per-step caller of it gets 'mega4', with a
-    RuntimeWarning unless ``warn_degrade`` is False, as in the JAX
-    package."""
+    K1 kernel pipeline, 'mega' the K5 half-step kernel twice, 'mega4' the
+    K6 whole-step kernel (:mod:`gcmiipy_tpu_torch.dynamics.fused`; 'mega'
+    and 'mega4' have their own filters and do not use ``filter_fn``).
+    'stream' advances many steps a call (:func:`make_run_fn`); a per-step
+    caller of it gets 'mega4', with a RuntimeWarning unless
+    ``warn_degrade`` is False, as in the JAX package."""
     check_ported(config)
     backend = config.backend
     if backend == "stream":
@@ -94,11 +94,11 @@ def make_dynamics_step(geom, config, filter_fn, warn_degrade=True):
                 "backend 'stream' does not support a per-step caller "
                 "(callback path); running 'mega4' instead — "
                 "timings/numerics are mega4's", RuntimeWarning, stacklevel=3)
-    if backend in ("fused", "mega4"):
+    if backend in ("fused", "mega", "mega4"):
         return fused.make_fused_step(
             geom, config.dt, coriolis=config.coriolis, filter_fn=filter_fn,
             q_limiter=config.q_limiter,
-            pipeline="mega4" if backend == "mega4" else "v1")
+            pipeline="v1" if backend == "fused" else backend)
     return lambda *s: core25d.matsuno_timestep(
         *s, config.dt, geom, filter_fn=filter_fn, coriolis=config.coriolis,
         q_limiter=config.q_limiter)

@@ -75,6 +75,19 @@ def check_args(kernel, fields, shapes, geom):
                              f"{g.device}")
 
 
+def on_cpu(kernel, fields):
+    """Where a wrapper runs: True for CPU tensors (its plain version), False
+    for CUDA tensors (its kernel); raises on mixed or other devices."""
+    device = fields[0].device
+    if device.type == "cpu":
+        if any(x.device.type != "cpu" for x in fields):
+            raise ValueError(f"{kernel}: mixed devices")
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} runs on cuda or cpu, not {device}")
+    return False
+
+
 def _check(fields, geom):
     L, H, W = geom.layers, geom.height, geom.width
     check_args("fused_parts", fields,
@@ -101,15 +114,11 @@ def fused_parts(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
     """K1: returns ``(p_n, v_n, t_n, q_n, pu_partial, pg_phi)`` exactly as
     :func:`fused_parts_ref`.  ``p``/``sp`` are (H,W), the rest (L,H,W)."""
     fields = (p, u, v, t, q, sp, su, sv, st, sq, spu)
-    device = p.device
-    if device.type == "cpu":
-        if any(x.device.type != "cpu" for x in fields):
-            raise ValueError("fused_parts: mixed devices")
+    if on_cpu("fused_parts", fields):
         return fused_parts_ref(*fields, dt, geom, coriolis=coriolis,
                                q_limiter=q_limiter)
-    if device.type != "cuda":
-        raise ValueError(f"fused_parts runs on cuda or cpu, not {device}")
     _check(fields, geom)
+    device = p.device
     fn = _library()
     L, H, W = geom.layers, geom.height, geom.width
     outs = [torch.empty((H, W), dtype=p.dtype, device=device)] + [

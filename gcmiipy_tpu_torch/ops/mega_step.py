@@ -32,11 +32,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gcmiipy_tpu_torch.dynamics import core25d
 from gcmiipy_tpu_torch.ops import cuda_lib, polar_filter
 from gcmiipy_tpu_torch.ops.fused_parts import (
-    GEOM_FIELDS, check_args, kernel_consts, pointer_array)
-from gcmiipy_tpu_torch.ops.stencil import iph, jph
+    GEOM_FIELDS, check_args, kernel_consts, on_cpu, pointer_array)
+from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts_ref, rest_parts_ref
 
 CHUNK_COLUMNS = 2 * polar_filter.FILTER_CHUNK  # C and S halves of a chunk
 
@@ -117,29 +116,30 @@ def banded_filter_ref(X, fc):
     return Y.to(dtype)
 
 
-def mega_step_ref(p, u, v, t, q, dt, geom, fc, coriolis=False,
+def mega_half_ref(base, seval, dt, geom, fc, coriolis=False,
                   q_limiter=False):
-    """Plain PyTorch version of K6: one Matsuno step, each half
+    """One half step of K6's plain version, which is K5's
+    (:mod:`gcmiipy_tpu_torch.ops.mega_half`):
     ``pgf_forces`` -> filter round on ``[spu_raw; pg_phi]`` ->
     ``half_timestep_rest`` -> ``u = (pu - pgfu dt) / iph(p_n)``,
-    ``v = (pv - pg_phiv dt) / jph(p_n) * keep``."""
-    L = geom.layers
+    ``v = (pv - pg_phiv dt) / jph(p_n) * keep`` (K3's and K4's plain
+    versions around the filter, and the wall)."""
+    sp, su, _, st, _ = seval
+    stack, pg_phiv = pgf_parts_ref(sp, su, st, geom)
+    p_n, u_n, v_n, t_n, q_n = rest_parts_ref(
+        *base, *seval, banded_filter_ref(stack, fc), pg_phiv, dt, geom,
+        coriolis=coriolis, q_limiter=q_limiter)
+    return p_n, u_n, v_n * fc.keep, t_n, q_n
 
-    def half(base, seval):
-        sp, su, _, st, _ = seval
-        spu_raw, pg_phi, pg_phiv = core25d.pgf_forces(sp, su, st, geom)
-        filt = banded_filter_ref(torch.cat([spu_raw, pg_phi], dim=0), fc)
-        spu, pgfu = filt[:L], filt[L:]
-        p_n, pup, pvp, t_n, q_n = core25d.half_timestep_rest(
-            *base, *seval, spu, dt, geom, coriolis=coriolis,
-            q_limiter=q_limiter)
-        # 2D reciprocals, 3D multiplies, as the JAX kernel's epilogue
-        u_n = (pup - pgfu * dt) * (1.0 / iph(p_n))
-        v_n = ((pvp - pg_phiv * dt) * (1.0 / jph(p_n))) * fc.keep
-        return p_n, u_n, v_n, t_n, q_n
 
+def mega_step_ref(p, u, v, t, q, dt, geom, fc, coriolis=False,
+                  q_limiter=False):
+    """Plain PyTorch version of K6: one Matsuno step, two
+    :func:`mega_half_ref` halves."""
     base = (p, u, v, t, q)
-    return half(base, half(base, base))
+    kw = dict(coriolis=coriolis, q_limiter=q_limiter)
+    return mega_half_ref(base, mega_half_ref(base, base, dt, geom, fc, **kw),
+                         dt, geom, fc, **kw)
 
 
 def _library():
@@ -154,9 +154,12 @@ def _library():
     return fn
 
 
-def _check(fields, geom, fc):
+def _check(fields, geom, fc, kernel="mega_step"):
+    """The checks of :func:`fused_parts.check_args` on the five fields, and
+    of the filter buffers ``fc``; raises on anything ``kernel`` does not
+    take."""
     L, H, W = geom.layers, geom.height, geom.width
-    check_args("mega_step", fields,
+    check_args(kernel, fields,
                [(H, W)] + [(L, H, W)] * 4, geom)
     p = fields[0]
     ncols = fc.CS.shape[1]
@@ -167,18 +170,18 @@ def _check(fields, geom, fc):
         x = getattr(fc, name)
         if (x.device != p.device or x.dtype != dtype
                 or tuple(x.shape) != shape or not x.is_contiguous()):
-            raise ValueError(f"mega_step filter buffer {name}: a contiguous "
+            raise ValueError(f"{kernel} filter buffer {name}: a contiguous "
                              f"{dtype} {shape} tensor on {p.device} "
                              f"expected, got {x.dtype} {tuple(x.shape)} on "
                              f"{x.device}")
     if ncols % CHUNK_COLUMNS or not ncols:
-        raise ValueError(f"mega_step: {ncols} factor columns, not a "
+        raise ValueError(f"{kernel}: {ncols} factor columns, not a "
                          f"multiple of {CHUNK_COLUMNS}")
     for name in ("rows", "row_counts"):
         x = getattr(fc, name)
         if (x.device != p.device or x.dtype != torch.int32
                 or x.shape != fc.rows.shape or not x.is_contiguous()):
-            raise ValueError(f"mega_step filter buffer {name}: a contiguous "
+            raise ValueError(f"{kernel} filter buffer {name}: a contiguous "
                              f"int32 tensor on {p.device} expected")
 
 
@@ -188,15 +191,11 @@ def mega_step(p, u, v, t, q, dt, geom, fc, coriolis=False, q_limiter=False):
     (H,W), the rest (L,H,W); ``fc`` from :func:`build_filter_consts` on the
     same device and dtype."""
     fields = (p, u, v, t, q)
-    device = p.device
-    if device.type == "cpu":
-        if any(x.device.type != "cpu" for x in fields):
-            raise ValueError("mega_step: mixed devices")
+    if on_cpu("mega_step", fields):
         return mega_step_ref(*fields, dt, geom, fc, coriolis=coriolis,
                              q_limiter=q_limiter)
-    if device.type != "cuda":
-        raise ValueError(f"mega_step runs on cuda or cpu, not {device}")
     _check(fields, geom, fc)
+    device = p.device
     fn = _library()
     L, H, W = geom.layers, geom.height, geom.width
     R, ncols = int(fc.rows.shape[0]), int(fc.CS.shape[1])

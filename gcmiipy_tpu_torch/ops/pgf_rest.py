@@ -1,0 +1,143 @@
+"""K3 and K4: the pgf and rest kernels of the v2 pipeline, in CUDA.
+
+Replace ``gcmiipy_tpu/ops/pallas_stencil.py:make_pgf_kernel_padded`` (its
+``pl.pallas_call`` at :459) and ``make_rest_kernel_padded`` (:583).  A v2
+half step (:func:`gcmiipy_tpu_torch.dynamics.fused.make_fused_matsuno_v2`)
+is :func:`pgf_parts` (K3), one batched polar filter on the stack it
+returns, :func:`rest_parts` (K4), and the polar wall.
+
+* :func:`pgf_parts_ref` and :func:`rest_parts_ref` are the plain PyTorch
+  versions, on unpadded contiguous tensors;
+* :func:`pgf_parts` and :func:`rest_parts` run them on CPU tensors and
+  launch ``csrc/pgf_rest.cu`` on CUDA tensors, or raise; they never fall
+  back.
+
+``pgf_parts.launches`` and ``rest_parts.launches`` count the calls that
+launched a kernel.  Both kernels are bound by bytes (the source's header
+works the numbers out).
+"""
+
+import ctypes
+
+import torch
+
+from gcmiipy_tpu_torch.dynamics import core25d
+from gcmiipy_tpu_torch.ops import cuda_lib
+from gcmiipy_tpu_torch.ops.fused_parts import (
+    GEOM_FIELDS, check_args, kernel_consts, on_cpu, pointer_array)
+from gcmiipy_tpu_torch.ops.stencil import iph, jph
+
+
+def pgf_parts_ref(sp, su, st, geom):
+    """Plain PyTorch version of K3: ``core25d.pgf_forces`` with the two
+    filter-bound forces stacked.  Returns ``(stack, pg_phiv)``: the
+    (2L,H,W) ``[spu_raw; pg_phi]`` and the (L,H,W) ``pg_phiv``."""
+    spu_raw, pg_phi, pg_phiv = core25d.pgf_forces(sp, su, st, geom)
+    return torch.cat([spu_raw, pg_phi], dim=0), pg_phiv
+
+
+def rest_parts_ref(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv,
+                   dt, geom, coriolis=False, q_limiter=False):
+    """Plain PyTorch version of K4: ``core25d.half_timestep_rest`` with the
+    filtered spu (the stack's first L planes) and the momentum epilogue
+    ``u = (pu - pgfu dt) / iph(p_n)``, ``v = (pv - pg_phiv dt) / jph(p_n)``
+    with the filtered pgfu (its planes L..2L), as 2D reciprocals and 3D
+    multiplies like the JAX kernel's.  Returns ``(p_n, u_n, v_n, t_n,
+    q_n)``; v's wall row is the caller's."""
+    L = geom.layers
+    spu, pgfu = filt_stack[:L], filt_stack[L:]
+    p_n, pup, pvp, t_n, q_n = core25d.half_timestep_rest(
+        p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom, coriolis=coriolis,
+        q_limiter=q_limiter)
+    u_n = (pup - pgfu * dt) * (1.0 / iph(p_n))
+    v_n = (pvp - pg_phiv * dt) * (1.0 / jph(p_n))
+    return p_n, u_n, v_n, t_n, q_n
+
+
+def _function(name, argtypes):
+    fn = getattr(cuda_lib.load("pgf_rest"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+_CONSTS = ctypes.POINTER(ctypes.c_double)
+_I, _VP = ctypes.c_int, ctypes.c_void_p
+PGF_ARGTYPES = [_I, _PTRS, _PTRS, _VP, _VP, _PTRS, _I, _I, _I, _CONSTS, _VP]
+REST_ARGTYPES = [_I, _PTRS, _VP, _VP, _PTRS, _PTRS, _VP, _I, _I, _I, _CONSTS,
+                 _I, _I, _VP]
+
+
+def _check_pgf(fields, geom):
+    L, H, W = geom.layers, geom.height, geom.width
+    check_args("pgf_parts", fields, [(H, W), (L, H, W), (L, H, W)], geom)
+
+
+def _check_rest(fields, geom):
+    L, H, W = geom.layers, geom.height, geom.width
+    check_args("rest_parts", fields,
+               [(H, W)] + [(L, H, W)] * 4 + [(H, W)] + [(L, H, W)] * 4
+               + [(2 * L, H, W), (L, H, W)], geom)
+
+
+def pgf_parts(sp, su, st, geom):
+    """K3: ``(stack, pg_phiv)`` exactly as :func:`pgf_parts_ref`.  ``sp``
+    is (H,W), ``su`` and ``st`` (L,H,W)."""
+    fields = (sp, su, st)
+    if on_cpu("pgf_parts", fields):
+        return pgf_parts_ref(sp, su, st, geom)
+    _check_pgf(fields, geom)
+    L, H, W = geom.layers, geom.height, geom.width
+    fn = _function("gcm_pgf_parts", PGF_ARGTYPES)
+    device = sp.device
+    stack = torch.empty((2 * L, H, W), dtype=sp.dtype, device=device)
+    pg_phiv, phi, rho = (torch.empty((L, H, W), dtype=sp.dtype, device=device)
+                         for _ in range(3))
+    with torch.cuda.device(device):
+        # dt is not read by the pgf stages
+        err = fn(int(sp.dtype == torch.float64), pointer_array(fields),
+                 pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
+                 stack.data_ptr(), pg_phiv.data_ptr(),
+                 pointer_array([phi, rho]), L, H, W, kernel_consts(1.0),
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pgf_parts kernel launch failed: CUDA error {err}")
+    pgf_parts.launches += 1
+    return stack, pg_phiv
+
+
+pgf_parts.launches = 0
+
+
+def rest_parts(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv, dt,
+               geom, coriolis=False, q_limiter=False):
+    """K4: ``(p_n, u_n, v_n, t_n, q_n)`` exactly as :func:`rest_parts_ref`,
+    v not walled.  ``p``/``sp`` are (H,W), ``filt_stack`` (2L,H,W), the
+    rest (L,H,W); the outputs are new tensors."""
+    fields = (p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv)
+    if on_cpu("rest_parts", fields):
+        return rest_parts_ref(*fields, dt, geom, coriolis=coriolis,
+                              q_limiter=q_limiter)
+    _check_rest(fields, geom)
+    L, H, W = geom.layers, geom.height, geom.width
+    fn = _function("gcm_rest_parts", REST_ARGTYPES)
+    device = p.device
+    outs = [torch.empty((H, W), dtype=p.dtype, device=device)] + [
+        torch.empty((L, H, W), dtype=p.dtype, device=device) for _ in range(4)]
+    sd = torch.empty((L, H, W), dtype=p.dtype, device=device)
+    with torch.cuda.device(device):
+        err = fn(int(p.dtype == torch.float64), pointer_array(fields[:10]),
+                 filt_stack.data_ptr(), pg_phiv.data_ptr(),
+                 pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
+                 pointer_array(outs), sd.data_ptr(), L, H, W,
+                 kernel_consts(dt), int(bool(coriolis)), int(bool(q_limiter)),
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rest_parts kernel launch failed: CUDA error {err}")
+    rest_parts.launches += 1
+    return tuple(outs)
+
+
+rest_parts.launches = 0

@@ -28,7 +28,7 @@ import torch
 from gcmiipy_tpu_torch import constants
 from gcmiipy_tpu_torch.ops import cuda_lib
 from gcmiipy_tpu_torch.ops.fused_parts import (
-    GEOM_FIELDS, MAX_LAYERS, kernel_consts, pointer_array)
+    GEOM_FIELDS, MAX_LAYERS, kernel_consts, on_cpu, pointer_array)
 from gcmiipy_tpu_torch.ops.mega_step import (
     MegaStep, _check as check_filter_args, mega_step_ref)
 from gcmiipy_tpu_torch.physics import convection, radiation
@@ -215,14 +215,10 @@ def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
     tensor at the start of the call (read on the device); ``fc`` from
     :func:`mega_step.build_filter_consts`; ``table``/``scratch``: the
     physics table and :func:`new_scratch`, made here when not given."""
-    device = S.device
-    if device.type == "cpu":
-        if utc0.device.type != "cpu":
-            raise ValueError("stream_steps: mixed devices")
+    if on_cpu("stream_steps", (S, utc0)):
         return stream_steps_ref(S, utc0, k, dt, geom, fc, coriolis=coriolis,
                                 q_limiter=q_limiter, physics=physics)
-    if device.type != "cuda":
-        raise ValueError(f"stream_steps runs on cuda or cpu, not {device}")
+    device = S.device
     _check_steps(S, k, geom, physics)
     if not S.is_contiguous():
         raise ValueError("stream_steps: S is not contiguous")

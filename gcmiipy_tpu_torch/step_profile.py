@@ -1,8 +1,8 @@
 """Where the time of one Matsuno step goes on the GPU.
 
     python -m gcmiipy_tpu_torch.step_profile [--height 512 --width 1024
-        --layers 9 --dt 30 --steps 10 --backend stream mega4 fused xla
-        --physics --trace-dir DIR]
+        --layers 9 --dt 30 --steps 10 --backend stream mega4 mega v2 fused
+        xla --physics --trace-dir DIR]
 
 For each backend it runs ``--steps`` warm steps under ``torch.profiler``
 (CPU + CUDA activities) and prints one JSON line: the wall ms per step
@@ -10,9 +10,11 @@ For each backend it runs ``--steps`` warm steps under ``torch.profiler``
 the device busy ms per step (sum of the device-side events' time; one
 stream, so they do not overlap), the idle share, and the kernels by device
 time.  'stream' runs its steps as one K7 call (``--steps`` even), the
-others one step at a time.  ``--physics`` adds the reference's per-step
-grey radiation, convection and surface drag (two days): inside K7's steps
-for 'stream', as plain PyTorch after each step for the others.  With
+others one step at a time; 'v2' is the v2 pipeline
+(``dynamics.fused.make_fused_matsuno_v2``: K3, the FFT filter, K4), which
+no ``ModelConfig`` backend names.  ``--physics`` adds the reference's
+per-step grey radiation, convection and surface drag (two days): inside
+K7's steps for 'stream', as plain PyTorch after each step for the others.  With
 ``--trace-dir`` it also writes a Chrome trace per backend there.
 """
 
@@ -25,6 +27,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from gcmiipy_tpu_torch.device import resolve_device
+from gcmiipy_tpu_torch.dynamics import fused
 from gcmiipy_tpu_torch.grid import geometry
 from gcmiipy_tpu_torch.model import driver
 from gcmiipy_tpu_torch.model.config import ModelConfig
@@ -57,8 +60,11 @@ def _stepper(backend, geom, config, steps):
             *state.prog, gt=state.ground.gt if config.physics else None)
         S = torch.stack([packed, torch.zeros_like(packed)])
         return lambda: multi(S, state.utc, steps)
-    step = driver.make_dynamics_step(geom, config,
-                                     driver.make_filter_fn(config, geom))
+    if backend == "v2":
+        step = fused.make_fused_matsuno_v2(geom, config.dt)
+    else:
+        step = driver.make_dynamics_step(geom, config,
+                                         driver.make_filter_fn(config, geom))
     box = [state]
 
     def advance():
@@ -74,8 +80,9 @@ def _stepper(backend, geom, config, steps):
 def profile_backend(backend, height, width, layers, dt, steps, device,
                     trace_dir=None, top=8, physics=False):
     """Profile ``steps`` steps of one backend; returns the summary dict."""
-    config = ModelConfig(backend=backend, dt=dt,
-                         **(PHYSICS if physics else {}))
+    # 'v2' takes the 'fused' config: the same FFT filter, outside the kernels
+    config = ModelConfig(backend="fused" if backend == "v2" else backend,
+                         dt=dt, **(PHYSICS if physics else {}))
     geom = geometry.gen_geometry(height, width, layers,
                                  sig_func=geometry.manabe_sig,
                                  dtype=torch.float32, device=device)
@@ -121,7 +128,8 @@ def main():
     ap.add_argument("--dt", type=float, default=30.0)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--backend", nargs="+", default=["fused", "xla"],
-                    choices=["xla", "fused", "mega4", "stream"])
+                    choices=["xla", "fused", "v2", "mega", "mega4",
+                             "stream"])
     ap.add_argument("--physics", action="store_true")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
