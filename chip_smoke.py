@@ -7,13 +7,16 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 # non-zero and prints no result:
 #   device   the card's name and power limit (nvidia-smi) and torch's name;
 #   build    nvcc builds the kernel sources of the paths (csrc/fused_parts.cu,
-#            csrc/mega_step.cu, csrc/stream_steps.cu, csrc/pgf_rest.cu and
-#            csrc/mega_half.cu, all at once) and prints ptxas' counts;
-#   kernels  each kernel against its plain PyTorch version on the card: K1
-#            (fused_parts), K6 (mega_step), K7 (stream_steps, with and
-#            without its column-physics epilogue), K3 and K4 (pgf_parts,
-#            rest_parts) and K5 (mega_half, and its banded filter against
-#            the TPU kernel's unbanded one, to the bit);
+#            csrc/mega_step.cu, csrc/stream_steps.cu, csrc/pgf_rest.cu,
+#            csrc/mega_half.cu and csrc/fft_filter.cu, all at once) and
+#            prints ptxas' counts;
+#   kernels  each kernel against its plain PyTorch version on the card: the
+#            FFT filter stage (fft_filter, against its plain version and
+#            the TPU kernels' banded DFT form), K1 (fused_parts), K6
+#            (mega_step), K7 (stream_steps, with and without its
+#            column-physics epilogue), K3 and K4 (pgf_parts, rest_parts)
+#            and K5 (mega_half, against its plain version with the banded
+#            and with the TPU kernel's unbanded DFT);
 #   main     each path with its launch counts set to 0 just before it and
 #            read just after: run_model(512, 1024, 9, 30.0, 20, guard=True)
 #            with backend='fused' (K1) and backend='mega4' (K6), held against
@@ -34,7 +37,7 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            physics (windows of 20 steps between CUDA events, each twice),
 #            the v2 step beside the fused step (dynamics alone), each
 #            kernel's ms beside its bound, its plain version's and, for the
-#            filters of K6 and K5, torch.fft's.
+#            filter stage and the filters of K5, K6 and K7, torch.fft's.
 # The line before the last is the kernels JSON, the last the result JSON.
 # Imports nothing of JAX: the card's machine needs none.
 
@@ -57,16 +60,27 @@ STEP1_REL, RUN_REL, DRIFT_PA = 1e-4, 2e-3, 0.5
 # kernel vs its plain version: same operations in the same order (fmad off),
 # so only pow/sin ulps and the compiler's choices can differ
 KERNEL_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
-# K6 vs its plain version after one call: the DFT filter sums W terms in the
-# kernel's order against cuBLAS's, so agreement is to rounding, not bitwise
+# K6 vs its plain version after one call: the kernel's filter is an FFT, the
+# plain version's the TPU kernel's banded DFT, so agreement is to rounding
 MEGA_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
+# the FFT filter stage vs its plain version and the banded DFT, over each
+# field's scale: the float64 filter rounded once to float32 (one ulp apart
+# at most), float64 sums in another order
+FFT_REL = {torch.float32: 2e-7, torch.float64: 1e-13}
+# the kernels against the float64 banded DFT on the stacked forces and the
+# fields after them: above its own rounding on the cancelling polar rows,
+# which reached 2.46e-11 of a field's scale (K7, 3x512x1024) and 5e-11 (K6,
+# width 2048) on the card while the FFT-plan plain version stayed within
+# 5.9e-14, and far below the 3.6e-8 of a float32 result (filter_accuracy)
+BANDED_REL64 = 1e-10
 # K7 vs its plain version after one call of several steps: K6's rounding,
 # carried through the steps and the physics
 STREAM_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
 # stream+physics vs mega4 with the per-step physics in plain PyTorch after a
 # few steps: the bound of scripts/tpu_parity.py's gate 6b (:329-360)
 PHYSICS_REL = 4e-4
-SOURCES = ("fused_parts", "mega_step", "stream_steps", "pgf_rest", "mega_half")
+SOURCES = ("fused_parts", "mega_step", "stream_steps", "pgf_rest", "mega_half",
+           "fft_filter")
 # The flagship bench grid at its full width.  dt is bench.py's for this grid:
 # at 512 latitude rows dt=900 breaks the meridional CFL limit (the polar
 # filter acts zonally only), and the guard stops the run at step 1-2, in the
@@ -175,7 +189,7 @@ def phase_device():
 
 
 def phase_build():
-    """Both sources at once (one nvcc each), with ptxas' register counts."""
+    """Every source at once (one nvcc each), with ptxas' register counts."""
     from gcmiipy_tpu_torch.ops import cuda_lib
     t = time.perf_counter()
     built = cuda_lib.build_many(SOURCES)
@@ -229,6 +243,116 @@ def phase_kernels(device):
     return main_abs
 
 
+def fft_inputs(shape, dtype, device, planes=None):
+    """Geometry, filter constants and the stacked [spu_raw; pg_phi] of a
+    random state (seed 2), the filter stage's real input, cut to ``planes``
+    planes when given."""
+    from gcmiipy_tpu_torch.dynamics import core25d
+    from gcmiipy_tpu_torch.grid import geometry
+    from gcmiipy_tpu_torch.ops.mega_step import build_filter_consts
+    L, H, W = shape
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 dtype=dtype, device=device)
+    s = random_state(geom, 2, device, dtype)
+    X = torch.cat(core25d.pgf_forces(s[0], s[1], s[3], geom)[:2])
+    if planes is not None:
+        X = X[:planes].contiguous()
+    return geom, build_filter_consts(geom), X
+
+
+def fields(X, L):
+    """The fields of a stack, each held to its own scale: the spu_raw
+    planes and the pg_phi planes of 2L planes, else the whole stack."""
+    return [X[:L], X[L:]] if X.shape[0] == 2 * L else [X]
+
+
+def phase_kernels_fft(device):
+    """The FFT filter stage alone against its plain version (the same plan
+    and pairing in complex128) and against the TPU kernels' banded DFT form
+    (banded_filter_ref), on the stacked forces of a random state and on
+    standard-normal planes of the same shape: float32 and float64 at the
+    main path's shape (the register-tiled path) and at 3x128x384 (the
+    general path, radices 4, 2 and 3), float64 at 3x24x36 (radix 3),
+    3x20x100 (radix 5), 2x16x37 (a prime) and an odd plane count."""
+    from gcmiipy_tpu_torch.ops import fft_filter as ff
+    from gcmiipy_tpu_torch.ops.mega_step import banded_round
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    cases = [(main_shape, torch.float32, None),
+             (main_shape, torch.float64, None),
+             ((3, 128, 384), torch.float32, None),
+             ((3, 128, 384), torch.float64, None),
+             ((3, 24, 36), torch.float64, None),
+             ((3, 20, 100), torch.float64, None),
+             ((2, 16, 37), torch.float64, None),
+             ((3, 24, 36), torch.float64, 5)]
+    worst, main_abs = {}, 0.0
+    for shape, dtype, planes in cases:
+        geom, fc, forces = fft_inputs(shape, dtype, device, planes)
+        normal = torch.as_tensor(np.random.default_rng(shape[2]).standard_normal(
+            tuple(forces.shape))).to(device=device, dtype=dtype)
+        L = shape[0] if forces.shape[0] == 2 * shape[0] else forces.shape[0]
+        banded = banded_round(geom)
+        for name, X in (("forces", forces), ("normal planes", normal)):
+            out = ff.fft_filter(X.clone(), fc)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                fail("kernels", "fft_filter output not finite")
+            plain = {"FFT plan": ff.fft_filter_ref(X, fc),
+                     "banded DFT": banded(X)}
+            tag = (f"fft_filter {name} {tuple(X.shape)} {str(dtype)[6:]} "
+                   f"plan {ff.radix_plan(shape[2])}, {int(fc.lats.numel())} "
+                   f"of {shape[1]} latitudes, moved by rel "
+                   f"{rel_err(fields(out, L), fields(X, L)):.3e}")
+            rel, err = held_to_plain(
+                tag, fields(out, L),
+                {n: fields(y, L) for n, y in plain.items()}, FFT_REL[dtype],
+                FFT_REL[dtype] if dtype == torch.float32
+                or name == "normal planes" else BANDED_REL64)
+            worst[dtype] = max(worst.get(dtype, 0.0), rel)
+            if dtype == torch.float32 and name == "forces":
+                main_abs = max(main_abs, err)
+    log("kernels", "fft_filter ok, max rel held: float32 "
+                   f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
+    return main_abs
+
+
+def held_to_plain(tag, out, plain, bound, banded_bound):
+    """Hold a kernel's output (a list of fields) against its plain
+    versions: ``plain`` maps a name to their outputs, first the plain
+    version with the kernel's FFT plan (fft_filter_ref), held within
+    ``bound``, then those with the TPU kernels' banded DFT, held within
+    ``banded_bound``: ``bound`` at float32 and on fields of no polar
+    cancellation, BANDED_REL64 at float64 on the stacked forces and the
+    fields after them, where the banded DFT's own float64 rounding on the
+    cancelling polar rows reaches 1e-12 of the filtered field's scale and
+    1e-11 of u's after a half step at width 1024, while the FFT plan stays
+    within 1e-13 of a long-double DFT (tests/test_torch_fft_filter.py).
+    Returns the largest relative and absolute errors."""
+    rels = {name: rel_err(out, ref) for name, ref in plain.items()}
+    bounds = {name: bound if n == 0 else banded_bound
+              for n, name in enumerate(rels)}
+    log("kernels", f"{tag}: max rel " + ", ".join(
+        f"{r:.3e} against the plain version with the {name} (bound "
+        f"{bounds[name]:g})" for name, r in rels.items()))
+    if not all(rels[name] <= bounds[name] for name in rels):
+        fail("kernels", tag + " disagrees with its plain version")
+    return (max(rels.values()),
+            max(abs_err(out, ref) for ref in plain.values()))
+
+
+def fft_plan(fc):
+    """The filter round of the kernels' FFT plan (fft_filter_ref) with the
+    constants ``fc``, as a plain version's ``filter_ref``."""
+    from gcmiipy_tpu_torch.ops.fft_filter import fft_filter_ref
+    return lambda X: fft_filter_ref(X, fc)
+
+
+def banded_bound(dtype, bound):
+    """The bound of a K5/K6/K7 output against the plain version with the
+    banded DFT: ``bound`` at float32, BANDED_REL64 at float64."""
+    return bound if dtype == torch.float32 else BANDED_REL64
+
+
 def k6_inputs(shape, dtype, hill, device):
     """Geometry, the K6 step (:class:`MegaStep`) and a random state."""
     from gcmiipy_tpu_torch.grid import geometry
@@ -264,26 +388,28 @@ def phase_kernels_k6(device):
                         q_limiter=q_limiter)
         out = step(*state)
         torch.cuda.synchronize()
-        ref = mega_step_ref(*state, MAIN["dt"], geom, step.consts,
-                            coriolis=coriolis, q_limiter=q_limiter)
-        if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(out, ref)):
+        plain = {name: mega_step_ref(*state, MAIN["dt"], geom, step.consts,
+                                     coriolis=coriolis, q_limiter=q_limiter,
+                                     filter_ref=filter_ref)
+                 for name, filter_ref in (("FFT plan", fft_plan(step.consts)),
+                                          ("banded DFT", None))}
+        if any(tuple(a.shape) != tuple(b.shape)
+               for a, b in zip(out, plain["FFT plan"])):
             fail("kernels", "mega_step output shapes differ")
         if not all(torch.isfinite(a).all() for a in out):
             fail("kernels", "mega_step output not finite")
         if not bool((out[2][:, -1] == 0).all()):
             fail("kernels", "mega_step: v not 0 on the wall row")
-        rel = rel_err(out, ref)
         chunks = np.bincount(polar_filter.band_chunk_counts(geom.polar_mask))
         tag = (f"mega_step {tuple(shape)} {str(dtype)[6:]} coriolis={coriolis}"
                f" q_limiter={q_limiter} hill={hill} (rows by chunk count "
                f"{chunks.tolist()})")
-        log("kernels", f"{tag}: max rel {rel:.3e} (bound {MEGA_REL[dtype]:g})")
-        if not rel <= MEGA_REL[dtype]:
-            fail("kernels", tag + " disagrees with mega_step_ref")
+        rel, err = held_to_plain(tag, out, plain, MEGA_REL[dtype],
+                                 banded_bound(dtype, MEGA_REL[dtype]))
         worst[dtype] = max(worst.get(dtype, 0.0), rel)
         if dtype == torch.float32:
-            main_abs = max(main_abs, abs_err(out, ref))
-    log("kernels", "mega_step ok: max rel float32 "
+            main_abs = max(main_abs, err)
+    log("kernels", "mega_step ok, max rel held: float32 "
                    f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
     return main_abs
 
@@ -338,27 +464,27 @@ def phase_kernels_k7(device):
         geom, step, S, utc0 = k7_inputs(shape, dtype, physics, device, **kw)
         out = step(S.clone(), utc0, k)
         torch.cuda.synchronize()
-        ref = stream_steps_ref(S.clone(), utc0, k, MAIN["dt"], geom,
-                               step.consts, physics=step.physics)
-        got, want = _planes(out, shape[0]), _planes(ref, shape[0])
+        got = _planes(out, shape[0])
+        plain = {name: _planes(stream_steps_ref(
+                     S.clone(), utc0, k, MAIN["dt"], geom, step.consts,
+                     physics=step.physics, filter_ref=filter_ref), shape[0])
+                 for name, filter_ref in (("FFT plan", fft_plan(step.consts)),
+                                          ("banded DFT", None))}
         if not all(torch.isfinite(a).all() for a in got):
             fail("kernels", "stream_steps output not finite")
         if not bool((got[2][:, -1] == 0).all()):
             fail("kernels", "stream_steps: v not 0 on the wall row")
-        rel = rel_err(got, want)
         moved = rel_err(got, _planes(S, shape[0]))
         tag = (f"stream_steps {tuple(shape)} {str(dtype)[6:]} k={k} "
-               f"physics={physics}{' ' + str(kw) if kw else ''}")
-        log("kernels", f"{tag}: max rel {rel:.3e} over p,u,v,t,q"
-                       f"{',gt' if physics else ''} (bound "
-                       f"{STREAM_REL[dtype]:g}); the call moved the state by "
-                       f"rel {moved:.3e}")
-        if not rel <= STREAM_REL[dtype]:
-            fail("kernels", tag + " disagrees with stream_steps_ref")
+               f"physics={physics}{' ' + str(kw) if kw else ''} over p,u,v,"
+               f"t,q{',gt' if physics else ''}, the call moving the state "
+               f"by rel {moved:.3e}")
+        rel, err = held_to_plain(tag, got, plain, STREAM_REL[dtype],
+                                 banded_bound(dtype, STREAM_REL[dtype]))
         worst[dtype] = max(worst.get(dtype, 0.0), rel)
         if dtype == torch.float32 and physics and not kw:
-            main_abs = abs_err(got, want)
-    log("kernels", "stream_steps ok: max rel float32 "
+            main_abs = err
+    log("kernels", "stream_steps ok, max rel held: float32 "
                    f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
     return main_abs
 
@@ -426,13 +552,11 @@ def phase_kernels_k3k4(device):
 def phase_kernels_k5(device):
     """K5 against its plain version after one half step: float32 at the
     main path's shape (a predictor half, flat; a corrector half with a hill
-    and Coriolis; the q limiter), float64 at 3x24x36 and 3x512x1024.  On
-    the corrector cases the kernel with MegaHalf's banded filter equals the
-    kernel given the TPU kernel's unbanded filter (every row over every
-    chunk) to the bit."""
-    from gcmiipy_tpu_torch.ops.mega_half import (
-        MegaHalf, mega_half, mega_half_ref)
-    from gcmiipy_tpu_torch.ops.mega_step import build_filter_consts
+    and Coriolis; the q limiter), float64 at 3x24x36 and 3x512x1024.  The
+    plain version runs the kernel's FFT plan, the banded DFT (MegaHalf's)
+    and the TPU kernel's unbanded one (every row over every chunk)."""
+    from gcmiipy_tpu_torch.ops.mega_half import MegaHalf, mega_half_ref
+    from gcmiipy_tpu_torch.ops.mega_step import banded_round
     main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
     cases = [(main_shape, torch.float32, False, False, False, True),
              (main_shape, torch.float32, True, False, True, False),
@@ -447,36 +571,31 @@ def phase_kernels_k5(device):
                         q_limiter=q_limiter)
         out = half(base, seval)
         torch.cuda.synchronize()
-        ref = mega_half_ref(base, seval, MAIN["dt"], geom, half.consts,
-                            coriolis=coriolis, q_limiter=q_limiter)
-        if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(out, ref)):
-            fail("kernels", "mega_half output shapes differ")
         if not all(torch.isfinite(a).all() for a in out):
             fail("kernels", "mega_half output not finite")
         if not bool((out[2][:, -1] == 0).all()):
             fail("kernels", "mega_half: v not 0 on the wall row")
-        rel = rel_err(out, ref)
         tag = (f"mega_half {tuple(shape)} {str(dtype)[6:]} "
                f"{'predictor' if predictor else 'corrector'} coriolis="
                f"{coriolis} q_limiter={q_limiter} hill={hill} "
-               f"({int(half.rows.shape[0])} rows of "
-               f"{int(half.row_counts.max())} chunks)")
-        log("kernels", f"{tag}: max rel {rel:.3e} (bound {MEGA_REL[dtype]:g})")
-        if not rel <= MEGA_REL[dtype]:
-            fail("kernels", tag + " disagrees with mega_half_ref")
+               f"({int(half.lats.numel())} latitudes listed)")
+        plain = {name: mega_half_ref(base, seval, MAIN["dt"], geom,
+                                     half.consts, coriolis=coriolis,
+                                     q_limiter=q_limiter,
+                                     filter_ref=filter_ref)
+                 for name, filter_ref in (
+                     ("FFT plan", fft_plan(half.consts)),
+                     ("banded DFT", banded_round(geom)),
+                     ("unbanded DFT", banded_round(geom, band_limit=False)))}
+        if any(tuple(a.shape) != tuple(b.shape)
+               for a, b in zip(out, plain["FFT plan"])):
+            fail("kernels", "mega_half output shapes differ")
+        rel, err = held_to_plain(tag, out, plain, MEGA_REL[dtype],
+                                 banded_bound(dtype, MEGA_REL[dtype]))
         worst[dtype] = max(worst.get(dtype, 0.0), rel)
         if dtype == torch.float32:
-            main_abs = max(main_abs, abs_err(out, ref))
-        if not predictor:
-            every = build_filter_consts(geom, band_limit=False)
-            unbanded = mega_half(base, seval, MAIN["dt"], geom, every,
-                                 coriolis=coriolis, q_limiter=q_limiter)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(out, unbanded)):
-                fail("kernels", tag + ": the unbanded filter's result "
-                     f"({int(every.row_counts.sum())} row-chunks) differs "
-                     "from the banded one's")
-    log("kernels", "mega_half ok, banded equal to unbanded: max rel float32 "
+            main_abs = max(main_abs, err)
+    log("kernels", "mega_half ok, max rel held: float32 "
                    f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
     return main_abs
 
@@ -574,9 +693,10 @@ def phase_main(device):
     from a perturbed start after 1 and 20 steps; one step of K2's path."""
     from gcmiipy_tpu_torch.dynamics import core25d, fused
     from gcmiipy_tpu_torch.grid import geometry
+    from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
     from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
-    kernels = (fused_parts, mega_step)
+    kernels = (fused_parts, mega_step, fft_filter)
     n = MAIN["steps"]
     launches = {}
 
@@ -585,22 +705,25 @@ def phase_main(device):
         "fused", device, n))
     launches["fused_parts"] = counts[0]
     log("main", f"run_model fused {n} steps in {time.perf_counter() - t:.2f}s, "
-                f"launches fused_parts {counts[0]} mega_step {counts[1]}, "
-                f"total energy drift "
+                f"launches fused_parts {counts[0]} mega_step {counts[1]} "
+                f"fft_filter {counts[2]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [2 * n, 0]:
-        fail("main", f"run_model fused launched {counts}, expected [{2 * n}, 0]")
+    if counts != [2 * n, 0, 0]:
+        fail("main", f"run_model fused launched {counts}, expected "
+                     f"[{2 * n}, 0, 0]")
 
     t = time.perf_counter()
     (mega_n, stats), counts = _counted(kernels, lambda: _run_model(
         "mega4", device, n))
     launches["mega_step"] = counts[1]
+    launches["fft_filter mega4"] = counts[2]
     log("main", f"run_model mega4 {n} steps in {time.perf_counter() - t:.2f}s, "
-                f"launches fused_parts {counts[0]} mega_step {counts[1]}, "
-                f"total energy drift "
+                f"launches fused_parts {counts[0]} mega_step {counts[1]} "
+                f"fft_filter {counts[2]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, n]:
-        fail("main", f"run_model mega4 launched {counts}, expected [0, {n}]")
+    if counts != [0, n, 2 * n]:
+        fail("main", f"run_model mega4 launched {counts}, expected "
+                     f"[0, {n}, {2 * n}]")
 
     xla_n, _ = _run_model("xla", device, n)
     dft_n, _ = _run_model("xla", device, n, "dft")
@@ -636,7 +759,7 @@ def phase_main(device):
     k2_step = fused.make_fused_matsuno(geom, MAIN["dt"])
     k2_out, counts = _counted(kernels, lambda: k2_step(*prog))
     launches["k2"] = counts[0]
-    if counts != [2, 0]:
+    if counts != [2, 0, 0]:
         fail("main", f"make_fused_matsuno launched {counts}, expected [2, 0]")
     ref = core25d.matsuno_timestep(*prog, MAIN["dt"], geom)
     k2_rel = rel_err(k2_out, ref)
@@ -654,10 +777,11 @@ def phase_main_stream(device, geom, start):
     the dynamics alone after 2 (one K=2 call) and 20 steps; stream+physics
     (convection off) against mega4 with the per-step physics in plain
     PyTorch after 4 and 20 steps, from the perturbed start."""
+    from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
     from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
     from gcmiipy_tpu_torch.ops.stream_steps import stream_steps
-    kernels = (fused_parts, mega_step, stream_steps)
+    kernels = (fused_parts, mega_step, stream_steps, fft_filter)
     n = MAIN["steps"]
 
     t = time.perf_counter()
@@ -665,20 +789,21 @@ def phase_main_stream(device, geom, start):
         "stream", device, n, **PHYSICS))
     log("main", f"run_model stream+physics {n} steps in "
                 f"{time.perf_counter() - t:.2f}s, launches fused_parts "
-                f"{counts[0]} mega_step {counts[1]} stream_steps {counts[2]}, "
-                f"total energy drift "
+                f"{counts[0]} mega_step {counts[1]} stream_steps {counts[2]} "
+                f"fft_filter {counts[3]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, 0, 1]:
+    if counts != [0, 0, 1, 2 * n]:
         fail("main", f"run_model stream+physics launched {counts}, "
-                     "expected [0, 0, 1]")
-    launches = counts[2]
+                     f"expected [0, 0, 1, {2 * n}]")
+    launches = {"stream_steps": counts[2], "fft_filter stream": counts[3]}
 
     runs = {}
     for backend in ("stream", "mega4"):
         for steps in (2, n):
             runs[backend, steps], counts = _counted(
                 kernels, lambda: _run_from(backend, geom, start, steps))
-            want = [0, 0, 1] if backend == "stream" else [0, steps, 0]
+            want = ([0, 0, 1, 2 * steps] if backend == "stream"
+                    else [0, steps, 0, 2 * steps])
             if counts != want:
                 fail("main", f"{backend} {steps} steps launched {counts}, "
                              f"expected {want}")
@@ -691,7 +816,8 @@ def phase_main_stream(device, geom, start):
             runs[backend, steps], counts = _counted(
                 kernels, lambda: _run_from(backend, geom, start, steps,
                                            **physics))
-            want = [0, 0, 1] if backend == "stream" else [0, steps, 0]
+            want = ([0, 0, 1, 2 * steps] if backend == "stream"
+                    else [0, steps, 0, 2 * steps])
             if counts != want:
                 fail("main", f"{backend}+physics {steps} steps launched "
                              f"{counts}, expected {want}")
@@ -721,11 +847,13 @@ def phase_main_mega_v2(device, geom, start, runs):
     make_fused_matsuno_v2 (K3, torch.fft, K4) from the perturbed start
     against 'fused' (``runs``: phase_main's perturbed runs)."""
     from gcmiipy_tpu_torch.dynamics import fused
+    from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
     from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
     from gcmiipy_tpu_torch.ops.mega_half import mega_half
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
     from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts, rest_parts
-    kernels = (fused_parts, mega_step, mega_half, pgf_parts, rest_parts)
+    kernels = (fused_parts, mega_step, mega_half, pgf_parts, rest_parts,
+               fft_filter)
     n = MAIN["steps"]
     launches = {}
 
@@ -733,14 +861,15 @@ def phase_main_mega_v2(device, geom, start, runs):
     (mega_n, stats), counts = _counted(kernels, lambda: _run_model(
         "mega", device, n))
     launches["mega_half"] = counts[2]
+    launches["fft_filter mega"] = counts[5]
     log("main", f"run_model mega {n} steps in {time.perf_counter() - t:.2f}s, "
                 f"launches fused_parts {counts[0]} mega_step {counts[1]} "
                 f"mega_half {counts[2]} pgf_parts {counts[3]} rest_parts "
-                f"{counts[4]}, total energy drift "
+                f"{counts[4]} fft_filter {counts[5]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, 0, 2 * n, 0, 0]:
+    if counts != [0, 0, 2 * n, 0, 0, 2 * n]:
         fail("main", f"run_model mega launched {counts}, expected "
-                     f"[0, 0, {2 * n}, 0, 0]")
+                     f"[0, 0, {2 * n}, 0, 0, {2 * n}]")
     mega4_n, _ = _run_model("mega4", device, n)
     dft_n, _ = _run_model("xla", device, n, "dft")
     one = {b: _run_model(b, device, 1, pf)[0] for b, pf in
@@ -755,7 +884,7 @@ def phase_main_mega_v2(device, geom, start, runs):
     for steps in (1, n):
         mega_p[steps], counts = _counted(kernels, lambda: _run_from(
             "mega", geom, start, steps))
-        if counts != [0, 0, 2 * steps, 0, 0]:
+        if counts != [0, 0, 2 * steps, 0, 0, 2 * steps]:
             fail("main", f"mega {steps} steps launched {counts}")
     _held("perturbed start, mega vs plain core (dft)", mega_p[1], mega_p[n],
           *runs["xla", "dft"])
@@ -777,10 +906,11 @@ def phase_main_mega_v2(device, geom, start, runs):
     log("main", f"make_fused_matsuno_v2 {n} steps from the perturbed start in "
                 f"{time.perf_counter() - t:.2f}s, launches fused_parts "
                 f"{counts[0]} mega_step {counts[1]} mega_half {counts[2]} "
-                f"pgf_parts {counts[3]} rest_parts {counts[4]}")
-    if counts != [0, 0, 0, 2 * n, 2 * n]:
+                f"pgf_parts {counts[3]} rest_parts {counts[4]} fft_filter "
+                f"{counts[5]}")
+    if counts != [0, 0, 0, 2 * n, 2 * n, 0]:
         fail("main", f"make_fused_matsuno_v2 launched {counts}, expected "
-                     f"[0, 0, 0, {2 * n}, {2 * n}]")
+                     f"[0, 0, 0, {2 * n}, {2 * n}, 0]")
     _check_run("make_fused_matsuno_v2 from the perturbed state", v2_n, ())
     if not bool((v2_n[2][:, -1] == 0).all()):
         fail("main", "make_fused_matsuno_v2: v not 0 on the wall row")
@@ -790,6 +920,20 @@ def phase_main_mega_v2(device, geom, start, runs):
 
 def _bytes(tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def _filter_buffers(fc):
+    """The filter buffers the kernels of K5, K6 and K7 read."""
+    return fc.mask, fc.twiddle, fc.lats, fc.keep
+
+
+def _filter_ops(fc, geom, rounds):
+    """float64 operations of ``rounds`` FFT filter rounds on the stacked
+    2L planes (fft_filter.round_ops: the radix plan's butterflies and
+    twiddle products, the mask and the final adds)."""
+    from gcmiipy_tpu_torch.ops import fft_filter as ff
+    return rounds * ff.round_ops(2 * geom.layers, geom.width,
+                                 int(fc.lats.numel()))
 
 
 def _row(name, source, replaces, launches, max_abs, ms, plain_ms, nbytes,
@@ -818,7 +962,8 @@ def phase_timing(device, launches, max_abs, geom, start):
     from gcmiipy_tpu_torch.ops import polar_filter
     from gcmiipy_tpu_torch.ops.fused_parts import (
         GEOM_FIELDS, fused_parts, fused_parts_ref)
-    from gcmiipy_tpu_torch.ops.mega_step import MegaStep, mega_step_ref
+    from gcmiipy_tpu_torch.ops.mega_step import (
+        MegaStep, banded_round, mega_step_ref)
     from gcmiipy_tpu_torch.ops.stream_steps import stream_steps_ref
 
     # ms/step of the whole loop (make_run_fn with the guard and the stats):
@@ -889,25 +1034,26 @@ def phase_timing(device, launches, max_abs, geom, start):
                      tag="fused_parts on K2's path",
                      **k1_timed((*prog, *prog, spu), geom)))
 
-    # K6 alone at the main path's shape, from the perturbed start
+    # K6 alone at the main path's shape, from the perturbed start; the plain
+    # versions run the banded DFT with factors built once, outside the timing
     step = MegaStep(geom, MAIN["dt"])
     state = prog
+    banded = banded_round(geom)
     ms = cuda_ms(lambda: step(*state), 20)
     plain_ms = cuda_ms(lambda: mega_step_ref(*state, MAIN["dt"], geom,
-                                             step.consts), 5)
+                                             step.consts, filter_ref=banded), 5)
     fc = step.consts
     geo = [getattr(geom, n) for n in GEOM_FIELDS]
-    nbytes = _bytes((*state, *geo, *fc, *mega_step_ref(*state, MAIN["dt"], geom,
-                                                       fc)))
+    nbytes = _bytes((*state, *geo, *_filter_buffers(fc),
+                     *mega_step_ref(*state, MAIN["dt"], geom, fc,
+                                    filter_ref=banded)))
     # the float32 elementwise operations of the plain version (its float64
-    # mask products and adds in the filter are counted with the filter),
-    # and the filter's float64 multiply-adds from this run's trip counts:
-    # 2 rounds, each listed row c chunks of (W x 256 forward + 256 x W
-    # inverse), 2 operations each
-    chunk_rows = int(fc.row_counts.sum())
-    filter_ops = 2 * chunk_rows * 2 * 256 * MAIN["width"] * 2
+    # banded DFT is not the kernel's filter and is not counted), and the
+    # FFT filter's float64 operations: 2 rounds
+    filter_ops = _filter_ops(fc, geom, 2)
     ops = {torch.float32: count_ops(mega_step_ref, *state, MAIN["dt"], geom,
-                                    fc, dtypes=(torch.float32,)),
+                                    fc, filter_ref=banded,
+                                    dtypes=(torch.float32,)),
            torch.float64: filter_ops}
     # the library yardstick of the filter stage only: torch.fft on the same
     # stacked (2L,H,W) rows, twice (a step's two rounds, which are the four
@@ -916,13 +1062,10 @@ def phase_timing(device, launches, max_abs, geom, start):
                                          geom)[:2], dim=0)
     fft_ms = cuda_ms(lambda: [polar_filter.arakawa_1977(stack, geom)
                               for _ in range(2)], 20)
-    log("timing", f"mega_step filter stage: {filter_ops / 1e9:.2f} GFLOP over "
-                  f"{chunk_rows} row-chunks, "
-                  f"{1e3 * filter_ops / PEAK_OPS_PER_S[torch.float64]:.4f} ms at "
-                  f"the float64 peak; torch.fft rfft*mask*irfft of the same "
-                  f"stacked rows, 2 rounds: {fft_ms:.4f} ms (an FFT needs fewer "
-                  f"operations: the banded DFT form, not the card, sets this "
-                  f"bound)")
+    log("timing", f"mega_step filter stage: {filter_ops / 1e9:.3f} GFLOP "
+                  f"double over {int(fc.lats.numel())} latitudes, 2 rounds; "
+                  f"torch.fft rfft*mask*irfft of the same stacked rows, 2 "
+                  f"rounds: {fft_ms:.4f} ms")
     rows.append(_row("mega_step", "gcmiipy_tpu_torch/csrc/mega_step.cu",
                      "gcmiipy_tpu/ops/pallas_stencil.py:1337",
                      launches["mega_step"], max_abs["k6"], ms, plain_ms, nbytes,
@@ -936,43 +1079,53 @@ def phase_timing(device, launches, max_abs, geom, start):
     kgeom, step, S0, utc0 = k7_inputs(main_shape, torch.float32, True, device)
     S = S0.clone()
     ms = cuda_ms(lambda: step(S.copy_(S0), utc0, k), 5)
+    k7_banded = banded_round(kgeom)
     plain_ms = cuda_ms(lambda: stream_steps_ref(
         S.copy_(S0), utc0, k, MAIN["dt"], kgeom, step.consts,
-        physics=step.physics), 1, warmup=1)
+        physics=step.physics, filter_ref=k7_banded), 1, warmup=1)
     dyn = k7_inputs(main_shape, torch.float32, False, device)
     S_dyn = dyn[2].clone()
     dyn_ms = cuda_ms(lambda: dyn[1](S_dyn.copy_(dyn[2]), utc0, k), 5)
     fc = step.consts
     geo = [getattr(kgeom, n) for n in GEOM_FIELDS]
-    nbytes = _bytes((S0, S0, *geo, kgeom.long, *fc))
-    filter_ops = k * 2 * int(fc.row_counts.sum()) * 2 * 256 * MAIN["width"] * 2
+    nbytes = _bytes((S0, S0, *geo, kgeom.long, *_filter_buffers(fc)))
     ops = {torch.float32: count_ops(
                stream_steps_ref, S.copy_(S0), utc0, k, MAIN["dt"], kgeom, fc,
-               physics=step.physics, dtypes=(torch.float32,)),
-           torch.float64: filter_ops}
+               physics=step.physics, filter_ref=k7_banded,
+               dtypes=(torch.float32,)),
+           torch.float64: _filter_ops(fc, kgeom, 2 * k)}
+    # the filter stage's library yardstick: torch.fft on the stacked rows of
+    # the call's start, 2k rounds
+    s0 = _planes(S0, MAIN["layers"])
+    k7_stack = torch.cat(core25d.pgf_forces(s0[0], s0[1], s0[3], kgeom)[:2])
+    k7_fft_ms = cuda_ms(lambda: [polar_filter.arakawa_1977(k7_stack, kgeom)
+                                 for _ in range(2 * k)], 3)
     epi_bytes = (2 * MAIN["layers"] + 7) * MAIN["height"] * MAIN["width"] * 4
     log("timing", f"stream_steps k={k}: {ms / k:.4f} ms/step with the "
                   f"physics, {dyn_ms / k:.4f} without: the epilogue takes "
                   f"about {(ms - dyn_ms) / k:.4f} ms a step (its bytes bound "
-                  f"{1e3 * epi_bytes / HBM_BYTES_PER_S:.4f} ms)")
+                  f"{1e3 * epi_bytes / HBM_BYTES_PER_S:.4f} ms); torch.fft's "
+                  f"filter stage, {2 * k} rounds: {k7_fft_ms:.4f} ms")
     rows.append(_row("stream_steps", "gcmiipy_tpu_torch/csrc/stream_steps.cu",
                      "gcmiipy_tpu/ops/pallas_stream.py:102",
                      launches["stream_steps"], max_abs["k7"], ms, plain_ms,
-                     nbytes, ops, None, f"stream_steps (k={k}, physics)"))
+                     nbytes, ops, k7_fft_ms, f"stream_steps (k={k}, physics)"))
     rows += timing_k345(launches, max_abs, geom, prog)
     return rows
 
 
 def timing_k345(launches, max_abs, geom, prog):
-    """The rows of K3, K4 and K5 at the main path's shape, each on the
-    inputs of a corrector half from the perturbed start: base the start,
-    evaluated state the predictor's (10 distinct fields)."""
+    """The rows of K3, K4, K5 and the FFT filter stage at the main path's
+    shape, each on the inputs of a corrector half from the perturbed start:
+    base the start, evaluated state the predictor's (10 distinct fields)."""
     from gcmiipy_tpu_torch.ops import polar_filter
+    from gcmiipy_tpu_torch.ops.fft_filter import fft_filter, fft_filter_ref
     from gcmiipy_tpu_torch.ops.fused_parts import GEOM_FIELDS
     from gcmiipy_tpu_torch.ops.mega_half import MegaHalf, mega_half_ref
+    from gcmiipy_tpu_torch.ops.mega_step import banded_round
     from gcmiipy_tpu_torch.ops.pgf_rest import (
         pgf_parts, pgf_parts_ref, rest_parts, rest_parts_ref)
-    dt, W = MAIN["dt"], MAIN["width"]
+    dt = MAIN["dt"]
     geo = [getattr(geom, n) for n in GEOM_FIELDS]
     half = MegaHalf(geom, dt)
     seval = half(prog, prog)
@@ -1004,33 +1157,46 @@ def timing_k345(launches, max_abs, geom, prog):
         "rest_parts"))
 
     # K5: one corrector half; the float32 elementwise operations of the
-    # plain version and the filter's float64 multiply-adds from this run's
-    # trip counts: one round, each listed row c chunks of (W x 256 forward
-    # + 256 x W inverse), 2 operations each.  The banded counts are the
-    # chunks whose correction mask is not all 0: the unbanded filter's
-    # other chunks add exact zeros, work the function does not need.
+    # plain version (the banded DFT, its factors built once) and the FFT
+    # filter's float64 operations, one round
     fc = half.consts
-    k5_args = (prog, seval, dt, geom, fc)
-    chunk_rows = int(fc.row_counts.sum())
-    filter_ops = chunk_rows * 2 * 256 * W * 2
+    k5_args = (prog, seval, dt, geom, fc, False, False, banded_round(geom))
+    filter_ops = _filter_ops(fc, geom, 1)
     ops = {torch.float32: count_ops(mega_half_ref, *k5_args,
                                     dtypes=(torch.float32,)),
            torch.float64: filter_ops}
     # the library yardstick of the filter stage: torch.fft rfft*mask*irfft
     # on the same 2L stacked rows, one round
     fft_ms = cuda_ms(lambda: polar_filter.arakawa_1977(stack, geom), 20)
-    log("timing", f"mega_half filter stage: {filter_ops / 1e9:.2f} GFLOP over "
-                  f"{chunk_rows} row-chunks, "
-                  f"{1e3 * filter_ops / PEAK_OPS_PER_S[torch.float64]:.4f} ms at "
-                  f"the float64 peak; torch.fft rfft*mask*irfft of the same "
-                  f"stacked rows, one round: {fft_ms:.4f} ms")
     rows.append(_row(
         "mega_half", "gcmiipy_tpu_torch/csrc/mega_half.cu",
         "gcmiipy_tpu/ops/pallas_stencil.py:663", launches["mega_half"],
         max_abs["k5"], cuda_ms(lambda: half(prog, seval), 20),
         cuda_ms(lambda: mega_half_ref(*k5_args), 5),
-        _bytes((*prog, *seval, *geo, *fc, *mega_half_ref(*k5_args))), ops,
-        fft_ms, "mega_half"))
+        _bytes((*prog, *seval, *geo, *_filter_buffers(fc),
+                *mega_half_ref(*k5_args))), ops, fft_ms, "mega_half"))
+
+    # the FFT filter stage alone on the same stack (18x512x1024 float32),
+    # in place on a copy: reads and writes each listed row once and reads
+    # the mask, the twiddles and the latitude list
+    work = stack.clone()
+    lats = fc.lats.long()
+    ms = cuda_ms(lambda: fft_filter(work, fc), 50)
+    plain_ms = cuda_ms(lambda: fft_filter_ref(stack, fc), 5)
+    nbytes = (2 * _bytes((stack[:, lats],))
+              + _bytes((fc.mask, fc.twiddle, fc.lats)))
+    launched = sum(launches[f"fft_filter {p}"]
+                   for p in ("mega4", "stream", "mega"))
+    log("timing", f"fft_filter launches on the main paths: mega4 "
+                  f"{launches['fft_filter mega4']}, stream "
+                  f"{launches['fft_filter stream']}, mega "
+                  f"{launches['fft_filter mega']}; torch.fft rfft*mask*irfft "
+                  f"of the same rows {fft_ms:.4f} ms")
+    rows.append(_row(
+        "fft_filter", "gcmiipy_tpu_torch/csrc/fft_filter.cuh",
+        "gcmiipy_tpu/ops/pallas_stencil.py:806", launched, max_abs["fft"], ms,
+        plain_ms, nbytes, {torch.float64: filter_ops}, fft_ms,
+        f"fft_filter {tuple(stack.shape)} float32"))
     return rows
 
 
@@ -1041,13 +1207,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     phase_build()
-    max_abs = {"k1": phase_kernels(device)}
+    max_abs = {"fft": phase_kernels_fft(device)}
+    max_abs["k1"] = phase_kernels(device)
     max_abs["k6"] = phase_kernels_k6(device)
     max_abs["k7"] = phase_kernels_k7(device)
     max_abs.update(phase_kernels_k3k4(device))
     max_abs["k5"] = phase_kernels_k5(device)
     launches, geom, start, max_abs["k2"], runs = phase_main(device)
-    launches["stream_steps"] = phase_main_stream(device, geom, start)
+    launches.update(phase_main_stream(device, geom, start))
     launches.update(phase_main_mega_v2(device, geom, start, runs))
     rows = phase_timing(device, launches, max_abs, geom, start)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")

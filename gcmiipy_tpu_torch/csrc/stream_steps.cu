@@ -9,7 +9,7 @@
 // kernel streams latitude blocks through VMEM with double-buffered copies
 // and runs K6's block body on each; a step's blocks need every
 // neighbouring row of the step before, which the TPU's one core gets from
-// running its grid in order.  Here each step is K6's twelve stage
+// running its grid in order.  Here each step is K6's ten stage
 // launches (mega_stages.cuh) and the epilogue's one launch, enqueued on
 // the caller's stream from one C call: the stream order is the grid-wide
 // barrier between stages and between steps, with no host work between
@@ -25,9 +25,9 @@
 // dynamics stages do not write that plane) and runs in place on the
 // destination, since it is column-local.
 //
-// Bound: operations, as K6's: k times K6's filter work and stencil
-// arithmetic plus the epilogue's, against the buffer's bytes read and
-// written once; chip_smoke.py works it out from its run's tensors.
+// Bound: the larger of the buffer's bytes read and written once and k
+// times K6's stencil and FFT arithmetic plus the epilogue's; chip_smoke.py
+// works both out from its run's tensors and the radix plan.
 
 #include "column_physics.cuh"
 #include "mega_stages.cuh"
@@ -36,15 +36,16 @@ namespace {
 
 template <typename T>
 int launch(T* S, int planes, int k, const T* utc, void* const* geo, void* const* filt,
-           const void* rows, const void* counts, int R, int ncols, void* const* scratch, int L,
+           const void* lats, int R, const int* plan, int nstages, void* const* scratch, int L,
            int H, int W, const double* consts, int coriolis, int q_limiter, const double* phys,
-           const T* lat, const T* lon, cudaStream_t stream) {
+           const T* lat, const T* lon, int* filter_launches, cudaStream_t stream) {
   const int np = 1 + 4 * L;
-  if (gcm::bad_shape(L, H, W) || gcm::bad_filter(R, ncols) || k < 0 || k % 2 ||
+  const gcm::Step<T> s = gcm::make_step<T>(geo, filt, lats, R, plan, nstages, scratch + 5, L, H,
+                                           W, consts, coriolis, q_limiter, filter_launches,
+                                           stream);
+  if (gcm::bad_shape(L, H, W) || gcm::bad_fft(s.f) || k < 0 || k % 2 ||
       planes != np + (phys ? 1 : 0))
     return (int)cudaErrorInvalidValue;
-  const gcm::Step<T> s = gcm::make_step<T>(geo, filt, rows, counts, R, ncols, scratch + 5, L, H,
-                                           W, consts, coriolis, q_limiter, stream);
   gcm::PhysTable table;
   if (phys) {
     const double* src = phys;
@@ -89,24 +90,25 @@ int launch(T* S, int planes, int k, const T* utc, void* const* geo, void* const*
 }  // namespace
 
 // k whole steps on S (2, planes, H, W), in place.  utc: 0-dim clock at the
-// start of the call.  geo, filt, rows, counts, consts: as gcm_mega_step.
+// start of the call.  geo, filt, lats, plan, consts: as gcm_mega_step.
 // scratch: the predictor's p,u,v,t,q, then X (2L,H,W), pg_phiv, sd, phi,
-// rho (L,H,W), and A (R,ncols) in double.  phys: the PhysTable's doubles
-// (column_physics.cuh), or null for the dynamics alone; lat (H), lon (W).
-// Returns 0 or the first CUDA error.
+// rho (L,H,W).  phys: the PhysTable's doubles (column_physics.cuh), or null
+// for the dynamics alone; lat (H), lon (W).  *filter_launches: set to the
+// filter kernel's launches made.  Returns 0 or the first CUDA error.
 extern "C" int gcm_stream_steps(int is_double, void* S, int planes, int k, const void* utc,
-                                void* const* geo, void* const* filt, const void* rows,
-                                const void* counts, int R, int ncols, void* const* scratch,
-                                int L, int H, int W, const double* consts, int coriolis,
-                                int q_limiter, const double* phys, const void* lat,
-                                const void* lon, void* stream) {
+                                void* const* geo, void* const* filt, const void* lats, int R,
+                                const int* plan, int nstages, void* const* scratch, int L,
+                                int H, int W, const double* consts, int coriolis, int q_limiter,
+                                const double* phys, const void* lat, const void* lon,
+                                int* filter_launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_double)
     return launch<double>(static_cast<double*>(S), planes, k, static_cast<const double*>(utc),
-                          geo, filt, rows, counts, R, ncols, scratch, L, H, W, consts, coriolis,
+                          geo, filt, lats, R, plan, nstages, scratch, L, H, W, consts, coriolis,
                           q_limiter, phys, static_cast<const double*>(lat),
-                          static_cast<const double*>(lon), st);
+                          static_cast<const double*>(lon), filter_launches, st);
   return launch<float>(static_cast<float*>(S), planes, k, static_cast<const float*>(utc), geo,
-                       filt, rows, counts, R, ncols, scratch, L, H, W, consts, coriolis, q_limiter,
-                       phys, static_cast<const float*>(lat), static_cast<const float*>(lon), st);
+                       filt, lats, R, plan, nstages, scratch, L, H, W, consts, coriolis,
+                       q_limiter, phys, static_cast<const float*>(lat),
+                       static_cast<const float*>(lon), filter_launches, st);
 }

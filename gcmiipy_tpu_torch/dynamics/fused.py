@@ -11,11 +11,12 @@ function and runs the same kernel.
 
 ``pipeline="mega4"`` (the 'mega4' backend) runs one
 :class:`gcmiipy_tpu_torch.ops.mega_step.MegaStep` call per step (K6): the
-whole step with the banded DFT polar filter inside.  ``pipeline="mega"``
-(the 'mega' backend; JAX ``make_fused_matsuno_padded_v3`` :148-180) runs
+whole step with the polar filter inside (the TPU kernel's banded DFT,
+computed in the kernel as a float64 FFT).  ``pipeline="mega"`` (the 'mega'
+backend; JAX ``make_fused_matsuno_padded_v3`` :148-180) runs
 :class:`gcmiipy_tpu_torch.ops.mega_half.MegaHalf` (K5) twice per step: each
-half step with the banded DFT filter inside (the JAX kernel's unbanded
-chunks add exact zeros).
+half step with the same filter inside (the JAX kernel's unbanded chunks
+add exact zeros).
 
 :func:`make_fused_matsuno_v2` ports the v2 pipeline (JAX
 ``make_fused_matsuno_padded_v2`` :98-145, which ``bench.py`` runs as
@@ -58,9 +59,9 @@ def make_fused_step(geom, dt, coriolis=False, filter_fn=None,
     """Drop-in fused replacement for ``core25d.matsuno_timestep``:
     ``step(p,u,v,t,q) -> (p,u,v,t,q)``.  ``"v1"`` runs K1 twice per step
     with ``filter_fn`` (default: the FFT filter) outside it; ``"mega4"``
-    runs K6 once per step with its own banded DFT filter, ``"mega"`` K5
-    twice per step with its own banded DFT filter (``filter_fn`` is not
-    used by either, as in the JAX package)."""
+    runs K6 once per step with its own filter, ``"mega"`` K5 twice per
+    step with its own filter (``filter_fn`` is not used by either, as in
+    the JAX package)."""
     if pipeline == "mega4":
         return MegaStep(geom, dt, coriolis=coriolis, q_limiter=q_limiter)
     if pipeline == "mega":

@@ -5,14 +5,16 @@
 
 From a random state (the recipe of tests/test_pallas_fused.py:_initial) it
 stacks the two fields one half step filters, ``[spu_raw; pg_phi]``
-(``core25d.pgf_forces``), and filters them at float32 three ways: the FFT
+(``core25d.pgf_forces``), and filters them at float32 four ways: the FFT
 (``torch.fft``), the banded DFT with float32 sums (``torch.matmul`` on
-float32 factors) and the banded DFT with float64 sums (what K6 and its plain
-version do).  Each is held against the banded DFT at float64 of the same
-float32 rows, so only the filter's own arithmetic counts; the error is the
-largest over the field's scale, for the spu_raw planes and the pg_phi
-planes apart.  Then one K6 step (``MegaStep``) at float32 against the same
-step at float64 from the same float32 state and geometry, per field.
+float32 factors), the banded DFT with float64 sums (the plain version of
+K5, K6 and K7) and the hand-written FFT kernel with float64 sums (their
+filter stage, ``ops/fft_filter.py``).  Each is held against the banded DFT
+at float64 of the same float32 rows, so only the filter's own arithmetic
+counts; the error is the largest over the field's scale, for the spu_raw
+planes and the pg_phi planes apart.  Then one K6 step (``MegaStep``) at
+float32 against the same step at float64 from the same float32 state and
+geometry, per field.
 Prints one JSON line, with the card's name.
 """
 
@@ -25,7 +27,7 @@ from gcmiipy_tpu_torch.device import resolve_device
 from gcmiipy_tpu_torch.dynamics import core25d
 from gcmiipy_tpu_torch.grid import geometry
 from gcmiipy_tpu_torch.model.state import random_prognostics
-from gcmiipy_tpu_torch.ops import mega_step, polar_filter
+from gcmiipy_tpu_torch.ops import fft_filter, mega_step, polar_filter
 
 
 def scaled_err(out, ref):
@@ -44,14 +46,16 @@ def measure(height, width, layers, seed, device, dt=30.0):
 
     x32 = torch.cat(core25d.pgf_forces(s32[0], s32[1], s32[3], g32)[:2])
     truth = mega_step.banded_filter_ref(x32.double(),
-                                        mega_step.build_filter_consts(g64))
-    fc32 = mega_step.build_filter_consts(g32)
-    fc32_sums = fc32._replace(**{n: getattr(fc32, n).float()
+                                        mega_step.build_banded_consts(g64))
+    bc32 = mega_step.build_banded_consts(g32)
+    bc32_sums = bc32._replace(**{n: getattr(bc32, n).float()
                                  for n in ("CS", "CwSw", "mcc")})
     filters = {
         "fft float32": polar_filter.arakawa_1977(x32, g32),
-        "dft float32 sums": mega_step.banded_filter_ref(x32, fc32_sums),
-        "dft float64 sums": mega_step.banded_filter_ref(x32, fc32),
+        "dft float32 sums": mega_step.banded_filter_ref(x32, bc32_sums),
+        "dft float64 sums": mega_step.banded_filter_ref(x32, bc32),
+        "fft kernel float64 sums": fft_filter.fft_filter(
+            x32.clone(), fft_filter.build_fft_consts(g32)),
     }
     out = {"filter": {name: {"spu_raw": scaled_err(y[:L], truth[:L]),
                              "pg_phi": scaled_err(y[L:], truth[L:])}

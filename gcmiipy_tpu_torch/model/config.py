@@ -59,9 +59,9 @@ class ModelConfig:
     polar_filter: str = "fft"
     # 'xla' (the plain PyTorch core; the name is the JAX package's),
     # 'fused' (K1, csrc/fused_parts.cu, twice per step), 'mega' (K5,
-    # csrc/mega_half.cu, twice per step: each half step with the banded
-    # DFT filter), 'mega4' (K6, csrc/mega_step.cu, the whole step with its
-    # banded DFT filter) or 'stream' (K7, csrc/stream_steps.cu,
+    # csrc/mega_half.cu, twice per step: each half step with the polar
+    # filter, a float64 FFT, inside), 'mega4' (K6, csrc/mega_step.cu, the
+    # whole step with its filter) or 'stream' (K7, csrc/stream_steps.cu,
     # stream_steps whole steps a call with the per-step column physics
     # inside)
     backend: str = "xla"
@@ -69,15 +69,17 @@ class ModelConfig:
     stream_steps: int = 20
     stream_wide_native: bool = False
     q_limiter: bool = False
-    # Precision of the 'mega' and 'mega4' filters.  'high' and 'highest'
-    # both run them at full precision: no TF32, no bf16 split, as the JAX
-    # package does off the TPU; their products and sums run in float64 for
+    # Precision of the 'mega', 'mega4' and 'stream' filters.  'high' and
+    # 'highest' both run them at full precision: no TF32, no bf16 split, as
+    # the JAX package does off the TPU; their sums run in float64 for
     # float32 fields too (float32 sums lose 1e-4 of the field on the polar
-    # rows, see ops/mega_step.py).  The bf16 modes 'fwd_high' and 'default'
-    # were measured unsound and are not ported.
+    # rows, see ops/mega_step.py), in the kernels as a float64 FFT
+    # (ops/fft_filter.py).  The bf16 modes 'fwd_high' and 'default' were
+    # measured unsound and are not ported.
     filter_precision: str = "high"
-    # Accepted for compatibility; no effect, since every chunk of the
-    # port's filter runs at full precision (there is no cheaper 1-pass tail).
+    # Accepted for compatibility; no effect: the port's filter has no
+    # split-precision tail (its kernels' FFT runs every wavenumber in
+    # float64, at a cost the split would not lower).
     filter_split_tau: float = 0.125
 
     stats: bool = True

@@ -3,27 +3,30 @@
 Replaces ``gcmiipy_tpu/ops/pallas_stencil.py:make_mega_step_kernel`` (its
 ``pl.pallas_call`` at :1521) with its bodies ``matsuno_block_body`` (:1290)
 and ``matsuno_block_stages`` (:1009).  Each half step runs ``pgf_forces``,
-one round of the banded DFT polar filter on the stacked
-``[spu_raw; pg_phi]``, ``half_timestep_rest`` and the momentum epilogue with
-the polar wall; the corrector repeats it on (base, starred).
+one round of the polar filter on the stacked ``[spu_raw; pg_phi]``,
+``half_timestep_rest`` and the momentum epilogue with the polar wall; the
+corrector repeats it on (base, starred).
 
-* :func:`mega_step_ref` is the plain PyTorch version, on whole fields.
-* :class:`MegaStep` holds the filter's device buffers (factors, correction
-  mask, per-row trip counts, wall) built from the port's own geometry; its
-  ``forward`` calls :func:`mega_step`, which runs the plain version on CPU
-  tensors and launches ``csrc/mega_step.cu`` on CUDA tensors, or raises.
+* :func:`mega_step_ref` is the plain PyTorch version, on whole fields, with
+  the TPU kernel's banded DFT filter (:func:`banded_filter_ref`, its
+  factors built from the geometry where the plain version is called).
+* :class:`MegaStep` holds the kernel's filter buffers (the FFT's mask,
+  twiddles and listed latitudes, and the wall) built from the port's own
+  geometry; its ``forward`` calls :func:`mega_step`, which runs the plain
+  version on CPU tensors and launches ``csrc/mega_step.cu`` on CUDA
+  tensors, or raises.
 
-``mega_step.launches`` counts the calls that launched the kernel.  Per-row
-trip counts (:func:`polar_filter.band_chunk_counts`) take the place of the
-TPU's per-block ``block_chunk_counts``: a chunk beyond a row's count adds
-exact zeros (its correction mask is 0), so the result does not depend on
-blocking.
+``mega_step.launches`` counts the calls that launched the kernel; each adds
+to ``fft_filter.launches`` the filter launches its C entry counted.  The
+kernel's filter stage is the float64 FFT of
+:mod:`gcmiipy_tpu_torch.ops.fft_filter`, which computes the banded DFT's
+function, so the kernel agrees with its plain version to rounding.
 
-The filter sums in float64 for float32 fields too (factors and mask in
-float64; see ``ModelConfig.filter_precision``): its correction form
-``Y = X + correction`` cancels on the polar rows, where the raw forces are
-some 70 times the filtered ones, and float32 sums there leave about 1e-4 of
-the field's scale (:mod:`gcmiipy_tpu_torch.filter_accuracy` measures it).
+The filter sums in float64 for float32 fields too (see
+``ModelConfig.filter_precision``): its correction form ``Y = X +
+correction`` cancels on the polar rows, where the raw forces are some 70
+times the filtered ones, and float32 sums there leave about 1e-4 of the
+field's scale (:mod:`gcmiipy_tpu_torch.filter_accuracy` measures it).
 """
 
 import ctypes
@@ -32,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gcmiipy_tpu_torch.ops import cuda_lib, polar_filter
+from gcmiipy_tpu_torch.ops import cuda_lib, fft_filter as fft, polar_filter
 from gcmiipy_tpu_torch.ops.fused_parts import (
     GEOM_FIELDS, check_args, kernel_consts, on_cpu, pointer_array)
 from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts_ref, rest_parts_ref
@@ -41,43 +44,45 @@ CHUNK_COLUMNS = 2 * polar_filter.FILTER_CHUNK  # C and S halves of a chunk
 
 
 class FilterConsts(NamedTuple):
-    """The banded filter of one geometry, on the working device.
+    """The kernel's polar filter of one geometry, on the working device:
+    ``mask``, ``twiddle`` and ``lats`` of :class:`fft_filter.FftConsts`,
+    and ``keep`` (H, 1): 0 on the wall row H-1, else 1, in the working
+    dtype."""
+    mask: torch.Tensor
+    twiddle: torch.Tensor
+    lats: torch.Tensor
+    keep: torch.Tensor
 
-    ``CS`` (W, 2nb) and ``CwSw`` (2nb, W): the chunk-interleaved factors;
-    ``mcc`` (H, 2nb): the correction mask, all three float64 (the filter's
-    sums run in float64); ``counts`` (H,) int32: each
-    latitude row's trip count; ``keep`` (H, 1): 0 on the wall row H-1,
-    else 1, in the working dtype; ``rows``/``row_counts`` (R,) int32: the stacked rows
-    ``plane*H + j`` with a count above 0, largest count first, and their
-    counts (the kernel's work list)."""
+
+def build_filter_consts(geom):
+    """:class:`FilterConsts` of ``geom`` on its device."""
+    H = geom.height
+    keep = torch.ones((H, 1), dtype=geom.polar_mask.dtype)
+    keep[H - 1, 0] = 0.0
+    return FilterConsts(*fft.build_fft_consts(geom),
+                        keep.to(geom.polar_mask.device))
+
+
+class BandedConsts(NamedTuple):
+    """The TPU kernels' banded DFT filter of one geometry, for the plain
+    version (:func:`banded_filter_ref`): ``CS`` (W, 2nb) and ``CwSw`` (2nb,
+    W), the chunk-interleaved factors, ``mcc`` (H, 2nb), the correction
+    mask, all three float64, and ``counts`` (H,) int32, each latitude
+    row's trip count."""
     CS: torch.Tensor
     CwSw: torch.Tensor
     mcc: torch.Tensor
     counts: torch.Tensor
-    keep: torch.Tensor
-    rows: torch.Tensor
-    row_counts: torch.Tensor
 
 
-def filter_rows(counts, planes):
-    """(rows, row_counts) int32 numpy arrays: for each latitude with a
-    count above 0, largest count first, the stacked rows of all
-    ``planes``."""
-    counts = np.asarray(counts, np.int32)
-    H = counts.shape[0]
-    order = np.argsort(-counts, kind="stable")
-    order = order[counts[order] > 0]
-    rows = (np.arange(planes)[None, :] * H + order[:, None]).reshape(-1)
-    return rows.astype(np.int32), np.repeat(counts[order], planes)
-
-
-def build_filter_consts(geom, band_limit=True):
-    """:class:`FilterConsts` of ``geom`` on its device.  The builders run in
+def build_banded_consts(geom, band_limit=True):
+    """:class:`BandedConsts` of ``geom`` on its device.  The builders run in
     numpy at float64 from ``geom.polar_mask`` (in ``geom``'s dtype, as the
     JAX package's float32 geometry holds it).  ``band_limit=False`` gives
-    every row all chunks."""
-    H, W, L = geom.height, geom.width, geom.layers
-    dtype, device = geom.polar_mask.dtype, geom.polar_mask.device
+    every row all chunks: the TPU kernel's unbanded filter, the same
+    function."""
+    H, W = geom.height, geom.width
+    device = geom.polar_mask.device
     CS, CwSw, nb = polar_filter.banded_pair_matrices(W, dtype=np.float64)
     mcc = polar_filter.banded_correction_mask_pair(geom.polar_mask, nb,
                                                    dtype=np.float64)
@@ -85,59 +90,73 @@ def build_filter_consts(geom, band_limit=True):
         counts = polar_filter.band_chunk_counts(geom.polar_mask)
     else:
         counts = np.full(H, nb // polar_filter.FILTER_CHUNK, np.int32)
-    keep = np.ones((H, 1))
-    keep[H - 1, 0] = 0.0
-    rows, row_counts = filter_rows(counts, 2 * L)
 
-    def real(x, dtype=torch.float64):
-        return torch.as_tensor(x).to(device=device, dtype=dtype)
+    def real(x):
+        return torch.as_tensor(x).to(device=device, dtype=torch.float64)
 
-    def ints(x):
-        return torch.as_tensor(np.asarray(x, np.int32)).to(device)
-
-    return FilterConsts(real(CS), real(CwSw), real(mcc), ints(counts),
-                        real(keep, dtype), ints(rows), ints(row_counts))
+    return BandedConsts(
+        real(CS), real(CwSw), real(mcc),
+        torch.as_tensor(np.asarray(counts, np.int32)).to(device))
 
 
-def banded_filter_ref(X, fc):
-    """The filter round on stacked fields ``X`` (P, H, W): ``Y = X``, then
-    for each chunk c in order, on the rows whose count exceeds c,
+def banded_filter_ref(X, bc):
+    """The filter round on stacked fields ``X`` (P, H, W) with the
+    :class:`BandedConsts` ``bc``: ``Y = X``, then for each chunk c in
+    order, on the rows whose count exceeds c,
     ``Y = Y + ((X @ CS_c) * mcc_c) @ CwSw_c``, in the factors' dtype
     (float64), rounded to ``X``'s dtype at the end."""
     dtype = X.dtype
-    X = Y = X.to(fc.CS.dtype)
-    counts = fc.counts.to(X.device)
+    X = Y = X.to(bc.CS.dtype)
+    counts = bc.counts.to(X.device)
     for c in range(int(counts.max()) if counts.numel() else 0):
         sel = counts > c
         cols = slice(c * CHUNK_COLUMNS, (c + 1) * CHUNK_COLUMNS)
-        ab = torch.matmul(X[:, sel], fc.CS[:, cols]) * fc.mcc[sel, cols]
+        ab = torch.matmul(X[:, sel], bc.CS[:, cols]) * bc.mcc[sel, cols]
         Y = Y.clone() if Y is X else Y
-        Y[:, sel] = Y[:, sel] + torch.matmul(ab, fc.CwSw[cols])
+        Y[:, sel] = Y[:, sel] + torch.matmul(ab, bc.CwSw[cols])
     return Y.to(dtype)
 
 
+def banded_round(geom, band_limit=True):
+    """The banded DFT round of ``geom`` as a function of the stacked X:
+    :func:`banded_filter_ref` with :func:`build_banded_consts`, built
+    once."""
+    bc = build_banded_consts(geom, band_limit)
+    return lambda X: banded_filter_ref(X, bc)
+
+
 def mega_half_ref(base, seval, dt, geom, fc, coriolis=False,
-                  q_limiter=False):
+                  q_limiter=False, filter_ref=None):
     """One half step of K6's plain version, which is K5's
     (:mod:`gcmiipy_tpu_torch.ops.mega_half`):
     ``pgf_forces`` -> filter round on ``[spu_raw; pg_phi]`` ->
     ``half_timestep_rest`` -> ``u = (pu - pgfu dt) / iph(p_n)``,
     ``v = (pv - pg_phiv dt) / jph(p_n) * keep`` (K3's and K4's plain
-    versions around the filter, and the wall)."""
+    versions around the filter, and the wall).  ``filter_ref`` is the
+    round, a function of the stacked fields: None for the TPU kernel's
+    banded DFT (:func:`banded_round`), or ``fft_filter.fft_filter_ref``
+    with ``fc``, the plan the kernels run (in float64 the two differ by the
+    DFT's rounding, which the polar rows' cancellation brings to 1e-11 of
+    u's scale at width 1024)."""
+    if filter_ref is None:
+        filter_ref = banded_round(geom)
     sp, su, _, st, _ = seval
     stack, pg_phiv = pgf_parts_ref(sp, su, st, geom)
     p_n, u_n, v_n, t_n, q_n = rest_parts_ref(
-        *base, *seval, banded_filter_ref(stack, fc), pg_phiv, dt, geom,
+        *base, *seval, filter_ref(stack), pg_phiv, dt, geom,
         coriolis=coriolis, q_limiter=q_limiter)
     return p_n, u_n, v_n * fc.keep, t_n, q_n
 
 
 def mega_step_ref(p, u, v, t, q, dt, geom, fc, coriolis=False,
-                  q_limiter=False):
+                  q_limiter=False, filter_ref=None):
     """Plain PyTorch version of K6: one Matsuno step, two
-    :func:`mega_half_ref` halves."""
+    :func:`mega_half_ref` halves with the round ``filter_ref`` (None: the
+    banded DFT, built once for both)."""
     base = (p, u, v, t, q)
-    kw = dict(coriolis=coriolis, q_limiter=q_limiter)
+    if filter_ref is None:
+        filter_ref = banded_round(geom)
+    kw = dict(coriolis=coriolis, q_limiter=q_limiter, filter_ref=filter_ref)
     return mega_half_ref(base, mega_half_ref(base, base, dt, geom, fc, **kw),
                          dt, geom, fc, **kw)
 
@@ -148,48 +167,42 @@ def _library():
     if fn.argtypes is None:
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         i, vp = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [i, ptrs, ptrs, ptrs, vp, vp, i, i, ptrs, ptrs, ptrs,
-                       i, i, i, ctypes.POINTER(ctypes.c_double), i, i, vp]
+        fn.argtypes = [i, ptrs, ptrs, ptrs, vp, i, ctypes.POINTER(i), i,
+                       ptrs, ptrs, ptrs, i, i, i,
+                       ctypes.POINTER(ctypes.c_double), i, i,
+                       ctypes.POINTER(i), vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check(fields, geom, fc, kernel="mega_step"):
     """The checks of :func:`fused_parts.check_args` on the five fields, and
-    of the filter buffers ``fc``; raises on anything ``kernel`` does not
-    take."""
+    of the filter buffers the kernel reads; raises on anything ``kernel``
+    does not take."""
     L, H, W = geom.layers, geom.height, geom.width
     check_args(kernel, fields,
                [(H, W)] + [(L, H, W)] * 4, geom)
     p = fields[0]
-    ncols = fc.CS.shape[1]
-    real = {"CS": ((W, ncols), torch.float64),
-            "CwSw": ((ncols, W), torch.float64),
-            "mcc": ((H, ncols), torch.float64), "keep": ((H, 1), p.dtype)}
-    for name, (shape, dtype) in real.items():
-        x = getattr(fc, name)
-        if (x.device != p.device or x.dtype != dtype
-                or tuple(x.shape) != shape or not x.is_contiguous()):
-            raise ValueError(f"{kernel} filter buffer {name}: a contiguous "
-                             f"{dtype} {shape} tensor on {p.device} "
-                             f"expected, got {x.dtype} {tuple(x.shape)} on "
-                             f"{x.device}")
-    if ncols % CHUNK_COLUMNS or not ncols:
-        raise ValueError(f"{kernel}: {ncols} factor columns, not a "
-                         f"multiple of {CHUNK_COLUMNS}")
-    for name in ("rows", "row_counts"):
-        x = getattr(fc, name)
-        if (x.device != p.device or x.dtype != torch.int32
-                or x.shape != fc.rows.shape or not x.is_contiguous()):
-            raise ValueError(f"{kernel} filter buffer {name}: a contiguous "
-                             f"int32 tensor on {p.device} expected")
+    fft.check_consts(kernel, fc, p.device, H, W)
+    if (fc.keep.device != p.device or fc.keep.dtype != p.dtype
+            or tuple(fc.keep.shape) != (H, 1) or not fc.keep.is_contiguous()):
+        raise ValueError(f"{kernel} filter buffer keep: a contiguous "
+                         f"{p.dtype} ({H}, 1) tensor on {p.device} expected")
+
+
+def filter_args(fc, W):
+    """The kernel's filter arguments: the buffer table (mask, twiddles,
+    keep), the latitude list, its length, the radix plan and its length."""
+    plan, nstages = fft.plan_array(W)
+    return (pointer_array([fc.mask, fc.twiddle, fc.keep]),
+            fc.lats.data_ptr(), int(fc.lats.shape[0]), plan, nstages)
 
 
 def mega_step(p, u, v, t, q, dt, geom, fc, coriolis=False, q_limiter=False):
-    """K6: ``(p, u, v, t, q)`` after one Matsuno step, exactly as
-    :func:`mega_step_ref` up to the filter's summation order.  ``p`` is
-    (H,W), the rest (L,H,W); ``fc`` from :func:`build_filter_consts` on the
-    same device and dtype."""
+    """K6: ``(p, u, v, t, q)`` after one Matsuno step, as
+    :func:`mega_step_ref` to rounding (the kernel's filter is the FFT).
+    ``p`` is (H,W), the rest (L,H,W); ``fc`` from
+    :func:`build_filter_consts` on the same device and dtype."""
     fields = (p, u, v, t, q)
     if on_cpu("mega_step", fields):
         return mega_step_ref(*fields, dt, geom, fc, coriolis=coriolis,
@@ -198,25 +211,23 @@ def mega_step(p, u, v, t, q, dt, geom, fc, coriolis=False, q_limiter=False):
     device = p.device
     fn = _library()
     L, H, W = geom.layers, geom.height, geom.width
-    R, ncols = int(fc.rows.shape[0]), int(fc.CS.shape[1])
 
     def new(*shape):
         return torch.empty(shape, dtype=p.dtype, device=device)
 
     starred = [new(H, W)] + [new(L, H, W) for _ in range(4)]
     outs = [new(H, W)] + [new(L, H, W) for _ in range(4)]
-    scratch = ([new(2 * L, H, W)] + [new(L, H, W) for _ in range(4)]
-               + [torch.empty((max(R, 1), ncols), dtype=torch.float64,
-                              device=device)])
+    scratch = [new(2 * L, H, W)] + [new(L, H, W) for _ in range(4)]
+    filter_launches = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = fn(int(p.dtype == torch.float64), pointer_array(fields),
                  pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
-                 pointer_array([fc.CS, fc.CwSw, fc.mcc, fc.keep]),
-                 fc.rows.data_ptr(), fc.row_counts.data_ptr(), R, ncols,
-                 pointer_array(starred), pointer_array(outs),
-                 pointer_array(scratch), L, H, W, kernel_consts(dt),
-                 int(bool(coriolis)), int(bool(q_limiter)),
+                 *filter_args(fc, W), pointer_array(starred),
+                 pointer_array(outs), pointer_array(scratch), L, H, W,
+                 kernel_consts(dt), int(bool(coriolis)), int(bool(q_limiter)),
+                 ctypes.byref(filter_launches),
                  torch.cuda.current_stream(device).cuda_stream)
+    fft.add_launches(filter_launches)
     if err != 0:
         raise RuntimeError(f"mega_step kernel launch failed: CUDA error {err}")
     mega_step.launches += 1
@@ -230,12 +241,11 @@ class MegaStep(torch.nn.Module):
     """The 'mega4' step of one geometry: ``MegaStep(geom, dt)(p, u, v, t,
     q)`` runs :func:`mega_step` with the filter buffers it holds."""
 
-    def __init__(self, geom, dt, coriolis=False, q_limiter=False,
-                 band_limit=True):
+    def __init__(self, geom, dt, coriolis=False, q_limiter=False):
         super().__init__()
         self.geom, self.dt = geom, float(dt)
         self.coriolis, self.q_limiter = bool(coriolis), bool(q_limiter)
-        for name, x in build_filter_consts(geom, band_limit)._asdict().items():
+        for name, x in build_filter_consts(geom)._asdict().items():
             self.register_buffer(name, x)
 
     @property

@@ -14,7 +14,9 @@ at the clock ``utc0 + s*dt``.  k is even, so the state ends in buffer 0.
 * :func:`stream_steps_ref` is the plain PyTorch version.
 * :func:`stream_steps` runs it on CPU tensors and launches
   ``csrc/stream_steps.cu`` (with ``csrc/column_physics.cuh``) on CUDA
-  tensors, or raises; ``stream_steps.launches`` counts the launching calls.
+  tensors, or raises; ``stream_steps.launches`` counts the launching calls,
+  each of which adds to ``fft_filter.launches`` the filter launches its C
+  entry counted (2k).
 * :class:`StreamSteps` holds the filter's buffers, the physics table and
   the kernel's scratch, allocated once and reused by every call.
 """
@@ -26,11 +28,12 @@ from typing import NamedTuple
 import torch
 
 from gcmiipy_tpu_torch import constants
-from gcmiipy_tpu_torch.ops import cuda_lib
+from gcmiipy_tpu_torch.ops import cuda_lib, fft_filter as fft
 from gcmiipy_tpu_torch.ops.fused_parts import (
     GEOM_FIELDS, MAX_LAYERS, kernel_consts, on_cpu, pointer_array)
 from gcmiipy_tpu_torch.ops.mega_step import (
-    MegaStep, _check as check_filter_args, mega_step_ref)
+    MegaStep, _check as check_filter_args, banded_round, filter_args,
+    mega_step_ref)
 from gcmiipy_tpu_torch.physics import convection, radiation
 
 CONVECTION_SWEEPS = 4  # the fixed-sweep count of the JAX kernel's epilogue
@@ -116,18 +119,22 @@ def physics_epilogue_ref(p, u, v, t, gt, utc_s, geom, dt, ph):
 
 
 def stream_steps_ref(S, utc0, k, dt, geom, fc, coriolis=False,
-                     q_limiter=False, physics=None):
-    """Plain version of K7: ``k`` (even) times, :func:`mega_step_ref` from
-    buffer s%2 of ``S`` into buffer (s+1)%2, then with ``physics`` (a
-    :class:`Physics`) :func:`physics_epilogue_ref` at ``utc0 + s*dt``, the
-    ground temperature taken from the source buffer.  Updates ``S`` in
-    place and returns it."""
+                     q_limiter=False, physics=None, filter_ref=None):
+    """Plain version of K7: ``k`` (even) times, :func:`mega_step_ref` (with
+    the filter round ``filter_ref``; None: the banded DFT, built once for
+    the call) from buffer s%2 of ``S`` into buffer
+    (s+1)%2, then with ``physics`` (a :class:`Physics`)
+    :func:`physics_epilogue_ref` at ``utc0 + s*dt``, the ground temperature
+    taken from the source buffer.  Updates ``S`` in place and returns it."""
     _check_steps(S, k, geom, physics)
     L, NP = geom.layers, n_planes(geom.layers)
+    if filter_ref is None:
+        filter_ref = banded_round(geom)
     for s in range(k):
         src, dst = S[s % 2], S[(s + 1) % 2]
         p, u, v, t, q = mega_step_ref(*unpack_state(src, L), dt, geom, fc,
-                                      coriolis=coriolis, q_limiter=q_limiter)
+                                      coriolis=coriolis, q_limiter=q_limiter,
+                                      filter_ref=filter_ref)
         if physics is not None:
             utc_s = utc0 + torch.full_like(utc0, s) * dt
             u, v, t, gt = physics_epilogue_ref(p, u, v, t, src[NP], utc_s,
@@ -186,26 +193,23 @@ def _library():
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         dbl = ctypes.POINTER(ctypes.c_double)
         i, vp = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [i, vp, i, i, vp, ptrs, ptrs, vp, vp, i, i, ptrs,
-                       i, i, i, dbl, i, i, dbl, vp, vp, vp]
+        fn.argtypes = [i, vp, i, i, vp, ptrs, ptrs, vp, i,
+                       ctypes.POINTER(i), i, ptrs, i, i, i, dbl, i, i, dbl,
+                       vp, vp, ctypes.POINTER(i), vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def new_scratch(geom, fc, dtype, device):
+def new_scratch(geom, dtype, device):
     """The kernel's scratch: the predictor's p, u, v, t, q, then X (2L,H,W),
-    pg_phiv, sd, phi, rho (L,H,W) and the filter's A (R, ncols) in
-    float64."""
+    pg_phiv, sd, phi, rho (L,H,W)."""
     L, H, W = geom.layers, geom.height, geom.width
 
     def new(*shape):
         return torch.empty(shape, dtype=dtype, device=device)
 
-    R, ncols = int(fc.rows.shape[0]), int(fc.CS.shape[1])
     return ([new(H, W)] + [new(L, H, W) for _ in range(4)]
-            + [new(2 * L, H, W)] + [new(L, H, W) for _ in range(4)]
-            + [torch.empty((max(R, 1), ncols), dtype=torch.float64,
-                           device=device)])
+            + [new(2 * L, H, W)] + [new(L, H, W) for _ in range(4)])
 
 
 def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
@@ -234,20 +238,20 @@ def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
     if physics is not None and table is None:
         table = physics_table(physics, dt)
     if scratch is None:
-        scratch = new_scratch(geom, fc, S.dtype, device)
+        scratch = new_scratch(geom, S.dtype, device)
     fn = _library()
     L, H, W = geom.layers, geom.height, geom.width
+    filter_launches = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = fn(int(S.dtype == torch.float64), S.data_ptr(), S.shape[1],
                  int(k), utc0.data_ptr(),
                  pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
-                 pointer_array([fc.CS, fc.CwSw, fc.mcc, fc.keep]),
-                 fc.rows.data_ptr(), fc.row_counts.data_ptr(),
-                 int(fc.rows.shape[0]), int(fc.CS.shape[1]),
-                 pointer_array(scratch), L, H, W, kernel_consts(dt),
-                 int(bool(coriolis)), int(bool(q_limiter)), table,
-                 lat.data_ptr(), lon.data_ptr(),
+                 *filter_args(fc, W), pointer_array(scratch), L, H, W,
+                 kernel_consts(dt), int(bool(coriolis)),
+                 int(bool(q_limiter)), table,
+                 lat.data_ptr(), lon.data_ptr(), ctypes.byref(filter_launches),
                  torch.cuda.current_stream(device).cuda_stream)
+    fft.add_launches(filter_launches)
     if err != 0:
         raise RuntimeError(
             f"stream_steps kernel launch failed: CUDA error {err}")
@@ -278,8 +282,7 @@ class StreamSteps(MegaStep):
         if S.device.type == "cuda":
             if (self.scratch is None or self.scratch[0].dtype != S.dtype
                     or self.scratch[0].device != S.device):
-                self.scratch = new_scratch(self.geom, self.consts, S.dtype,
-                                           S.device)
+                self.scratch = new_scratch(self.geom, S.dtype, S.device)
             scratch = self.scratch
         return stream_steps(S, utc0, k, self.dt, self.geom, self.consts,
                             coriolis=self.coriolis, q_limiter=self.q_limiter,

@@ -32,11 +32,13 @@ from gcmiipy_tpu_torch.dynamics import fused
 from gcmiipy_tpu_torch.model import driver
 from gcmiipy_tpu_torch.model.config import BACKENDS, ModelConfig
 from gcmiipy_tpu_torch.ops import mega_half as mh
+from gcmiipy_tpu_torch.ops.fft_filter import fft_filter, fft_filter_ref
 from gcmiipy_tpu_torch.ops import mega_step as ms
 from gcmiipy_tpu_torch.ops import polar_filter
 
 from torch_port_helpers import (
-    FIELDS, as_jax, as_torch, assert_close, port_geom, random_state)
+    BANDED_REL64, FIELDS, as_jax, as_torch, assert_close, port_geom,
+    random_state)
 
 torch.set_num_threads(1)
 
@@ -174,27 +176,31 @@ def test_mega_float32_as_close_as_jax_float32():
 
 
 def test_mega_half_holds_the_unbanded_filter():
-    """MegaHalf holds the banded filter, which gives the JAX kernel's
-    unbanded filter (every row over every chunk) to the bit: each chunk
-    beyond a row's band has a correction mask of exactly 0, so it adds
-    +0.0 after the row's own chunks."""
+    """MegaHalf's plain version runs the banded filter, which gives the
+    JAX kernel's unbanded filter (every row over every chunk) to the bit:
+    each chunk beyond a row's band has a correction mask of exactly 0, so
+    it adds +0.0 after the row's own chunks.  The kernel's constants list
+    the damped latitudes, those of some band, and hold no DFT factors."""
     jg = _jgeom(L=2, H=128, W=384)
     tg = port_geom(jg)
     half = mh.MegaHalf(tg, DT, coriolis=True)
-    every = ms.build_filter_consts(tg, band_limit=False)
-    nchunks = half.CS.shape[1] // ms.CHUNK_COLUMNS
+    bc = ms.build_banded_consts(tg)
+    every = ms.build_banded_consts(tg, band_limit=False)
+    nchunks = bc.CS.shape[1] // ms.CHUNK_COLUMNS
     assert nchunks == 2
-    assert every.rows.shape[0] == 2 * 2 * 128
-    assert bool((every.row_counts == nchunks).all())
+    assert bool((every.counts == nchunks).all())
     banded = polar_filter.band_chunk_counts(tg.polar_mask)
     assert banded.min() < banded.max() == nchunks
-    assert np.array_equal(half.counts.numpy(), banded)
+    assert np.array_equal(bc.counts.numpy(), banded)
+    assert half.lats.tolist() == np.flatnonzero(banded).tolist()
+    assert set(half.consts._fields) == {"mask", "twiddle", "lats", "keep"}
     for j, c in enumerate(banded):
-        assert bool((half.mcc[j, c * ms.CHUNK_COLUMNS:] == 0).all())
+        assert bool((bc.mcc[j, c * ms.CHUNK_COLUMNS:] == 0).all())
     base = as_torch(random_state(jg, seed=49))
     seval = as_torch(random_state(jg, seed=50))
     out = half(base, seval)
-    ref = mh.mega_half(base, seval, DT, tg, every, coriolis=True)
+    ref = mh.mega_half_ref(base, seval, DT, tg, half.consts, coriolis=True,
+                           filter_ref=ms.banded_round(tg, band_limit=False))
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
 
@@ -244,13 +250,14 @@ def test_mega_half_on_cpu_runs_the_plain_version():
         random_state(jg, seed=48))
     half = mh.MegaHalf(tg, DT, coriolis=True, q_limiter=True)
     before = mh.mega_half.launches
+    filter_before = fft_filter.launches
     out = half(base, seval)
     ref = mh.mega_half_ref(base, seval, DT, tg, half.consts, coriolis=True,
                            q_limiter=True)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     assert mh.mega_half.launches == before  # no kernel launched on the CPU
-    assert half._A is None                  # no scratch made on the CPU
+    assert fft_filter.launches == filter_before
 
 
 def test_mega_half_refuses_other_devices():
@@ -266,14 +273,13 @@ def test_mega_half_refuses_other_devices():
 
 @pytest.mark.parametrize("fault", ["dtype", "shape", "contiguity",
                                    "seval_dtype", "geom_dtype",
-                                   "factor_dtype", "scratch_shape",
-                                   "scratch_dtype"])
+                                   "factor_dtype", "mask_dtype",
+                                   "mask_shape", "twiddle_length"])
 def test_mega_half_checks_its_arguments(fault):
     jg = _jgeom()
     geom = port_geom(jg)
     fc = ms.build_filter_consts(geom)
     fields = list(as_torch(random_state(jg))) * 2
-    A = mh.scratch_A(fc, "cpu")
     if fault == "dtype":
         fields = [x.to(torch.float16) for x in fields]
     elif fault == "shape":
@@ -285,21 +291,22 @@ def test_mega_half_checks_its_arguments(fault):
     elif fault == "geom_dtype":
         geom = geom.to(dtype=torch.float32)
     elif fault == "factor_dtype":
-        fc = fc._replace(CwSw=fc.CwSw.float())
-    elif fault == "scratch_shape":
-        A = A[:-1]
+        fc = fc._replace(twiddle=fc.twiddle.float())
+    elif fault == "mask_dtype":
+        fc = fc._replace(mask=fc.mask.float())
+    elif fault == "mask_shape":
+        fc = fc._replace(mask=fc.mask[:, :-1].contiguous())
     else:
-        A = A.float()
+        fc = fc._replace(twiddle=fc.twiddle[:-1])
     with pytest.raises((TypeError, ValueError)):
-        mh._check_half(fields, geom, fc, A)
+        mh._check_half(fields, geom, fc)
 
 
 def test_mega_half_checks_accept_valid_arguments():
     jg = _jgeom()
     geom = port_geom(jg)
-    fc = ms.build_filter_consts(geom)
-    mh._check_half(list(as_torch(random_state(jg))) * 2, geom, fc,
-                   mh.scratch_A(fc, "cpu"))
+    mh._check_half(list(as_torch(random_state(jg))) * 2, geom,
+                   ms.build_filter_consts(geom))
 
 
 def test_step_profile_drives_the_mega_step():
@@ -313,15 +320,17 @@ def test_step_profile_drives_the_mega_step():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("grid,coriolis,q_limiter,dtype,bound", [
-    ((3, 24, 36), False, False, torch.float64, 1e-11),
-    ((3, 24, 36), True, True, torch.float64, 1e-11),
-    ((2, 16, 37), True, False, torch.float64, 1e-11),    # odd width
-    ((2, 8, 2048), False, True, torch.float64, 1e-11),   # wider than 1024
-    ((3, 64, 256), True, False, torch.float32, 1e-4),
+@pytest.mark.parametrize("grid,coriolis,q_limiter,dtype,bound,banded", [
+    ((3, 24, 36), False, False, torch.float64, 1e-11, 1e-11),
+    ((3, 24, 36), True, True, torch.float64, 1e-11, 1e-11),
+    ((2, 16, 37), True, False, torch.float64, 1e-11, 1e-11),    # odd width
+    # wider than 1024: the banded DFT's own rounding reaches 5e-11
+    ((2, 8, 2048), False, True, torch.float64, 1e-11, BANDED_REL64),
+    ((3, 64, 256), True, False, torch.float32, 1e-4, 1e-4),
 ])
 def test_kernel_matches_plain_version_on_gpu(cuda_device, grid, coriolis,
-                                             q_limiter, dtype, bound):
+                                             q_limiter, dtype, bound,
+                                             banded):
     L, H, W = grid
     jg = jgeometry.gen_geometry(H, W, L, sig_func=jgeometry.manabe_sig)
     geom = port_geom(jg).to(dtype=dtype, device=cuda_device)
@@ -330,27 +339,36 @@ def test_kernel_matches_plain_version_on_gpu(cuda_device, grid, coriolis,
     seval = [x.to(dtype=dtype, device=cuda_device)
              for x in as_torch(random_state(jg, seed=4))]
     half = mh.MegaHalf(geom, DT, coriolis=coriolis, q_limiter=q_limiter)
-    before = mh.mega_half.launches
+    before = (mh.mega_half.launches, fft_filter.launches)
     out = half(base, seval)
     torch.cuda.synchronize()
-    assert mh.mega_half.launches == before + 1
-    ref = mh.mega_half_ref(base, seval, DT, geom, half.consts,
-                           coriolis=coriolis, q_limiter=q_limiter)
-    for name, a, b in zip(FIELDS, out, ref):
-        err = float((a - b).abs().max() / b.abs().max())
-        assert err <= bound, (name, err)
+    assert (mh.mega_half.launches, fft_filter.launches) == (
+        before[0] + 1, before[1] + 1)
+    # the plain version with the kernel's FFT plan, and with the banded
+    # DFT (None), whose own float64 rounding on the polar rows reaches
+    # 5e-11 of u's scale at width 2048 (tests/test_torch_fft_filter.py)
+    fc = half.consts
+    for filter_ref, held in ((lambda X: fft_filter_ref(X, fc), bound),
+                             (None, banded)):
+        ref = mh.mega_half_ref(base, seval, DT, geom, fc,
+                               coriolis=coriolis, q_limiter=q_limiter,
+                               filter_ref=filter_ref)
+        for name, a, b in zip(FIELDS, out, ref):
+            err = float((a - b).abs().max() / b.abs().max())
+            assert err <= held, (name, err)
     assert bool((out[2][:, -1] == 0).all())
 
 
 @pytest.mark.gpu
 def test_run_model_mega_on_gpu_launches_k5_twice_a_step(cuda_device):
-    before = (mh.mega_half.launches, ms.mega_step.launches)
+    before = (mh.mega_half.launches, ms.mega_step.launches,
+              fft_filter.launches)
     out = driver.run_model(24, 36, 3, 300.0, 3, device=cuda_device,
                            config=ModelConfig(backend="mega",
                                               dtype="float64"))
     torch.cuda.synchronize()
-    assert (mh.mega_half.launches, ms.mega_step.launches) == (
-        before[0] + 6, before[1])
+    assert (mh.mega_half.launches, ms.mega_step.launches,
+            fft_filter.launches) == (before[0] + 6, before[1], before[2] + 6)
     ref = driver.run_model(24, 36, 3, 300.0, 3, device="cpu",
                            config=ModelConfig(backend="mega",
                                               dtype="float64"))

@@ -122,10 +122,10 @@ def test_banded_pair_form_equals_fft_filter(grid, band_limit):
     counts or with every chunk, is the rFFT filter."""
     P, H, W = grid
     tg = port_geom(jgeometry.gen_geometry(H, W, 3))
-    fc = mega_step.build_filter_consts(tg, band_limit=band_limit)
+    bc = mega_step.build_banded_consts(tg, band_limit=band_limit)
     x = torch.as_tensor(np.random.default_rng(H).standard_normal((P, H, W)))
     np.testing.assert_allclose(
-        mega_step.banded_filter_ref(x, fc).numpy(),
+        mega_step.banded_filter_ref(x, bc).numpy(),
         polar_filter.arakawa_1977(x, tg).numpy(), rtol=1e-12, atol=1e-12)
 
 

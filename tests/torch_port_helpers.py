@@ -14,6 +14,12 @@ from gcmiipy_tpu import constants
 from gcmiipy_tpu_torch.convert import geom_from_jax_numpy, state_from_jax_numpy
 
 FIELDS = "puvtq"
+# The kernels against the float64 banded DFT on the stacked forces and the
+# fields after them: above its own rounding on the cancelling polar rows,
+# which reached 2.46e-11 of a field's scale at 3x512x1024 and 5e-11 at
+# width 2048 on the card, and far below a float32 result's 3.6e-8
+# (chip_smoke.py's BANDED_REL64)
+BANDED_REL64 = 1e-10
 
 
 def geom_dict(jgeom):
