@@ -16,7 +16,10 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            (mega_step), K7 (stream_steps, with and without its
 #            column-physics epilogue), K3 and K4 (pgf_parts, rest_parts)
 #            and K5 (mega_half, against its plain version with the banded
-#            and with the TPU kernel's unbanded DFT);
+#            and with the TPU kernel's unbanded DFT), and the rest stencil
+#            alone (rest_stencil, stage 5 of K4-K7); K1, K3, K4 and the
+#            rest stencil also log whether they equal their plain versions
+#            to the bit;
 #   main     each path with its launch counts set to 0 just before it and
 #            read just after: run_model(512, 1024, 9, 30.0, 20, guard=True)
 #            with backend='fused' (K1) and backend='mega4' (K6), held against
@@ -37,7 +40,14 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            physics (windows of 20 steps between CUDA events, each twice),
 #            the v2 step beside the fused step (dynamics alone), each
 #            kernel's ms beside its bound, its plain version's and, for the
-#            filter stage and the filters of K5, K6 and K7, torch.fft's.
+#            filter stage and the filters of K5, K6 and K7, torch.fft's;
+#            K1's and K4's rows also the device ms of each of their two
+#            launches (torch.profiler, step_profile.kernel_ms), and a row
+#            for the tiled rest stencil of K4-K7 alone
+#            (csrc/stencil_tile.cuh) with its own plain version and bytes
+#            bound, its launches those that the C entries of K4-K7 counted
+#            on the main paths (the rest stencil launches of each path are
+#            also read in the main phase).
 # The line before the last is the kernels JSON, the last the result JSON.
 # Imports nothing of JAX: the card's machine needs none.
 
@@ -110,6 +120,10 @@ def rel_err(out, ref):
 
 def abs_err(out, ref):
     return max(float((a - b).abs().max()) for a, b in zip(out, ref))
+
+
+def bit_equal(out, ref):
+    return all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
 def random_state(geom, seed, device, dtype):
@@ -232,7 +246,8 @@ def phase_kernels(device):
             rel = rel_err(out, ref)
             tag = (f"fused_parts {tuple(shape)} {str(dtype)[6:]} coriolis="
                    f"{coriolis} q_limiter={q_limiter} hill={hill}")
-            log("kernels", f"{tag}: max rel {rel:.3e} (bound {KERNEL_REL[dtype]:g})")
+            log("kernels", f"{tag}: max rel {rel:.3e} (bound {KERNEL_REL[dtype]:g}), "
+                           f"equal to the bit: {bit_equal(out, ref)}")
             if not rel <= KERNEL_REL[dtype]:
                 fail("kernels", tag + " disagrees with fused_parts_ref")
             worst[dtype] = max(worst.get(dtype, 0.0), rel)
@@ -502,18 +517,20 @@ def k3k4_inputs(shape, dtype, hill, device):
 
 
 def phase_kernels_k3k4(device):
-    """K3 and K4 against their plain versions: float32 at the main path's
+    """K3, K4 and the rest stencil alone (on the p_n and sd of K4's plain
+    first stage) against their plain versions: float32 at the main path's
     shape (flat; a hill with Coriolis; the q limiter) and float64 on two
     small grids, every flag on.  K4 leaves v's wall row to its caller."""
     from gcmiipy_tpu_torch.ops.pgf_rest import (
-        pgf_parts, pgf_parts_ref, rest_parts, rest_parts_ref)
+        pgf_parts, pgf_parts_ref, rest_column_ref, rest_parts,
+        rest_parts_ref, rest_stencil, rest_stencil_ref)
     main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
     cases = [(main_shape, torch.float32, False, False, False),
              (main_shape, torch.float32, True, False, True),
              (main_shape, torch.float32, False, True, False),
              ((3, 16, 128), torch.float64, True, True, True),
              ((9, 24, 36), torch.float64, True, True, True)]
-    worst, main_abs = {}, {"k3": 0.0, "k4": 0.0}
+    worst, main_abs = {}, {"k3": 0.0, "k4": 0.0, "stage": 0.0}
     for shape, dtype, coriolis, q_limiter, hill in cases:
         geom, base, seval, filt, pg_phiv = k3k4_inputs(shape, dtype, hill,
                                                        device)
@@ -521,21 +538,30 @@ def phase_kernels_k3k4(device):
         k3 = pgf_parts(sp, su, st, geom)
         rest_args = (*base, *seval, filt, pg_phiv, MAIN["dt"], geom)
         k4 = rest_parts(*rest_args, coriolis=coriolis, q_limiter=q_limiter)
+        p_n, sd = rest_column_ref(base[0], sp, seval[2], filt, MAIN["dt"],
+                                  geom)
+        stage_args = (*base, *seval, filt, pg_phiv, p_n, sd, MAIN["dt"], geom)
+        stage = rest_stencil(*stage_args, coriolis=coriolis,
+                             q_limiter=q_limiter)
         torch.cuda.synchronize()
         ref3 = pgf_parts_ref(sp, su, st, geom)
         ref4 = rest_parts_ref(*rest_args, coriolis=coriolis,
                               q_limiter=q_limiter)
+        ref_stage = rest_stencil_ref(*stage_args, coriolis=coriolis,
+                                     q_limiter=q_limiter)
         tag = (f"{tuple(shape)} {str(dtype)[6:]} coriolis={coriolis} "
                f"q_limiter={q_limiter} hill={hill}")
         for name, out, ref in (("pgf_parts", k3, ref3),
-                               ("rest_parts", k4, ref4)):
+                               ("rest_parts", k4, ref4),
+                               ("rest_stencil", stage, ref_stage)):
             if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(out, ref)):
                 fail("kernels", f"{name} output shapes differ")
             if not all(torch.isfinite(a).all() for a in out):
                 fail("kernels", f"{name} {tag}: output not finite")
             rel = rel_err(out, ref)
             log("kernels", f"{name} {tag}: max rel {rel:.3e} (bound "
-                           f"{KERNEL_REL[dtype]:g})")
+                           f"{KERNEL_REL[dtype]:g}), equal to the bit: "
+                           f"{bit_equal(out, ref)}")
             if not rel <= KERNEL_REL[dtype]:
                 fail("kernels", f"{name} {tag} disagrees with its plain version")
             worst[name, dtype] = max(worst.get((name, dtype), 0.0), rel)
@@ -544,7 +570,9 @@ def phase_kernels_k3k4(device):
         if dtype == torch.float32:
             main_abs["k3"] = max(main_abs["k3"], abs_err(k3, ref3))
             main_abs["k4"] = max(main_abs["k4"], abs_err(k4, ref4))
-    log("kernels", "pgf_parts and rest_parts ok: max rel " + ", ".join(
+            main_abs["stage"] = max(main_abs["stage"],
+                                    abs_err(stage, ref_stage))
+    log("kernels", "pgf_parts, rest_parts and rest_stencil ok: max rel " + ", ".join(
         f"{n} {str(d)[6:]} {r:.3e}" for (n, d), r in worst.items()))
     return main_abs
 
@@ -696,7 +724,8 @@ def phase_main(device):
     from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
     from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
-    kernels = (fused_parts, mega_step, fft_filter)
+    from gcmiipy_tpu_torch.ops.pgf_rest import rest_stencil
+    kernels = (fused_parts, mega_step, fft_filter, rest_stencil)
     n = MAIN["steps"]
     launches = {}
 
@@ -706,24 +735,27 @@ def phase_main(device):
     launches["fused_parts"] = counts[0]
     log("main", f"run_model fused {n} steps in {time.perf_counter() - t:.2f}s, "
                 f"launches fused_parts {counts[0]} mega_step {counts[1]} "
-                f"fft_filter {counts[2]}, total energy drift "
+                f"fft_filter {counts[2]} rest_stencil {counts[3]}, total "
+                f"energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [2 * n, 0, 0]:
+    if counts != [2 * n, 0, 0, 0]:
         fail("main", f"run_model fused launched {counts}, expected "
-                     f"[{2 * n}, 0, 0]")
+                     f"[{2 * n}, 0, 0, 0]")
 
     t = time.perf_counter()
     (mega_n, stats), counts = _counted(kernels, lambda: _run_model(
         "mega4", device, n))
     launches["mega_step"] = counts[1]
     launches["fft_filter mega4"] = counts[2]
+    launches["rest_stencil mega4"] = counts[3]
     log("main", f"run_model mega4 {n} steps in {time.perf_counter() - t:.2f}s, "
                 f"launches fused_parts {counts[0]} mega_step {counts[1]} "
-                f"fft_filter {counts[2]}, total energy drift "
+                f"fft_filter {counts[2]} rest_stencil {counts[3]}, total "
+                f"energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, n, 2 * n]:
+    if counts != [0, n, 2 * n, 2 * n]:
         fail("main", f"run_model mega4 launched {counts}, expected "
-                     f"[0, {n}, {2 * n}]")
+                     f"[0, {n}, {2 * n}, {2 * n}]")
 
     xla_n, _ = _run_model("xla", device, n)
     dft_n, _ = _run_model("xla", device, n, "dft")
@@ -759,8 +791,9 @@ def phase_main(device):
     k2_step = fused.make_fused_matsuno(geom, MAIN["dt"])
     k2_out, counts = _counted(kernels, lambda: k2_step(*prog))
     launches["k2"] = counts[0]
-    if counts != [2, 0, 0]:
-        fail("main", f"make_fused_matsuno launched {counts}, expected [2, 0]")
+    if counts != [2, 0, 0, 0]:
+        fail("main", f"make_fused_matsuno launched {counts}, expected "
+                     "[2, 0, 0, 0]")
     ref = core25d.matsuno_timestep(*prog, MAIN["dt"], geom)
     k2_rel = rel_err(k2_out, ref)
     log("main", f"make_fused_matsuno (K2's path) one step, fused_parts "
@@ -780,8 +813,9 @@ def phase_main_stream(device, geom, start):
     from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
     from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
+    from gcmiipy_tpu_torch.ops.pgf_rest import rest_stencil
     from gcmiipy_tpu_torch.ops.stream_steps import stream_steps
-    kernels = (fused_parts, mega_step, stream_steps, fft_filter)
+    kernels = (fused_parts, mega_step, stream_steps, fft_filter, rest_stencil)
     n = MAIN["steps"]
 
     t = time.perf_counter()
@@ -790,20 +824,22 @@ def phase_main_stream(device, geom, start):
     log("main", f"run_model stream+physics {n} steps in "
                 f"{time.perf_counter() - t:.2f}s, launches fused_parts "
                 f"{counts[0]} mega_step {counts[1]} stream_steps {counts[2]} "
-                f"fft_filter {counts[3]}, total energy drift "
+                f"fft_filter {counts[3]} rest_stencil {counts[4]}, total "
+                f"energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, 0, 1, 2 * n]:
+    if counts != [0, 0, 1, 2 * n, 2 * n]:
         fail("main", f"run_model stream+physics launched {counts}, "
-                     f"expected [0, 0, 1, {2 * n}]")
-    launches = {"stream_steps": counts[2], "fft_filter stream": counts[3]}
+                     f"expected [0, 0, 1, {2 * n}, {2 * n}]")
+    launches = {"stream_steps": counts[2], "fft_filter stream": counts[3],
+                "rest_stencil stream": counts[4]}
 
     runs = {}
     for backend in ("stream", "mega4"):
         for steps in (2, n):
             runs[backend, steps], counts = _counted(
                 kernels, lambda: _run_from(backend, geom, start, steps))
-            want = ([0, 0, 1, 2 * steps] if backend == "stream"
-                    else [0, steps, 0, 2 * steps])
+            want = ([0, 0, 1, 2 * steps, 2 * steps] if backend == "stream"
+                    else [0, steps, 0, 2 * steps, 2 * steps])
             if counts != want:
                 fail("main", f"{backend} {steps} steps launched {counts}, "
                              f"expected {want}")
@@ -816,8 +852,8 @@ def phase_main_stream(device, geom, start):
             runs[backend, steps], counts = _counted(
                 kernels, lambda: _run_from(backend, geom, start, steps,
                                            **physics))
-            want = ([0, 0, 1, 2 * steps] if backend == "stream"
-                    else [0, steps, 0, 2 * steps])
+            want = ([0, 0, 1, 2 * steps, 2 * steps] if backend == "stream"
+                    else [0, steps, 0, 2 * steps, 2 * steps])
             if counts != want:
                 fail("main", f"{backend}+physics {steps} steps launched "
                              f"{counts}, expected {want}")
@@ -833,9 +869,8 @@ def phase_main_stream(device, geom, start):
 def _same(tag, a, b):
     """Fail unless the two runs are equal to the bit (every field)."""
     rel = rel_err(a, b)
-    log("main", f"{tag}: rel {rel:.3e}, equal to the bit: "
-                f"{all(torch.equal(x, y) for x, y in zip(a, b))}")
-    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+    log("main", f"{tag}: rel {rel:.3e}, equal to the bit: {bit_equal(a, b)}")
+    if not bit_equal(a, b):
         fail("main", tag + " differ")
 
 
@@ -851,9 +886,10 @@ def phase_main_mega_v2(device, geom, start, runs):
     from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
     from gcmiipy_tpu_torch.ops.mega_half import mega_half
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
-    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts, rest_parts
+    from gcmiipy_tpu_torch.ops.pgf_rest import (
+        pgf_parts, rest_parts, rest_stencil)
     kernels = (fused_parts, mega_step, mega_half, pgf_parts, rest_parts,
-               fft_filter)
+               fft_filter, rest_stencil)
     n = MAIN["steps"]
     launches = {}
 
@@ -862,14 +898,16 @@ def phase_main_mega_v2(device, geom, start, runs):
         "mega", device, n))
     launches["mega_half"] = counts[2]
     launches["fft_filter mega"] = counts[5]
+    launches["rest_stencil mega"] = counts[6]
     log("main", f"run_model mega {n} steps in {time.perf_counter() - t:.2f}s, "
                 f"launches fused_parts {counts[0]} mega_step {counts[1]} "
                 f"mega_half {counts[2]} pgf_parts {counts[3]} rest_parts "
-                f"{counts[4]} fft_filter {counts[5]}, total energy drift "
+                f"{counts[4]} fft_filter {counts[5]} rest_stencil "
+                f"{counts[6]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, 0, 2 * n, 0, 0, 2 * n]:
+    if counts != [0, 0, 2 * n, 0, 0, 2 * n, 2 * n]:
         fail("main", f"run_model mega launched {counts}, expected "
-                     f"[0, 0, {2 * n}, 0, 0, {2 * n}]")
+                     f"[0, 0, {2 * n}, 0, 0, {2 * n}, {2 * n}]")
     mega4_n, _ = _run_model("mega4", device, n)
     dft_n, _ = _run_model("xla", device, n, "dft")
     one = {b: _run_model(b, device, 1, pf)[0] for b, pf in
@@ -884,7 +922,7 @@ def phase_main_mega_v2(device, geom, start, runs):
     for steps in (1, n):
         mega_p[steps], counts = _counted(kernels, lambda: _run_from(
             "mega", geom, start, steps))
-        if counts != [0, 0, 2 * steps, 0, 0, 2 * steps]:
+        if counts != [0, 0, 2 * steps, 0, 0, 2 * steps, 2 * steps]:
             fail("main", f"mega {steps} steps launched {counts}")
     _held("perturbed start, mega vs plain core (dft)", mega_p[1], mega_p[n],
           *runs["xla", "dft"])
@@ -903,14 +941,15 @@ def phase_main_mega_v2(device, geom, start, runs):
     t = time.perf_counter()
     v2_n, counts = _counted(kernels, lambda: v2_run(n))
     launches["pgf_parts"], launches["rest_parts"] = counts[3], counts[4]
+    launches["rest_stencil v2"] = counts[6]
     log("main", f"make_fused_matsuno_v2 {n} steps from the perturbed start in "
                 f"{time.perf_counter() - t:.2f}s, launches fused_parts "
                 f"{counts[0]} mega_step {counts[1]} mega_half {counts[2]} "
                 f"pgf_parts {counts[3]} rest_parts {counts[4]} fft_filter "
-                f"{counts[5]}")
-    if counts != [0, 0, 0, 2 * n, 2 * n, 0]:
+                f"{counts[5]} rest_stencil {counts[6]}")
+    if counts != [0, 0, 0, 2 * n, 2 * n, 0, 2 * n]:
         fail("main", f"make_fused_matsuno_v2 launched {counts}, expected "
-                     f"[0, 0, 0, {2 * n}, {2 * n}, 0]")
+                     f"[0, 0, 0, {2 * n}, {2 * n}, 0, {2 * n}]")
     _check_run("make_fused_matsuno_v2 from the perturbed state", v2_n, ())
     if not bool((v2_n[2][:, -1] == 0).all()):
         fail("main", "make_fused_matsuno_v2: v not 0 on the wall row")
@@ -937,9 +976,11 @@ def _filter_ops(fc, geom, rounds):
 
 
 def _row(name, source, replaces, launches, max_abs, ms, plain_ms, nbytes,
-         ops, library_ms, tag):
+         ops, library_ms, tag, launch_ms=None):
     """A kernels-JSON row; ``ops`` maps each arithmetic type to the
-    operations done in it, each timed at that type's peak rate."""
+    operations done in it, each timed at that type's peak rate.
+    ``launch_ms``: the device ms of each kernel launch a call, by name
+    (step_profile.kernel_ms), added to the row when given."""
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = sum(1e3 * n / PEAK_OPS_PER_S[t] for t, n in ops.items())
     bound_ms = max(bytes_ms, ops_ms)
@@ -949,11 +990,16 @@ def _row(name, source, replaces, launches, max_abs, ms, plain_ms, nbytes,
                   f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f}"
                   f" ms; {op_text} -> {ops_ms:.4f} ms); "
                   f"{100 * bound_ms / ms:.1f}% of bound")
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": max_abs,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": max_abs,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms}
+    if launch_ms is not None:
+        log("timing", f"{tag} device ms a launch (torch.profiler): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in launch_ms.items()))
+        row["launch_ms"] = launch_ms
+    return row
 
 
 def phase_timing(device, launches, max_abs, geom, start):
@@ -965,6 +1011,7 @@ def phase_timing(device, launches, max_abs, geom, start):
     from gcmiipy_tpu_torch.ops.mega_step import (
         MegaStep, banded_round, mega_step_ref)
     from gcmiipy_tpu_torch.ops.stream_steps import stream_steps_ref
+    from gcmiipy_tpu_torch.step_profile import kernel_ms
 
     # ms/step of the whole loop (make_run_fn with the guard and the stats):
     # windows of STEP_WINDOW steps between CUDA events, no host sync inside
@@ -1014,6 +1061,7 @@ def phase_timing(device, launches, max_abs, geom, start):
         geo = [getattr(kgeom, n) for n in GEOM_FIELDS]
         return dict(source="gcmiipy_tpu_torch/csrc/fused_parts.cu",
                     ms=cuda_ms(lambda: fused_parts(*call), 50),
+                    launch_ms=kernel_ms(lambda: fused_parts(*call)),
                     plain_ms=cuda_ms(lambda: fused_parts_ref(*call), 10),
                     nbytes=_bytes((*args, *geo, *fused_parts_ref(*call))),
                     ops={torch.float32: count_ops(fused_parts_ref, *call)},
@@ -1124,7 +1172,9 @@ def timing_k345(launches, max_abs, geom, prog):
     from gcmiipy_tpu_torch.ops.mega_half import MegaHalf, mega_half_ref
     from gcmiipy_tpu_torch.ops.mega_step import banded_round
     from gcmiipy_tpu_torch.ops.pgf_rest import (
-        pgf_parts, pgf_parts_ref, rest_parts, rest_parts_ref)
+        pgf_parts, pgf_parts_ref, rest_column_ref, rest_parts,
+        rest_parts_ref, rest_stencil, rest_stencil_ref)
+    from gcmiipy_tpu_torch.step_profile import kernel_ms
     dt = MAIN["dt"]
     geo = [getattr(geom, n) for n in GEOM_FIELDS]
     half = MegaHalf(geom, dt)
@@ -1147,6 +1197,7 @@ def timing_k345(launches, max_abs, geom, prog):
     filt = polar_filter.arakawa_1977(stack, geom)
     k4_args = (*prog, *seval, filt, pg_phiv, dt, geom)
     outs = rest_parts_ref(*k4_args)
+    k4_launch = kernel_ms(lambda: rest_parts(*k4_args))
     rows.append(_row(
         "rest_parts", "gcmiipy_tpu_torch/csrc/pgf_rest.cu",
         "gcmiipy_tpu/ops/pallas_stencil.py:492", launches["rest_parts"],
@@ -1154,7 +1205,32 @@ def timing_k345(launches, max_abs, geom, prog):
         cuda_ms(lambda: rest_parts_ref(*k4_args), 10),
         _bytes((*k4_args[:12], *geo, *outs)),
         {torch.float32: count_ops(rest_parts_ref, *k4_args)}, None,
-        "rest_parts"))
+        "rest_parts", launch_ms=k4_launch))
+
+    # the rest stencil alone (stage 5 of K4-K7, the tiled launch of
+    # csrc/stencil_tile.cuh) on the p_n and sd of K4's plain first stage:
+    # reads the 10 fields, the filtered stack, pg_phiv, p_n and sd and
+    # writes u, v, t, q.  Its launches are those the C entries of K4, K5,
+    # K6 and K7 counted on the main paths (two a step each).
+    p_n, sd = rest_column_ref(prog[0], seval[0], seval[2], filt, dt, geom)
+    stage_args = (*prog, *seval, filt, pg_phiv, p_n, sd, dt, geom)
+    stage_out = rest_stencil_ref(*stage_args)
+    paths = ("mega4", "stream", "mega", "v2")
+    stage_launches = sum(launches[f"rest_stencil {p}"] for p in paths)
+    log("timing", "rest stencil launches on the main paths: " + ", ".join(
+        f"{p} {launches[f'rest_stencil {p}']}" for p in paths)
+        + "; its device ms in K4's calls (torch.profiler): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in k4_launch.items()
+            if "tile_stencil" in k))
+    rows.append(_row(
+        "rest_stencil (stage 5 of K4-K7)",
+        "gcmiipy_tpu_torch/csrc/stencil_tile.cuh",
+        "gcmiipy_tpu/ops/pallas_stencil.py:1199", stage_launches,
+        max_abs["stage"], cuda_ms(lambda: rest_stencil(*stage_args), 50),
+        cuda_ms(lambda: rest_stencil_ref(*stage_args), 10),
+        _bytes((*stage_args[:14], *geo, *stage_out)),
+        {torch.float32: count_ops(rest_stencil_ref, *stage_args)}, None,
+        "rest_stencil", launch_ms=kernel_ms(lambda: rest_stencil(*stage_args))))
 
     # K5: one corrector half; the float32 elementwise operations of the
     # plain version (the banded DFT, its factors built once) and the FFT

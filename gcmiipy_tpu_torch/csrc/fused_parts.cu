@@ -13,38 +13,37 @@
 //      vertical recurrences: aflux's column sum pit and suffix sum sd
 //      (core25d.py aflux), p_n = p - pit*dt, and the pgf column: p^kappa,
 //      rho and the geopotential ladder phi (core25d.py pgf).  It writes p_n
-//      and the scratch planes sd, phi, rho.
-//   2. stencil_pass, one thread per (k,j,i).  It reads the neighbour
-//      columns' sd, phi, rho and p_n from the scratch planes and computes
-//      the horizontal stencils (reach 2): momentum advection with optional
-//      Coriolis, the pressure-gradient and geopotential forces, sigma
-//      advection, t/q advection with the optional ADVECQ clamp.
-// The device code of both passes lives in gcm_stencil.cuh, shared with K6
-// (mega_step.cu).  Every expression keeps the operand order of the plain
-// version, and the library is built with -fmad=false, so each a*b+c rounds
-// twice as the separate PyTorch elementwise ops do; the kernel then agrees
-// with fused_parts_ref to rounding in float32 and float64.
+//      and the scratch planes sd, phi, rho (gcm_stencil.cuh, shared with
+//      the column stages of K3-K7).
+//   2. the tiled stencil launch (stencil_tile.cuh, shared with the rest
+//      stencil of K4-K7): one block per (8 x 32) tile of columns looping
+//      over the layers, its inputs and the scratch planes staged in shared
+//      memory with cp.async.  It computes the horizontal stencils (reach
+//      2): momentum advection with optional Coriolis, the pressure-gradient
+//      and geopotential forces, sigma advection, t/q advection with the
+//      optional ADVECQ clamp.
+// Every expression keeps the operand order of the plain version, and the
+// library is built with -fmad=false, so each a*b+c rounds twice as the
+// separate PyTorch elementwise ops do; the kernel then equals
+// fused_parts_ref bit for bit in float32 and float64.
 //
 // Bound: bytes.  At 9x512x1024 float32 the function reads 9 (L,H,W) fields,
 // 3 (H,W) fields (p, sp, heightmap) and the small geometry rows, about
 // 176 MB, and writes 5 (L,H,W) fields and p_n, about 97 MB: 0.081 ms at
 // 3.35 TB/s per call, 0.16 ms per Matsuno step (two calls).  The scratch
-// planes add about 113 MB of traffic (3 planes written once and read at
-// least once), 0.034 ms more, if none of it stays in the 50 MB L2.  The
-// arithmetic (a few hundred flops a point, one powf) is far below the
-// 67 TFLOP/s float32 rate.
+// planes add about 113 MB of traffic (3 planes written once and read
+// once by the tiled launch), 0.034 ms more.  The column pass keeps its
+// recurrences in per-thread arrays, which live in local memory; it reads
+// and writes about 120 MB (0.036 ms) and is not tiled.  The arithmetic (a
+// few hundred flops a point, one powf) is far below the 67 TFLOP/s
+// float32 rate.
 
 #include "gcm_stencil.cuh"
+#include "stencil_tile.cuh"
 
 namespace {
 
 using gcm::Params;
-using gcm::Point;
-
-template <typename T>
-struct Outs {
-  T *v_n, *t_n, *q_n, *pu_partial, *pg_phi;
-};
 
 template <typename T>
 __global__ void column_pass(const Params<T> a) {
@@ -56,31 +55,6 @@ __global__ void column_pass(const Params<T> a) {
 }
 
 template <typename T>
-__global__ void stencil_pass(const Params<T> a, const Outs<T> out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.W) return;
-  const Point<T> x(a, blockIdx.z, blockIdx.y, i);
-  T dut, dvt, pgu, pgv, phiu, phiv, dus, dvs;
-  x.momentum(dut, dvt);
-  x.pgf(pgu, pgv, phiu, phiv);
-  x.sigma(dus, dvs);
-
-  const T half = x.half, dt = a.dt;
-  const T p_c = x.s2(a.p, x.j, i);
-  const T pu = a.u[x.o] * ((p_c + x.s2(a.p, x.j, x.ip)) * half);
-  const T pv = a.v[x.o] * ((p_c + x.s2(a.p, x.jp, i)) * half);
-  const T pn_c = x.s2(a.p_n, x.j, i);
-  const T pv_n = pv - (dvt + dvs + phiv + pgv) * dt;
-  out.pu_partial[x.o] = pu - (dut + dus) * dt;
-  out.pg_phi[x.o] = pgu + phiu;
-  out.v_n[x.o] = pv_n * (x.one / ((pn_c + x.s2(a.p_n, x.jp, i)) * half));
-  T t_n, q_n;
-  x.tracers(t_n, q_n);
-  out.t_n[x.o] = t_n;
-  out.q_n[x.o] = q_n;
-}
-
-template <typename T>
 int launch(void* const* in, void* const* geo, void* const* out, void* const* scratch,
            int L, int H, int W, const double* c, int coriolis, int q_limiter,
            cudaStream_t stream) {
@@ -88,16 +62,15 @@ int launch(void* const* in, void* const* geo, void* const* out, void* const* scr
   Params<T> a = gcm::make_params<T>(in, geo, L, H, W, c, coriolis, q_limiter);
   T* const* fo = reinterpret_cast<T* const*>(out);
   a.p_n = fo[0];
-  const Outs<T> o{fo[1], fo[2], fo[3], fo[4], fo[5]};
+  const gcm::PartsOut<T> o{fo[1], fo[2], fo[3], fo[4], fo[5]};
   T* const* fs = reinterpret_cast<T* const*>(scratch);
   a.sd = fs[0]; a.phi = fs[1]; a.rho = fs[2];
 
   const int kb = gcm::kBlock;
   column_pass<T><<<dim3((W + kb - 1) / kb, H), dim3(kb), 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  stencil_pass<T><<<dim3((W + kb - 1) / kb, H, L), dim3(kb), 0, stream>>>(a, o);
-  return (int)cudaGetLastError();
+  return gcm::launch_tile_stencil(a, o, stream, nullptr);
 }
 
 }  // namespace

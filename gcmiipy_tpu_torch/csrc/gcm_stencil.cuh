@@ -1,8 +1,9 @@
 // Device code shared by the port's stencil kernels: the column recurrences
-// and the horizontal stencils of one half step of the 2.5D core
-// (gcmiipy_tpu_torch/dynamics/core25d.py).  K1 (fused_parts.cu) and K6
-// (mega_step.cu) both build their stages from these pieces, so the two
-// kernels round every expression alike.
+// and the pgf stencil of one half step of the 2.5D core
+// (gcmiipy_tpu_torch/dynamics/core25d.py); the other point stencils are in
+// stencil_tile.cuh.  K1 (fused_parts.cu) and K3-K7 (mega_stages.cuh) build
+// their stages from these pieces, so the kernels round every expression
+// alike.
 //
 // Every expression keeps the operand order of the plain PyTorch version,
 // and the library is built with -fmad=false, so each a*b+c rounds twice as
@@ -145,157 +146,53 @@ __device__ __forceinline__ void pgf_column(const Params<T>& a, int j, int i) {
   }
 }
 
-// The horizontal stencils (reach 2) at point (k,j,i).  The column scratch
-// (sd, phi, rho) and p_n of the neighbour columns come from a column pass
+// pgf's forces at a point from sp, rho and phi at the point and at its
+// i+1 and j+1 neighbours, shared by the pgf stencil and K1's tiled launch.
+template <typename T>
+__device__ __forceinline__ void pgf_terms(T sig, T sp_c, T sp_ip, T sp_jp, T rho_c, T rho_ip,
+                                          T rho_jp, T phi_c, T phi_ip, T phi_jp, T rdx_j,
+                                          T rdy, T& pgu, T& pgv, T& phiu, T& phiv) {
+  const T half = T(0.5);
+  pgu = ((sig * sp_c + sig * sp_ip) * half) / ((rho_c + rho_ip) * half) *
+        ((sp_ip - sp_c) * rdx_j);
+  pgv = ((sig * sp_c + sig * sp_jp) * half) / ((rho_c + rho_jp) * half) *
+        ((sp_jp - sp_c) * rdy);
+  phiu = ((sp_c + sp_ip) * half) * ((phi_ip - phi_c) * rdx_j);
+  phiv = ((sp_c + sp_jp) * half) * ((phi_jp - phi_c) * rdy);
+}
+
+// The pgf stencil at point (k,j,i), one thread a point.  The column
+// scratch (phi, rho) of the neighbour columns comes from a column pass
 // launched before.
 template <typename T>
 struct Point {
   const Params<T>& a;
-  int k, j, i, ip, im, jp, jm, kn, L, H, W;
+  int k, j, i, ip, jp, W;
   size_t HW, o;
-  T half, one, rdx_j, rdx_h, rdy, rdsig;
+  T half, rdx_j, rdy;
 
   __device__ __forceinline__ Point(const Params<T>& a_, int k_, int j_, int i_)
-      : a(a_), k(k_), j(j_), i(i_), L(a_.L), H(a_.H), W(a_.W) {
-    HW = (size_t)H * W;
+      : a(a_), k(k_), j(j_), i(i_), W(a_.W) {
+    HW = (size_t)a.H * W;
     ip = i + 1 == W ? 0 : i + 1;
-    im = i == 0 ? W - 1 : i - 1;
-    jp = j + 1 == H ? 0 : j + 1;
-    jm = j == 0 ? H - 1 : j - 1;
-    kn = k + 1 == L ? 0 : k + 1;   // kp(), periodic as torch.roll
+    jp = j + 1 == a.H ? 0 : j + 1;
     o = k * HW + (size_t)j * W + i;
     half = T(0.5);
-    one = T(1);
-    rdx_j = one / a.dx_j[j];
-    rdx_h = one / a.dx_h[j];
-    rdy = one / a.dy[0];
-    rdsig = one / a.dsig[k];
+    rdx_j = T(1) / a.dx_j[j];
+    rdy = T(1) / a.dy[0];
   }
 
-  __device__ __forceinline__ int wj(int jj) const { return jj == H ? 0 : (jj < 0 ? H - 1 : jj); }
-  __device__ __forceinline__ int wi(int ii) const { return ii == W ? 0 : (ii < 0 ? W - 1 : ii); }
   // (H,W) plane and layer-kk plane of an (L,H,W) field
   __device__ __forceinline__ T s2(const T* x, int jj, int ii) const { return x[(size_t)jj * W + ii]; }
   __device__ __forceinline__ T s3(const T* x, int kk, int jj, int ii) const {
     return x[kk * HW + (size_t)jj * W + ii];
   }
-  // spv = sv * jph(sp) at layer k (calc_pv)
-  __device__ __forceinline__ T spv(int jj, int ii) const {
-    return s3(a.sv, k, jj, ii) * ((s2(a.sp, jj, ii) + s2(a.sp, wj(jj + 1), ii)) * half);
-  }
-
-  // advec_m_pu(sp, su, sv, spu, spv), with the optional Coriolis term
-  __device__ __forceinline__ void momentum(T& dut, T& dvt) const {
-    auto puum = [&](int ii) {
-      const int iim = wi(ii - 1);
-      return ((s3(a.su, k, j, ii) + s3(a.su, k, j, iim)) * half) *
-             ((s3(a.spu, k, j, ii) + s3(a.spu, k, j, iim)) * half);
-    };
-    auto puvp = [&](int jj) {
-      return ((spv(jj, i) + spv(jj, ip)) * half) *
-             ((s3(a.su, k, jj, i) + s3(a.su, k, wj(jj + 1), i)) * half);
-    };
-    auto pvvm = [&](int jj) {
-      const int jjm = wj(jj - 1);
-      return ((s3(a.sv, k, jj, i) + s3(a.sv, k, jjm, i)) * half) *
-             ((spv(jj, i) + spv(jjm, i)) * half);
-    };
-    auto pvup = [&](int ii) {
-      return ((s3(a.sv, k, j, ii) + s3(a.sv, k, j, wi(ii + 1))) * half) *
-             ((s3(a.spu, k, j, ii) + s3(a.spu, k, jp, ii)) * half);
-    };
-    T cor_u = T(0), cor_v = T(0);
-    if (a.coriolis) {
-      auto jph_spu = [&](int ii) {
-        return (s3(a.spu, k, j, ii) + s3(a.spu, k, jp, ii)) * half;
-      };
-      auto jmh_spv = [&](int ii) { return (spv(j, ii) + spv(jm, ii)) * half; };
-      const T pu_at_pv = (jph_spu(i) + jph_spu(im)) * half;
-      const T pv_at_pu = (jmh_spv(i) + jmh_spv(ip)) * half;
-      const T cp_at_u = sine(a.lat[j]) * a.two_omega;
-      const T cp_at_v = sine((a.lat[j] + a.lat[jp]) * half) * a.two_omega;
-      cor_u = cp_at_u * -pv_at_pu;
-      cor_v = cp_at_v * pu_at_pv;
-    }
-    dut = (puum(i) - puum(ip)) * rdx_j + (puvp(jm) - puvp(j)) * rdy + cor_u;
-    dvt = (pvvm(j) - pvvm(jp)) * rdy + (pvup(im) - pvup(i)) * rdx_h + cor_v;
-  }
 
   // pgf(sp, st): the forces from the column pass's rho and phi
   __device__ __forceinline__ void pgf(T& pgu, T& pgv, T& phiu, T& phiv) const {
-    const T sp_c = s2(a.sp, j, i), sp_ip = s2(a.sp, j, ip), sp_jp = s2(a.sp, jp, i);
-    const T sig = a.sig[k];
-    const T rho_c = s3(a.rho, k, j, i);
-    const T phi_c = s3(a.phi, k, j, i);
-    pgu = ((sig * sp_c + sig * sp_ip) * half) / ((rho_c + s3(a.rho, k, j, ip)) * half) *
-          ((sp_ip - sp_c) * rdx_j);
-    pgv = ((sig * sp_c + sig * sp_jp) * half) / ((rho_c + s3(a.rho, k, jp, i)) * half) *
-          ((sp_jp - sp_c) * rdy);
-    phiu = ((sp_c + sp_ip) * half) * ((s3(a.phi, k, j, ip) - phi_c) * rdx_j);
-    phiv = ((sp_c + sp_jp) * half) * ((s3(a.phi, k, jp, i) - phi_c) * rdy);
-  }
-
-  // advec_sig: vertical flux at layer kk of q with the sigma-dot sdv
-  __device__ __forceinline__ T vflux(const T* q, int kk, T sdv) const {
-    const int kkm = kk == 0 ? L - 1 : kk - 1;
-    return ((s3(q, kk, j, i) + s3(q, kkm, j, i)) * half) * sdv;
-  }
-
-  // advec_sig(iph(sd), su) and advec_sig(jph(sd), sv)
-  __device__ __forceinline__ void sigma(T& dus, T& dvs) const {
-    auto sd_iph = [&](int kk) { return (s3(a.sd, kk, j, i) + s3(a.sd, kk, j, ip)) * half; };
-    auto sd_jph = [&](int kk) { return (s3(a.sd, kk, j, i) + s3(a.sd, kk, jp, i)) * half; };
-    dus = -((vflux(a.su, k, sd_iph(k)) - vflux(a.su, kn, sd_iph(kn))) * rdsig);
-    dvs = -((vflux(a.sv, k, sd_jph(k)) - vflux(a.sv, kn, sd_jph(kn))) * rdsig);
-  }
-
-  // advec_t(spu, spv, x) with x = st or sq
-  __device__ __forceinline__ T adv_h(const T* x) const {
-    auto tpu = [&](int ii) {
-      return s3(a.spu, k, j, ii) * ((s3(x, k, j, ii) + s3(x, k, j, wi(ii + 1))) * half);
-    };
-    auto tpv = [&](int jj) {
-      return spv(jj, i) * ((s3(x, k, jj, i) + s3(x, k, wj(jj + 1), i)) * half);
-    };
-    return (tpu(i) - tpu(im)) * rdx_j + (tpv(j) - tpv(jm)) * rdy;
-  }
-
-  __device__ __forceinline__ T adv_sig(const T* x) const {
-    return -((vflux(x, k, s3(a.sd, k, j, i)) - vflux(x, kn, s3(a.sd, kn, j, i))) * rdsig);
-  }
-
-  // The new potential temperature and humidity: advec_t / advec_q_limited
-  // (the ADVECQ clamp) plus advec_sig, over the new surface pressure.
-  __device__ __forceinline__ void tracers(T& t_n, T& q_n) const {
-    const T dt = a.dt;
-    const T p_c = s2(a.p, j, i);
-    const T rp_n = one / s2(a.p_n, j, i);
-    t_n = (a.t[o] * p_c - (adv_h(a.st) + adv_sig(a.st)) * dt) * rp_n;
-
-    T adv_q;
-    if (a.q_limiter) {
-      // advec_q_limited: faces clamped to half the donor cell's q*p
-      auto hq = [&](int jj, int ii) { return half * (s3(a.q, k, jj, ii) * s2(a.p, jj, ii)); };
-      auto clamp = [](T x, T lo, T hi) {
-        x = x < lo ? lo : x;
-        return x > hi ? hi : x;
-      };
-      const T dt_rdx = dt * rdx_j, dt_rdy = dt * rdy;
-      auto fx = [&](int ii) {
-        const int iip = wi(ii + 1);
-        const T f = (s3(a.spu, k, j, ii) * ((s3(a.sq, k, j, ii) + s3(a.sq, k, j, iip)) * half)) * dt_rdx;
-        return clamp(f, -hq(j, iip), hq(j, ii));
-      };
-      auto fy = [&](int jj) {
-        const int jjp = wj(jj + 1);
-        const T f = (spv(jj, i) * ((s3(a.sq, k, jj, i) + s3(a.sq, k, jjp, i)) * half)) * dt_rdy;
-        return clamp(f, -hq(jjp, i), hq(jj, i));
-      };
-      adv_q = ((fx(i) - fx(im)) + (fy(j) - fy(jm))) * a.inv_dt;
-    } else {
-      adv_q = adv_h(a.sq);
-    }
-    q_n = (a.q[o] * p_c - (adv_q + adv_sig(a.sq)) * dt) * rp_n;
+    pgf_terms(a.sig[k], s2(a.sp, j, i), s2(a.sp, j, ip), s2(a.sp, jp, i), s3(a.rho, k, j, i),
+              s3(a.rho, k, j, ip), s3(a.rho, k, jp, i), s3(a.phi, k, j, i),
+              s3(a.phi, k, j, ip), s3(a.phi, k, jp, i), rdx_j, rdy, pgu, pgv, phiu, phiv);
   }
 };
 

@@ -27,8 +27,11 @@
 //                          buffers
 //     4. aflux_column_pass one thread per column: sd and p_n from the
 //                          filtered spu
-//     5. rest_stencil_pass one thread per point: half_timestep_rest and the
-//                          momentum epilogue u = (pu - pgfu dt)/iph(p_n),
+//     5. tile_stencil      the rest stencil (stencil_tile.cuh): one block
+//                          per (8 x 32) tile of columns looping over the
+//                          layers, fields staged in shared memory with
+//                          cp.async; half_timestep_rest and the momentum
+//                          epilogue u = (pu - pgfu dt)/iph(p_n),
 //                          v = (pv - pg_phiv dt)/jph(p_n) * keep (the polar
 //                          wall, 0 on row H-1)
 //
@@ -36,8 +39,8 @@
 // them.  Scratch lives in device memory and the stream order gives the
 // grid-wide dependencies (the corrector's stencils read the starred state
 // of neighbour rows) that the TPU got from recomputing halos.  Stages 1, 2,
-// 4 and 5 are K1's device code (gcm_stencil.cuh), so they round as K1 and
-// the plain version do.
+// 4 and 5 are K1's device code (gcm_stencil.cuh, stencil_tile.cuh), so
+// they round as K1 and the plain version do.
 //
 // The filter is the TPU kernel's banded DFT, Y = X + irfft((m-1) rfft X),
 // computed as a float64 FFT (fft_filter.cuh): every sum in double for
@@ -55,6 +58,7 @@
 
 #include "fft_filter.cuh"
 #include "gcm_stencil.cuh"
+#include "stencil_tile.cuh"
 
 namespace gcm {
 
@@ -87,40 +91,6 @@ __global__ void pgf_stencil_pass(const Params<T> a, T* X, T* pg_phiv) {
 }
 
 template <typename T>
-struct Outs {
-  T *u_n, *v_n, *t_n, *q_n;
-};
-
-// half_timestep_rest with the filtered spu (a.spu) and the momentum
-// epilogue with the filtered pgfu and the polar wall's keep mask (null:
-// no wall, v's last row left to the caller).
-template <typename T>
-__global__ void rest_stencil_pass(const Params<T> a, const T* pgfu, const T* pg_phiv,
-                                  const T* keep, const Outs<T> out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.W) return;
-  const Point<T> x(a, blockIdx.z, blockIdx.y, i);
-  T dut, dvt, dus, dvs;
-  x.momentum(dut, dvt);
-  x.sigma(dus, dvs);
-  const T half = x.half, one = x.one, dt = a.dt;
-  const int j = x.j;
-  const T p_c = x.s2(a.p, j, i);
-  const T pu = a.u[x.o] * ((p_c + x.s2(a.p, j, x.ip)) * half);
-  const T pv = a.v[x.o] * ((p_c + x.s2(a.p, x.jp, i)) * half);
-  const T pu_partial = pu - (dut + dus) * dt;
-  const T pv_partial = pv - (dvt + dvs) * dt;
-  const T pn_c = x.s2(a.p_n, j, i);
-  out.u_n[x.o] = (pu_partial - pgfu[x.o] * dt) * (one / ((pn_c + x.s2(a.p_n, j, x.ip)) * half));
-  const T v_n = (pv_partial - pg_phiv[x.o] * dt) * (one / ((pn_c + x.s2(a.p_n, x.jp, i)) * half));
-  out.v_n[x.o] = keep ? v_n * keep[j] : v_n;
-  T t_n, q_n;
-  x.tracers(t_n, q_n);
-  out.t_n[x.o] = t_n;
-  out.q_n[x.o] = q_n;
-}
-
-template <typename T>
 struct Step {
   void* const* geo;
   FftFilter f;
@@ -131,7 +101,8 @@ struct Step {
   const double* consts;
   int coriolis, q_limiter;
   cudaStream_t stream;
-  int* filter_launches;  // host count of the filter kernel's launches
+  int* filter_launches;   // host count of the filter kernel's launches
+  int* stencil_launches;  // host count of the rest stencil's launches
 };
 
 #define GCM_CHECK()                                  \
@@ -175,18 +146,15 @@ int pgf_stages(const Params<T>& a, T* X, T* pg_phiv, cudaStream_t stream) {
 }
 
 // Stages 4-5: half_timestep_rest with the filtered a.spu and the momentum
-// epilogue with the filtered pgfu, pg_phiv and the wall's keep (H; null:
-// no wall).
-// Writes a.sd, a.p_n and out.
+// epilogue with out's filtered pgfu, pg_phiv and the wall's keep (H; null:
+// no wall).  Writes a.sd, a.p_n and out's fields; each launch of the
+// rest stencil adds one to *stencil_launches.
 template <typename T>
-int rest_stages(const Params<T>& a, const T* pgfu, const T* pg_phiv, const T* keep,
-                const Outs<T>& out, cudaStream_t stream) {
+int rest_stages(const Params<T>& a, const RestOut<T>& out, cudaStream_t stream,
+                int* stencil_launches) {
   aflux_column_pass<T><<<column_grid(a.H, a.W), kBlock, 0, stream>>>(a);
   GCM_CHECK();
-  rest_stencil_pass<T><<<point_grid(a.L, a.H, a.W), kBlock, 0, stream>>>(a, pgfu, pg_phiv,
-                                                                          keep, out);
-  GCM_CHECK();
-  return 0;
+  return launch_tile_stencil(a, out, stream, stencil_launches);
 }
 
 // One half step: base (p,u,v,t,q) advanced with the tendencies at seval;
@@ -202,19 +170,21 @@ int half_step(const Step<T>& s, void* const* base, void* const* seval, void* con
   err = fft_filter(s.X, s.f, s.stream, s.filter_launches);
   if (err) return err;
   const T* pgfu = s.X + (size_t)s.L * s.H * s.W;
-  return rest_stages(a, pgfu, s.pg_phiv, s.keep, Outs<T>{fo[1], fo[2], fo[3], fo[4]},
-                     s.stream);
+  return rest_stages(a, RestOut<T>{fo[1], fo[2], fo[3], fo[4], pgfu, s.pg_phiv, s.keep},
+                     s.stream, s.stencil_launches);
 }
 
 // The per-step arguments of half_step from the C entry points' tables.
 // filt: the filter's mask (H, W/2+1) and twiddles (W, 2), both double, and
 // keep (H).  lats: int32 (R) listed latitudes; plan: nstages radices.
 // scratch: X (2L,H,W), pg_phiv, sd, phi, rho (L,H,W).  *filter_launches
-// is set to 0; each launch of the filter kernel adds one.
+// and *stencil_launches are set to 0; each launch of the filter kernel or
+// of the rest stencil adds one to its count.
 template <typename T>
 Step<T> make_step(void* const* geo, void* const* filt, const void* lats, int R, const int* plan,
                   int nstages, void* const* scratch, int L, int H, int W, const double* consts,
-                  int coriolis, int q_limiter, int* filter_launches, cudaStream_t stream) {
+                  int coriolis, int q_limiter, int* filter_launches, int* stencil_launches,
+                  cudaStream_t stream) {
   Step<T> s;
   s.geo = geo;
   s.f = make_fft(filt[0], filt[1], lats, R, 2 * L, H, W, plan, nstages);
@@ -226,7 +196,9 @@ Step<T> make_step(void* const* geo, void* const* filt, const void* lats, int R, 
   s.coriolis = coriolis; s.q_limiter = q_limiter;
   s.stream = stream;
   s.filter_launches = filter_launches;
+  s.stencil_launches = stencil_launches;
   *filter_launches = 0;
+  *stencil_launches = 0;
   return s;
 }
 

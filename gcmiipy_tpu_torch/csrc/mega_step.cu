@@ -15,9 +15,10 @@ template <typename T>
 int launch(void* const* in, void* const* geo, void* const* filt, const void* lats, int R,
            const int* plan, int nstages, void* const* starred, void* const* out,
            void* const* scratch, int L, int H, int W, const double* consts, int coriolis,
-           int q_limiter, int* filter_launches, cudaStream_t stream) {
+           int q_limiter, int* filter_launches, int* stencil_launches, cudaStream_t stream) {
   const gcm::Step<T> s = gcm::make_step<T>(geo, filt, lats, R, plan, nstages, scratch, L, H, W,
-                                           consts, coriolis, q_limiter, filter_launches, stream);
+                                           consts, coriolis, q_limiter, filter_launches,
+                                           stencil_launches, stream);
   if (gcm::bad_shape(L, H, W) || gcm::bad_fft(s.f)) return (int)cudaErrorInvalidValue;
   return gcm::whole_step(s, in, starred, out);
 }
@@ -30,17 +31,21 @@ int launch(void* const* in, void* const* geo, void* const* filt, const void* lat
 // latitudes; plan: the nstages radices of W.  starred, out: p,u,v,t,q of
 // the predictor and of the step.  scratch: X (2L,H,W), pg_phiv, sd, phi,
 // rho (L,H,W).  consts: dt, 1/dt, kappa, Rd, Cp, G, 1/P0, 2*omega.
-// *filter_launches: set to the filter kernel's launches made.  Returns 0
-// or the first CUDA error.
+// *filter_launches, *stencil_launches: set to the launches made of the
+// filter kernel and of the rest stencil.  Returns 0 or the first CUDA
+// error.
 extern "C" int gcm_mega_step(int is_double, void* const* in, void* const* geo,
                              void* const* filt, const void* lats, int R, const int* plan,
                              int nstages, void* const* starred, void* const* out,
                              void* const* scratch, int L, int H, int W, const double* consts,
-                             int coriolis, int q_limiter, int* filter_launches, void* stream) {
+                             int coriolis, int q_limiter, int* filter_launches,
+                             int* stencil_launches, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double
              ? launch<double>(in, geo, filt, lats, R, plan, nstages, starred, out, scratch, L, H,
-                              W, consts, coriolis, q_limiter, filter_launches, s)
+                              W, consts, coriolis, q_limiter, filter_launches,
+                              stencil_launches, s)
              : launch<float>(in, geo, filt, lats, R, plan, nstages, starred, out, scratch, L, H,
-                             W, consts, coriolis, q_limiter, filter_launches, s);
+                             W, consts, coriolis, q_limiter, filter_launches,
+                             stencil_launches, s);
 }

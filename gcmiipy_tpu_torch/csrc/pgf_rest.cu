@@ -12,9 +12,10 @@
 //   gcm_pgf_parts   pgf_column_pass -> pgf_stencil_pass: pgf_forces into
 //                   the caller's (2L,H,W) stack [spu_raw; pg_phi] and
 //                   pg_phiv (L,H,W);
-//   gcm_rest_parts  aflux_column_pass -> rest_stencil_pass: half_timestep_rest
-//                   with the filtered spu (the stack's first L planes) and
-//                   the momentum epilogue with the filtered pgfu (its planes
+//   gcm_rest_parts  aflux_column_pass -> the tiled rest stencil
+//                   (stencil_tile.cuh): half_timestep_rest with the
+//                   filtered spu (the stack's first L planes) and the
+//                   momentum epilogue with the filtered pgfu (its planes
 //                   L..2L, read in place: no copy) and pg_phiv, with no
 //                   wall (a null keep): v's wall row stays with the
 //                   caller, as in the JAX package.
@@ -22,11 +23,14 @@
 // Bound: bytes.  At 9x512x1024 float32 K3 reads sp, su, st and writes the
 // stack and pg_phiv (about 98 MB with the geometry, 0.03 ms at 3.35 TB/s);
 // K4 reads 10 fields, the stack and pg_phiv and writes 5 fields (about 290
-// MB, 0.09 ms).  Each keeps its column recurrences in registers and writes
-// them (rho, phi; sd) to device memory for the stencil launch that follows,
-// which reads each neighbour column's values once more: the TPU kernel's
-// halo recompute becomes a second launch.  chip_smoke.py works the bounds
-// out from its run's tensors.
+// MB, 0.087 ms).  K3's column launch writes its recurrences (rho, phi) to
+// device memory for its one-thread-per-point stencil launch, which reads
+// each neighbour column's values once more.  K4's
+// column launch writes sd and p_n, and its tiled stencil reads each plane
+// of its inputs from device memory about once (stencil_tile.cuh), so the
+// sd round trip (about 38 MB) is what it moves beyond its bound: the TPU
+// kernel's halo recompute becomes a second launch.  chip_smoke.py works
+// the bounds out from its run's tensors.
 
 #include "mega_stages.cuh"
 
@@ -45,10 +49,13 @@ int pgf(void* const* in, void* const* geo, void* X, void* pg_phiv, void* const* 
   return gcm::pgf_stages(a, static_cast<T*>(X), static_cast<T*>(pg_phiv), stream);
 }
 
+// K4's stages 4-5 (stencil_only: stage 5 alone, on the caller's p_n and
+// sd).  out: p_n, u_n, v_n, t_n, q_n; v not walled.
 template <typename T>
 int rest(void* const* in, const void* filt_stack, const void* pg_phiv, void* const* geo,
          void* const* out, void* sd, int L, int H, int W, const double* consts, int coriolis,
-         int q_limiter, cudaStream_t stream) {
+         int q_limiter, bool stencil_only, int* stencil_launches, cudaStream_t stream) {
+  *stencil_launches = 0;
   if (gcm::bad_shape(L, H, W)) return (int)cudaErrorInvalidValue;
   const T* stack = static_cast<const T*>(filt_stack);
   T* const* fo = reinterpret_cast<T* const*>(out);
@@ -56,8 +63,10 @@ int rest(void* const* in, const void* filt_stack, const void* pg_phiv, void* con
                                                coriolis, q_limiter, fo[0], static_cast<T*>(sd),
                                                nullptr, nullptr);
   const T* const no_wall = nullptr;
-  return gcm::rest_stages(a, stack + (size_t)L * H * W, static_cast<const T*>(pg_phiv), no_wall,
-                          gcm::Outs<T>{fo[1], fo[2], fo[3], fo[4]}, stream);
+  const gcm::RestOut<T> o{fo[1], fo[2], fo[3], fo[4], stack + (size_t)L * H * W,
+                          static_cast<const T*>(pg_phiv), no_wall};
+  return stencil_only ? gcm::launch_tile_stencil(a, o, stream, stencil_launches)
+                      : gcm::rest_stages(a, o, stream, stencil_launches);
 }
 
 }  // namespace
@@ -78,15 +87,33 @@ extern "C" int gcm_pgf_parts(int is_double, void* const* in, void* const* geo, v
 // K4: half_timestep_rest and the momentum epilogue.  in: p,u,v,t,q,
 // sp,su,sv,st,sq.  filt_stack: the filtered (2L,H,W) stack [spu; pgfu].
 // pg_phiv (L,H,W).  out: p_n (H,W), u_n, v_n (not walled), t_n, q_n
-// (L,H,W), none of them aliasing an input.  sd: (L,H,W) scratch.  Returns 0 or the
-// first CUDA error.
+// (L,H,W), none of them aliasing an input.  sd: (L,H,W) scratch.
+// *stencil_launches: set to the rest stencil's launches made.  Returns 0
+// or the first CUDA error.
 extern "C" int gcm_rest_parts(int is_double, void* const* in, const void* filt_stack,
                               const void* pg_phiv, void* const* geo, void* const* out, void* sd,
                               int L, int H, int W, const double* consts, int coriolis,
-                              int q_limiter, void* stream) {
+                              int q_limiter, int* stencil_launches, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_double ? rest<double>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
-                                  coriolis, q_limiter, s)
+                                  coriolis, q_limiter, false, stencil_launches, s)
                    : rest<float>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
-                                 coriolis, q_limiter, s);
+                                 coriolis, q_limiter, false, stencil_launches, s);
+}
+
+// The rest stencil stage alone (stage 5 of K4-K7): K4's arguments, with
+// out[0] the new surface pressure p_n (H,W) and sd (L,H,W) as stage 4
+// wrote them, both read; out[1..4]: u_n, v_n (not walled), t_n, q_n
+// written.  *stencil_launches: set to the launches made.  Returns 0 or the
+// CUDA error.
+extern "C" int gcm_rest_stencil(int is_double, void* const* in, const void* filt_stack,
+                                const void* pg_phiv, void* const* geo, void* const* out,
+                                void* sd, int L, int H, int W, const double* consts,
+                                int coriolis, int q_limiter, int* stencil_launches,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double ? rest<double>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
+                                  coriolis, q_limiter, true, stencil_launches, s)
+                   : rest<float>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
+                                 coriolis, q_limiter, true, stencil_launches, s);
 }

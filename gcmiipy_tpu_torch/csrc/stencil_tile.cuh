@@ -1,0 +1,407 @@
+// The point stencils of a half step as one tiled launch: the rest stencil
+// (stage 5 of K4, K5, K6 and K7: half_timestep_rest and the momentum
+// epilogue) and K1's stencil launch (momentum, pgf, sigma and tracers).
+//
+// One block owns a (TJ x 32) tile of (j,i) columns and loops over the
+// layers k.  Every field a stencil reads at a neighbour lives in shared
+// memory with a halo of rows j-1 .. j+TJ and columns i-1 .. i+32, the reach
+// of momentum, adv_h and the q limiter (sp one row more, for spv at row
+// j+1):
+//
+//   ring   su, sv, st, sq, sd: four layer slots, k-1, k and k+1 read by
+//          layer k (advec_sig's vertical fluxes) and k+2 in flight;
+//   local  spu, q (K1 also rho, phi), and without a halo the fields read
+//          only at the point itself, u, v, t (K4-K7 also pgfu, pg_phiv),
+//          each thread its own: two slots, k read and k+1 in flight;
+//   spv    sv * jph(sp) of layer k, computed once a point into shared
+//          memory (the one-thread-per-point pass evaluated it 14 times);
+//   2D     sp, p, p_n, filled once per block.
+//
+// Each layer is copied with cp.async while the layer before it is
+// computed, so each plane is read from device memory once per block (its
+// halo rows and columns once more by the neighbouring block), and layers
+// L-1 and 0 once more for the periodic vertical wrap (kn, kkm of the
+// plain version).  The halo's j and i are wrapped once per thread, when
+// its copy offsets are formed; every stencil access is then a constant
+// offset from the thread's centre in the tile.  The values that do not
+// depend on k (the geometry rows' reciprocals, the Coriolis parameters,
+// p's and p_n's face averages and reciprocals) are formed once per
+// thread.
+//
+// Every expression keeps the operand order of the plain version (and of
+// the one-thread-per-point pass this replaces), built with -fmad=false, so
+// the kernels equal their plain versions bit for bit: staging a value in
+// shared memory or forming it once changes no rounding.
+//
+// Bound: bytes.  At 9x512x1024 float32 the rest stencil reads 12 (L,H,W)
+// fields (p, u, v, t, q, su, sv, st, sq, the filtered spu and pgfu,
+// pg_phiv and sd) and sp, p, p_n, and writes u, v, t, q: about 308 MB,
+// 0.092 ms at 3.35 TB/s.  K1's stencil launch reads 11 (L,H,W) fields and
+// p, sp, p_n and writes 5 fields: about 309 MB, 0.092 ms.  chip_smoke.py
+// works both out from its run's tensors.
+
+#pragma once
+
+#include <cuda_pipeline.h>
+
+#include "gcm_stencil.cuh"
+
+namespace gcm {
+
+// Tile rows (a tile row is one warp) and the blocks an SM must be able to
+// hold (__launch_bounds__), per type, chosen on the H100 at 9x512x1024
+// (PERF.md §6).  Float32: 8 rows, 3 blocks (at most 85 registers).
+// Float64: 16 rows, 1 block.
+template <typename T> struct TileShape;
+template <> struct TileShape<float> {
+  static constexpr int rows = 8, min_blocks = 3;
+};
+template <> struct TileShape<double> {
+  static constexpr int rows = 16, min_blocks = 1;
+};
+
+constexpr int kMaxSharedBytes = 232448;  // a block's shared memory on Hopper
+
+// The outputs of the rest stencil and the epilogue's inputs: the filtered
+// pgfu, pg_phiv and the polar wall's keep (null: no wall).
+template <typename T>
+struct RestOut {
+  static constexpr bool kParts = false;
+  T *u_n, *v_n, *t_n, *q_n;
+  const T *pgfu, *pg_phiv, *keep;
+};
+
+// The outputs of K1's stencil launch.
+template <typename T>
+struct PartsOut {
+  static constexpr bool kParts = true;
+  T *v_n, *t_n, *q_n, *pu_partial, *pg_phi;
+};
+
+// Shared-memory layout of a tile, in elements of T.
+template <typename T, bool kParts>
+struct Tile {
+  static constexpr int TJ = TileShape<T>::rows, TI = 32;
+  static constexpr int kThreads = TJ * TI;
+  static constexpr int R = TJ + 2, C = TI + 2;  // rows j0-1 .. j0+TJ, columns i0-1 .. i0+TI
+  static constexpr int kPlane = R * C;
+  static constexpr int kSpPlane = (R + 1) * C;
+  static constexpr int kRingFields = 5, kRingSlots = 4;  // su, sv, st, sq, sd
+  static constexpr int kLocalFields = kParts ? 4 : 2;    // spu, q (, rho, phi)
+  static constexpr int kPointFields = kParts ? 3 : 5;    // u, v, t (, pgfu, pg_phiv)
+  static constexpr int kLocalSlot = kLocalFields * kPlane + kPointFields * kThreads;
+  static constexpr int kCopies = (kSpPlane + kThreads - 1) / kThreads;
+  static constexpr int kSpvCopies = (R * (C - 1) + kThreads - 1) / kThreads;
+  static constexpr int kLocalAt = kRingSlots * kRingFields * kPlane;
+  static constexpr int kSpvAt = kLocalAt + 2 * kLocalSlot;
+  static constexpr int kSpAt = kSpvAt + kPlane;
+  static constexpr int kPAt = kSpAt + kSpPlane;
+  static constexpr int kPnAt = kPAt + kPlane;
+  static constexpr size_t kBytes = (size_t)(kPnAt + kPlane) * sizeof(T);
+  static_assert(kBytes <= kMaxSharedBytes, "tile exceeds a block's shared memory");
+};
+
+// The stencils at one point of a tile: (dj, di) are offsets from the
+// point, every plane is a tile plane of row length C.
+template <typename T, int C>
+struct TilePoint {
+  int c;  // the point's index in a tile plane
+  // ring planes at layers k-1 (_m), k and k+1 (_p)
+  const T *su, *sv, *st, *sq, *sd, *su_m, *sv_m, *st_m, *sq_m, *su_p, *sv_p, *st_p, *sq_p, *sd_p;
+  const T *spu, *q, *spv, *p;
+  T half, rdx_j, rdx_h, rdy, rdsig, cp_at_u, cp_at_v, dt, inv_dt;
+  int coriolis, q_limiter;
+
+  __device__ __forceinline__ T at(const T* x, int dj, int di) const { return x[c + dj * C + di]; }
+  __device__ __forceinline__ T spv_at(int dj, int di) const { return at(spv, dj, di); }
+
+  // advec_m_pu(sp, su, sv, spu, spv), with the optional Coriolis term
+  __device__ __forceinline__ void momentum(T& dut, T& dvt) const {
+    auto puum = [&](int di) {
+      return ((at(su, 0, di) + at(su, 0, di - 1)) * half) *
+             ((at(spu, 0, di) + at(spu, 0, di - 1)) * half);
+    };
+    auto puvp = [&](int dj) {
+      return ((spv_at(dj, 0) + spv_at(dj, 1)) * half) * ((at(su, dj, 0) + at(su, dj + 1, 0)) * half);
+    };
+    auto pvvm = [&](int dj) {
+      return ((at(sv, dj, 0) + at(sv, dj - 1, 0)) * half) *
+             ((spv_at(dj, 0) + spv_at(dj - 1, 0)) * half);
+    };
+    auto pvup = [&](int di) {
+      return ((at(sv, 0, di) + at(sv, 0, di + 1)) * half) *
+             ((at(spu, 0, di) + at(spu, 1, di)) * half);
+    };
+    T cor_u = T(0), cor_v = T(0);
+    if (coriolis) {
+      auto jph_spu = [&](int di) { return (at(spu, 0, di) + at(spu, 1, di)) * half; };
+      auto jmh_spv = [&](int di) { return (spv_at(0, di) + spv_at(-1, di)) * half; };
+      const T pu_at_pv = (jph_spu(0) + jph_spu(-1)) * half;
+      const T pv_at_pu = (jmh_spv(0) + jmh_spv(1)) * half;
+      cor_u = cp_at_u * -pv_at_pu;
+      cor_v = cp_at_v * pu_at_pv;
+    }
+    dut = (puum(0) - puum(1)) * rdx_j + (puvp(-1) - puvp(0)) * rdy + cor_u;
+    dvt = (pvvm(0) - pvvm(1)) * rdy + (pvup(-1) - pvup(0)) * rdx_h + cor_v;
+  }
+
+  // advec_sig: the vertical flux at a layer of x with the sigma-dot sdv,
+  // from x at that layer (upper) and the layer above it (lower)
+  __device__ __forceinline__ T vflux(T upper, T lower, T sdv) const {
+    return ((upper + lower) * half) * sdv;
+  }
+
+  // advec_sig(iph(sd), su) and advec_sig(jph(sd), sv)
+  __device__ __forceinline__ void sigma(T& dus, T& dvs) const {
+    auto sd_iph = [&](const T* s) { return (at(s, 0, 0) + at(s, 0, 1)) * half; };
+    auto sd_jph = [&](const T* s) { return (at(s, 0, 0) + at(s, 1, 0)) * half; };
+    dus = -((vflux(at(su, 0, 0), at(su_m, 0, 0), sd_iph(sd)) -
+             vflux(at(su_p, 0, 0), at(su, 0, 0), sd_iph(sd_p))) * rdsig);
+    dvs = -((vflux(at(sv, 0, 0), at(sv_m, 0, 0), sd_jph(sd)) -
+             vflux(at(sv_p, 0, 0), at(sv, 0, 0), sd_jph(sd_p))) * rdsig);
+  }
+
+  // advec_t(spu, spv, x) with x = st or sq
+  __device__ __forceinline__ T adv_h(const T* x) const {
+    auto tpu = [&](int di) { return at(spu, 0, di) * ((at(x, 0, di) + at(x, 0, di + 1)) * half); };
+    auto tpv = [&](int dj) { return spv_at(dj, 0) * ((at(x, dj, 0) + at(x, dj + 1, 0)) * half); };
+    return (tpu(0) - tpu(-1)) * rdx_j + (tpv(0) - tpv(-1)) * rdy;
+  }
+
+  __device__ __forceinline__ T adv_sig(const T* x, const T* x_m, const T* x_p) const {
+    return -((vflux(at(x, 0, 0), at(x_m, 0, 0), at(sd, 0, 0)) -
+              vflux(at(x_p, 0, 0), at(x, 0, 0), at(sd_p, 0, 0))) * rdsig);
+  }
+
+  // The new potential temperature and humidity: advec_t / advec_q_limited
+  // (the ADVECQ clamp) plus advec_sig, over the new surface pressure
+  // (rp_n = 1/p_n at the point).
+  __device__ __forceinline__ void tracers(T t_c, T p_c, T rp_n, T& t_n, T& q_n) const {
+    t_n = (t_c * p_c - (adv_h(st) + adv_sig(st, st_m, st_p)) * dt) * rp_n;
+
+    T adv_q;
+    if (q_limiter) {
+      // advec_q_limited: faces clamped to half the donor cell's q*p
+      auto hq = [&](int dj, int di) { return half * (at(q, dj, di) * at(p, dj, di)); };
+      auto clamp = [](T x, T lo, T hi) {
+        x = x < lo ? lo : x;
+        return x > hi ? hi : x;
+      };
+      const T dt_rdx = dt * rdx_j, dt_rdy = dt * rdy;
+      auto fx = [&](int di) {
+        const T f = (at(spu, 0, di) * ((at(sq, 0, di) + at(sq, 0, di + 1)) * half)) * dt_rdx;
+        return clamp(f, -hq(0, di + 1), hq(0, di));
+      };
+      auto fy = [&](int dj) {
+        const T f = (spv_at(dj, 0) * ((at(sq, dj, 0) + at(sq, dj + 1, 0)) * half)) * dt_rdy;
+        return clamp(f, -hq(dj + 1, 0), hq(dj, 0));
+      };
+      adv_q = ((fx(0) - fx(-1)) + (fy(0) - fy(-1))) * inv_dt;
+    } else {
+      adv_q = adv_h(sq);
+    }
+    q_n = (at(q, 0, 0) * p_c - (adv_q + adv_sig(sq, sq_m, sq_p)) * dt) * rp_n;
+  }
+};
+
+// The tiled stencil launch: grid (ceil(W/32), ceil(H/TJ)), TJ*32 threads,
+// Tile<T, Out::kParts>::kBytes of dynamic shared memory.  Out is RestOut
+// (the rest stencil) or PartsOut (K1).
+template <typename T, class Out>
+__global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::min_blocks)
+    tile_stencil(const Params<T> a, const Out out) {
+  using S = Tile<T, Out::kParts>;
+  constexpr int C = S::C, P = S::kPlane;
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  T* const sm = reinterpret_cast<T*>(tile_smem);
+  const int L = a.L, H = a.H, W = a.W;
+  const size_t HW = (size_t)H * W;
+  const int tid = threadIdx.x;
+  const int ti = tid % S::TI, tj = tid / S::TI;
+  const int i0 = blockIdx.x * S::TI, j0 = blockIdx.y * S::TJ;
+  const int i = i0 + ti, j = j0 + tj;
+  const bool active = i < W && j < H;
+  const size_t jw = (size_t)j * W + i;  // read by active threads only
+  // the (H,W) offsets of the tile elements this thread copies, wrapped once
+  int src[S::kCopies];
+#pragma unroll
+  for (int n = 0; n < S::kCopies; ++n) {
+    const int e = tid + n * S::kThreads;
+    const int r = e / C, cc = e - r * C;
+    src[n] = ((j0 - 1 + r + H) % H) * W + (i0 - 1 + cc + W) % W;
+  }
+  auto copy = [&](T* dst, const T* plane, int count) {
+#pragma unroll
+    for (int n = 0; n < S::kCopies; ++n) {
+      const int e = tid + n * S::kThreads;
+      if (e < count) __pipeline_memcpy_async(dst + e, plane + src[n], sizeof(T));
+    }
+  };
+  // ring position n (layer n mod L, -1 <= n <= L) into slot (n+1) mod 4
+  auto ring = [&](int n) { return sm + ((n + 1) & 3) * S::kRingFields * P; };
+  auto load_ring = [&](int n) {
+    const size_t off = (size_t)((n + L) % L) * HW;
+    T* slot = ring(n);
+    copy(slot, a.su + off, P);
+    copy(slot + P, a.sv + off, P);
+    copy(slot + 2 * P, a.st + off, P);
+    copy(slot + 3 * P, a.sq + off, P);
+    copy(slot + 4 * P, a.sd + off, P);
+  };
+  // layer k's local planes into slot k mod 2; the fields read only at the
+  // point itself, each thread its own
+  auto local = [&](int k) { return sm + S::kLocalAt + (k & 1) * S::kLocalSlot; };
+  auto point = [&](int k, int f) { return local(k) + S::kLocalFields * P + f * S::kThreads + tid; };
+  auto load_local = [&](int k) {
+    const size_t off = (size_t)k * HW;
+    T* slot = local(k);
+    copy(slot, a.spu + off, P);
+    copy(slot + P, a.q + off, P);
+    if constexpr (Out::kParts) {
+      copy(slot + 2 * P, a.rho + off, P);
+      copy(slot + 3 * P, a.phi + off, P);
+    }
+    if (active) {
+      const T* fields[5] = {a.u, a.v, a.t, nullptr, nullptr};
+      if constexpr (!Out::kParts) {
+        fields[3] = out.pgfu;
+        fields[4] = out.pg_phiv;
+      }
+#pragma unroll
+      for (int f = 0; f < S::kPointFields; ++f)
+        __pipeline_memcpy_async(point(k, f), fields[f] + off + jw, sizeof(T));
+    }
+  };
+  T* const spv = sm + S::kSpvAt;
+  const T* const sp = sm + S::kSpAt;
+  const T* const p = sm + S::kPAt;
+  const T* const pn = sm + S::kPnAt;
+
+  copy(sm + S::kSpAt, a.sp, S::kSpPlane);
+  copy(sm + S::kPAt, a.p, P);
+  copy(sm + S::kPnAt, a.p_n, P);
+  load_ring(-1);
+  load_ring(0);
+  load_ring(1);
+  load_local(0);
+  __pipeline_commit();
+
+  // what does not depend on k
+  const T half = T(0.5), one = T(1), dt = a.dt;
+  const int jr = j < H ? j : H - 1;  // a row to read for an idle thread
+  const int jp = jr + 1 == H ? 0 : jr + 1;
+  TilePoint<T, C> x;
+  x.c = (tj + 1) * C + ti + 1;
+  x.p = p;
+  x.half = half;
+  x.rdx_j = one / a.dx_j[jr];
+  x.rdx_h = one / a.dx_h[jr];
+  x.rdy = one / a.dy[0];
+  x.dt = dt;
+  x.inv_dt = a.inv_dt;
+  x.coriolis = a.coriolis;
+  x.q_limiter = a.q_limiter;
+  x.cp_at_u = x.cp_at_v = T(0);
+  if (a.coriolis) {
+    x.cp_at_u = sine(a.lat[jr]) * a.two_omega;
+    x.cp_at_v = sine((a.lat[jr] + a.lat[jp]) * half) * a.two_omega;
+  }
+  T keep_j = T(0);
+  if constexpr (!Out::kParts) keep_j = out.keep ? out.keep[jr] : T(0);
+
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const T p_c = x.at(p, 0, 0);
+  const T pu_h = (p_c + x.at(p, 0, 1)) * half;  // iph(p), jph(p) at the point
+  const T pv_h = (p_c + x.at(p, 1, 0)) * half;
+  const T pn_c = x.at(pn, 0, 0);
+  const T rp_n = one / pn_c;
+  const T rv_n = one / ((pn_c + x.at(pn, 1, 0)) * half);
+  const T ru_n = one / ((pn_c + x.at(pn, 0, 1)) * half);
+
+  for (int k = 0; k < L; ++k) {
+    __pipeline_wait_prior(0);
+    __syncthreads();  // layer k+1 has landed; every thread is done with layer k-1
+    if (k + 2 <= L) load_ring(k + 2);
+    if (k + 1 < L) load_local(k + 1);
+    __pipeline_commit();
+
+    const T* cur = ring(k);
+    const T* lo = local(k);
+    // spv = sv * jph(sp) of layer k on rows j0-1 .. j0+TJ, columns i0 .. i0+32
+#pragma unroll
+    for (int n = 0; n < S::kSpvCopies; ++n) {
+      const int e = tid + n * S::kThreads;
+      if (e < S::R * (C - 1)) {
+        const int r = e / (C - 1);
+        const int at = r * C + 1 + (e - r * (C - 1));
+        spv[at] = cur[P + at] * ((sp[at] + sp[at + C]) * half);
+      }
+    }
+    __syncthreads();
+    if (!active) continue;
+
+    const T* above = ring(k - 1);
+    const T* below = ring(k + 1);
+    x.su = cur; x.sv = cur + P; x.st = cur + 2 * P; x.sq = cur + 3 * P; x.sd = cur + 4 * P;
+    x.su_m = above; x.sv_m = above + P; x.st_m = above + 2 * P; x.sq_m = above + 3 * P;
+    x.su_p = below; x.sv_p = below + P; x.st_p = below + 2 * P; x.sq_p = below + 3 * P;
+    x.sd_p = below + 4 * P;
+    x.spu = lo;
+    x.q = lo + P;
+    x.spv = spv;
+    x.rdsig = one / a.dsig[k];
+    const size_t o = (size_t)k * HW + jw;
+
+    T dut, dvt, dus, dvs;
+    x.momentum(dut, dvt);
+    if constexpr (Out::kParts) {
+      const T* rho = lo + 2 * P;
+      const T* phi = lo + 3 * P;
+      T pgu, pgv, phiu, phiv;
+      pgf_terms(a.sig[k], x.at(sp, 0, 0), x.at(sp, 0, 1), x.at(sp, 1, 0), x.at(rho, 0, 0),
+                x.at(rho, 0, 1), x.at(rho, 1, 0), x.at(phi, 0, 0), x.at(phi, 0, 1),
+                x.at(phi, 1, 0), x.rdx_j, x.rdy, pgu, pgv, phiu, phiv);
+      x.sigma(dus, dvs);
+      const T pu = *point(k, 0) * pu_h;
+      const T pv = *point(k, 1) * pv_h;
+      const T pv_n = pv - (dvt + dvs + phiv + pgv) * dt;
+      out.pu_partial[o] = pu - (dut + dus) * dt;
+      out.pg_phi[o] = pgu + phiu;
+      out.v_n[o] = pv_n * rv_n;
+    } else {
+      x.sigma(dus, dvs);
+      const T pu = *point(k, 0) * pu_h;
+      const T pv = *point(k, 1) * pv_h;
+      const T pu_partial = pu - (dut + dus) * dt;
+      const T pv_partial = pv - (dvt + dvs) * dt;
+      out.u_n[o] = (pu_partial - *point(k, 3) * dt) * ru_n;
+      const T v_n = (pv_partial - *point(k, 4) * dt) * rv_n;
+      out.v_n[o] = out.keep ? v_n * keep_j : v_n;
+    }
+    T t_n, q_n;
+    x.tracers(*point(k, 2), p_c, rp_n, t_n, q_n);
+    out.t_n[o] = t_n;
+    out.q_n[o] = q_n;
+  }
+}
+
+// Launch the tiled stencil on the caller's stream; returns 0 or the CUDA
+// error of the attribute call or the launch.  A launch that was accepted
+// adds one to *launches (when not null).  A plane's offsets are 32-bit.
+template <typename T, class Out>
+int launch_tile_stencil(const Params<T>& a, const Out& out, cudaStream_t stream,
+                        int* launches) {
+  using S = Tile<T, Out::kParts>;
+  if ((size_t)a.H * a.W > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      tile_stencil<T, Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.W + S::TI - 1) / S::TI, (a.H + S::TJ - 1) / S::TJ);
+  tile_stencil<T, Out><<<grid, S::kThreads, S::kBytes, stream>>>(a, out);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess && launches) ++*launches;
+  return (int)launched;
+}
+
+}  // namespace gcm

@@ -38,11 +38,12 @@ template <typename T>
 int launch(T* S, int planes, int k, const T* utc, void* const* geo, void* const* filt,
            const void* lats, int R, const int* plan, int nstages, void* const* scratch, int L,
            int H, int W, const double* consts, int coriolis, int q_limiter, const double* phys,
-           const T* lat, const T* lon, int* filter_launches, cudaStream_t stream) {
+           const T* lat, const T* lon, int* filter_launches, int* stencil_launches,
+           cudaStream_t stream) {
   const int np = 1 + 4 * L;
   const gcm::Step<T> s = gcm::make_step<T>(geo, filt, lats, R, plan, nstages, scratch + 5, L, H,
                                            W, consts, coriolis, q_limiter, filter_launches,
-                                           stream);
+                                           stencil_launches, stream);
   if (gcm::bad_shape(L, H, W) || gcm::bad_fft(s.f) || k < 0 || k % 2 ||
       planes != np + (phys ? 1 : 0))
     return (int)cudaErrorInvalidValue;
@@ -93,22 +94,24 @@ int launch(T* S, int planes, int k, const T* utc, void* const* geo, void* const*
 // start of the call.  geo, filt, lats, plan, consts: as gcm_mega_step.
 // scratch: the predictor's p,u,v,t,q, then X (2L,H,W), pg_phiv, sd, phi,
 // rho (L,H,W).  phys: the PhysTable's doubles (column_physics.cuh), or null
-// for the dynamics alone; lat (H), lon (W).  *filter_launches: set to the
-// filter kernel's launches made.  Returns 0 or the first CUDA error.
+// for the dynamics alone; lat (H), lon (W).  *filter_launches,
+// *stencil_launches: set to the launches made of the filter kernel and of
+// the rest stencil.  Returns 0 or the first CUDA error.
 extern "C" int gcm_stream_steps(int is_double, void* S, int planes, int k, const void* utc,
                                 void* const* geo, void* const* filt, const void* lats, int R,
                                 const int* plan, int nstages, void* const* scratch, int L,
                                 int H, int W, const double* consts, int coriolis, int q_limiter,
                                 const double* phys, const void* lat, const void* lon,
-                                int* filter_launches, void* stream) {
+                                int* filter_launches, int* stencil_launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_double)
     return launch<double>(static_cast<double*>(S), planes, k, static_cast<const double*>(utc),
                           geo, filt, lats, R, plan, nstages, scratch, L, H, W, consts, coriolis,
                           q_limiter, phys, static_cast<const double*>(lat),
-                          static_cast<const double*>(lon), filter_launches, st);
+                          static_cast<const double*>(lon), filter_launches, stencil_launches,
+                          st);
   return launch<float>(static_cast<float*>(S), planes, k, static_cast<const float*>(utc), geo,
                        filt, lats, R, plan, nstages, scratch, L, H, W, consts, coriolis,
                        q_limiter, phys, static_cast<const float*>(lat),
-                       static_cast<const float*>(lon), filter_launches, st);
+                       static_cast<const float*>(lon), filter_launches, stencil_launches, st);
 }

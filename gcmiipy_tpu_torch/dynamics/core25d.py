@@ -283,12 +283,21 @@ def half_timestep_rest(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
     """Half-step tendency assembly minus the PGF terms (which
     :func:`pgf_forces` provides).  Returns
     ``(p_n, pu_partial, pv_partial, t_n, q_n)``."""
-    pu = calc_pu(p, u)
-    pv = calc_pv(p, v)
     spv = calc_pv(sp, sv)
-
     pit, sd = aflux(spu, spv, geom)
     p_n = p - pit * dt
+    return (p_n,) + rest_tendencies(p, u, v, t, q, sp, su, sv, st, sq, spu,
+                                    spv, sd, p_n, dt, geom,
+                                    coriolis=coriolis, q_limiter=q_limiter)
+
+
+def rest_tendencies(p, u, v, t, q, sp, su, sv, st, sq, spu, spv, sd, p_n, dt,
+                    geom, coriolis=False, q_limiter=False):
+    """:func:`half_timestep_rest` after the mass flux divergence, on its
+    meridional mass flux ``spv``, sigma-dot ``sd`` and new surface pressure
+    ``p_n``.  Returns ``(pu_partial, pv_partial, t_n, q_n)``."""
+    pu = calc_pu(p, u)
+    pv = calc_pv(p, v)
 
     dut, dvt = advec_m_pu(sp, su, sv, spu, spv, geom, coriolis=coriolis)
     dus = advec_sig(iph(sd), su, geom)
@@ -303,7 +312,7 @@ def half_timestep_rest(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
              else advec_t(spu, spv, sq, geom))
     q_n = (q * p - (adv_q + advec_sig(sd, sq, geom)) * dt) * rp_n
 
-    return p_n, pu_partial, pv_partial, t_n, q_n
+    return pu_partial, pv_partial, t_n, q_n
 
 
 def _polar_wall(v_n):

@@ -24,7 +24,9 @@ FFT over the latitudes with some damping
   launches ``csrc/mega_half.cu`` on CUDA tensors, or raises.
 
 ``mega_half.launches`` counts the calls that launched the kernel; each adds
-to ``fft_filter.launches`` the filter launch its C entry counted.  The polar wall is applied
+to ``fft_filter.launches`` and ``pgf_rest.rest_stencil.launches`` the
+launches of the filter and of the rest stencil that its C entry counted
+(one each).  The polar wall is applied
 inside (the constants' ``keep``), where the JAX kernel leaves it to its
 caller; the result is the same.  The filter sums in float64 for float32
 fields too, as K6's does (``mega_step``'s docstring); the JAX kernel's
@@ -40,6 +42,7 @@ from gcmiipy_tpu_torch.ops.fused_parts import (
     GEOM_FIELDS, kernel_consts, on_cpu, pointer_array)
 from gcmiipy_tpu_torch.ops.mega_step import (
     FilterConsts, _check, build_filter_consts, filter_args, mega_half_ref)
+from gcmiipy_tpu_torch.ops.pgf_rest import add_stencil_launches
 
 __all__ = ["MegaHalf", "mega_half", "mega_half_ref"]
 
@@ -52,7 +55,7 @@ def _library():
         i, vp = ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [i, ptrs, ptrs, ptrs, ptrs, vp, i, ctypes.POINTER(i), i,
                        ptrs, ptrs, i, i, i, ctypes.POINTER(ctypes.c_double),
-                       i, i, ctypes.POINTER(i), vp]
+                       i, i, ctypes.POINTER(i), ctypes.POINTER(i), vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -84,7 +87,7 @@ def mega_half(base, seval, dt, geom, fc, coriolis=False, q_limiter=False):
 
     outs = [new(H, W)] + [new(L, H, W) for _ in range(4)]
     scratch = [new(2 * L, H, W)] + [new(L, H, W) for _ in range(4)]
-    filter_launches = ctypes.c_int(0)
+    filter_launches, stencil_launches = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = fn(int(dtype == torch.float64), pointer_array(fields[:5]),
                  pointer_array(fields[5:]),
@@ -92,9 +95,10 @@ def mega_half(base, seval, dt, geom, fc, coriolis=False, q_limiter=False):
                  *filter_args(fc, W), pointer_array(outs),
                  pointer_array(scratch), L, H, W, kernel_consts(dt),
                  int(bool(coriolis)), int(bool(q_limiter)),
-                 ctypes.byref(filter_launches),
+                 ctypes.byref(filter_launches), ctypes.byref(stencil_launches),
                  torch.cuda.current_stream(device).cuda_stream)
     fft.add_launches(filter_launches)
+    add_stencil_launches(stencil_launches)
     if err != 0:
         raise RuntimeError(f"mega_half kernel launch failed: CUDA error {err}")
     mega_half.launches += 1

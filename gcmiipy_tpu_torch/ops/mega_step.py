@@ -17,7 +17,9 @@ corrector repeats it on (base, starred).
   tensors, or raises.
 
 ``mega_step.launches`` counts the calls that launched the kernel; each adds
-to ``fft_filter.launches`` the filter launches its C entry counted.  The
+to ``fft_filter.launches`` and ``pgf_rest.rest_stencil.launches`` the
+launches of the filter and of the rest stencil that its C entry counted
+(two each).  The
 kernel's filter stage is the float64 FFT of
 :mod:`gcmiipy_tpu_torch.ops.fft_filter`, which computes the banded DFT's
 function, so the kernel agrees with its plain version to rounding.
@@ -38,7 +40,8 @@ import torch
 from gcmiipy_tpu_torch.ops import cuda_lib, fft_filter as fft, polar_filter
 from gcmiipy_tpu_torch.ops.fused_parts import (
     GEOM_FIELDS, check_args, kernel_consts, on_cpu, pointer_array)
-from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts_ref, rest_parts_ref
+from gcmiipy_tpu_torch.ops.pgf_rest import (
+    add_stencil_launches, pgf_parts_ref, rest_parts_ref)
 
 CHUNK_COLUMNS = 2 * polar_filter.FILTER_CHUNK  # C and S halves of a chunk
 
@@ -170,7 +173,7 @@ def _library():
         fn.argtypes = [i, ptrs, ptrs, ptrs, vp, i, ctypes.POINTER(i), i,
                        ptrs, ptrs, ptrs, i, i, i,
                        ctypes.POINTER(ctypes.c_double), i, i,
-                       ctypes.POINTER(i), vp]
+                       ctypes.POINTER(i), ctypes.POINTER(i), vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -218,16 +221,17 @@ def mega_step(p, u, v, t, q, dt, geom, fc, coriolis=False, q_limiter=False):
     starred = [new(H, W)] + [new(L, H, W) for _ in range(4)]
     outs = [new(H, W)] + [new(L, H, W) for _ in range(4)]
     scratch = [new(2 * L, H, W)] + [new(L, H, W) for _ in range(4)]
-    filter_launches = ctypes.c_int(0)
+    filter_launches, stencil_launches = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = fn(int(p.dtype == torch.float64), pointer_array(fields),
                  pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
                  *filter_args(fc, W), pointer_array(starred),
                  pointer_array(outs), pointer_array(scratch), L, H, W,
                  kernel_consts(dt), int(bool(coriolis)), int(bool(q_limiter)),
-                 ctypes.byref(filter_launches),
+                 ctypes.byref(filter_launches), ctypes.byref(stencil_launches),
                  torch.cuda.current_stream(device).cuda_stream)
     fft.add_launches(filter_launches)
+    add_stencil_launches(stencil_launches)
     if err != 0:
         raise RuntimeError(f"mega_step kernel launch failed: CUDA error {err}")
     mega_step.launches += 1

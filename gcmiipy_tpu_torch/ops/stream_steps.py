@@ -15,8 +15,9 @@ at the clock ``utc0 + s*dt``.  k is even, so the state ends in buffer 0.
 * :func:`stream_steps` runs it on CPU tensors and launches
   ``csrc/stream_steps.cu`` (with ``csrc/column_physics.cuh``) on CUDA
   tensors, or raises; ``stream_steps.launches`` counts the launching calls,
-  each of which adds to ``fft_filter.launches`` the filter launches its C
-  entry counted (2k).
+  each of which adds to ``fft_filter.launches`` and
+  ``pgf_rest.rest_stencil.launches`` the launches of the filter and of the
+  rest stencil that its C entry counted (2k each).
 * :class:`StreamSteps` holds the filter's buffers, the physics table and
   the kernel's scratch, allocated once and reused by every call.
 """
@@ -34,6 +35,7 @@ from gcmiipy_tpu_torch.ops.fused_parts import (
 from gcmiipy_tpu_torch.ops.mega_step import (
     MegaStep, _check as check_filter_args, banded_round, filter_args,
     mega_step_ref)
+from gcmiipy_tpu_torch.ops.pgf_rest import add_stencil_launches
 from gcmiipy_tpu_torch.physics import convection, radiation
 
 CONVECTION_SWEEPS = 4  # the fixed-sweep count of the JAX kernel's epilogue
@@ -195,7 +197,7 @@ def _library():
         i, vp = ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [i, vp, i, i, vp, ptrs, ptrs, vp, i,
                        ctypes.POINTER(i), i, ptrs, i, i, i, dbl, i, i, dbl,
-                       vp, vp, ctypes.POINTER(i), vp]
+                       vp, vp, ctypes.POINTER(i), ctypes.POINTER(i), vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -241,7 +243,7 @@ def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
         scratch = new_scratch(geom, S.dtype, device)
     fn = _library()
     L, H, W = geom.layers, geom.height, geom.width
-    filter_launches = ctypes.c_int(0)
+    filter_launches, stencil_launches = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = fn(int(S.dtype == torch.float64), S.data_ptr(), S.shape[1],
                  int(k), utc0.data_ptr(),
@@ -250,8 +252,10 @@ def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
                  kernel_consts(dt), int(bool(coriolis)),
                  int(bool(q_limiter)), table,
                  lat.data_ptr(), lon.data_ptr(), ctypes.byref(filter_launches),
+                 ctypes.byref(stencil_launches),
                  torch.cuda.current_stream(device).cuda_stream)
     fft.add_launches(filter_launches)
+    add_stencil_launches(stencil_launches)
     if err != 0:
         raise RuntimeError(
             f"stream_steps kernel launch failed: CUDA error {err}")

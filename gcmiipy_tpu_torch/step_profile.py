@@ -46,6 +46,33 @@ def _device_us(event):
     return 0.0
 
 
+def kernel_ms(fn, calls=20):
+    """Device ms a call of each kernel that ``fn`` launches, by kernel
+    name (:func:`_kernel_name`), from ``torch.profiler``
+    over ``calls`` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {_kernel_name(e.key): _device_us(e) / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _kernel_name(key):
+    """A kernel's signature without its return type and argument list."""
+    depth = 0
+    for n in range(len(key) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(key[n], 0)
+        if depth == 0 and key[n] == "(":
+            key = key[:n]
+            break
+    return key.removeprefix("void ")
+
+
 def _stepper(backend, geom, config, steps):
     """``advance()``: ``steps`` steps of ``backend`` from the reference's
     start, on state held in the closure (the dynamics step alone without

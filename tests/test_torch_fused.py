@@ -22,7 +22,9 @@ from gcmiipy_tpu.grid import geometry as jgeometry
 from gcmiipy_tpu.ops import pallas_stencil as ps
 from gcmiipy_tpu_torch.dynamics import core25d, fused
 from gcmiipy_tpu_torch.grid import geometry
+from gcmiipy_tpu_torch.model.state import random_prognostics
 from gcmiipy_tpu_torch.ops import cuda_lib
+from gcmiipy_tpu_torch.ops import polar_filter as tpolar
 from gcmiipy_tpu_torch.ops.fused_parts import (
     MAX_LAYERS, _check, fused_parts, fused_parts_ref)
 
@@ -245,3 +247,32 @@ def test_fused_step_on_gpu_launches_k1_on_an_off_tile_grid(cuda_device):
     assert fused_parts.launches == before + 2
     ref = core25d.matsuno_timestep(*s, 300.0, tg)
     assert_close(out, [x.numpy() for x in ref], 1e-12, 1e-12, FIELDS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(9, 24, 36), (3, 20, 100), (1, 2, 36),
+                                   (32, 16, 128)])
+def test_kernel_tiles_equal_plain_version_on_gpu(cuda_device, dtype, shape):
+    """K1's tiled stencil launch equals its plain version bit for bit on
+    grids off every tile multiple (32 columns, 8 rows a tile at float32 and
+    16 at float64), smaller than one tile and at kMaxLayers, with Coriolis,
+    the q limiter and a hill."""
+    L, H, W = shape
+    hm = np.zeros((H, W))
+    hm[H // 4:H // 2 + 1, W // 8:W // 3] = 1500.0
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 heightmap=hm, dtype=torch.float64,
+                                 device="cpu")
+    base, seval = random_prognostics(geom, 44), random_prognostics(geom, 45)
+    spu = tpolar.arakawa_1977(core25d.calc_pu(seval[0], seval[1]), geom)
+    args = [x.to(device=cuda_device, dtype=dtype)
+            for x in (*base, *seval, spu)]
+    geom = geom.to(dtype=dtype, device=cuda_device)
+    before = fused_parts.launches
+    out = fused_parts(*args, 300.0, geom, coriolis=True, q_limiter=True)
+    torch.cuda.synchronize()
+    assert fused_parts.launches == before + 1
+    ref = fused_parts_ref(*args, 300.0, geom, coriolis=True, q_limiter=True)
+    for name, a, b in zip(OUTS, out, ref):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))

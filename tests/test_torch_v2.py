@@ -22,8 +22,13 @@ from gcmiipy_tpu.ops import pallas_stencil as ps
 from gcmiipy_tpu.ops import polar_filter as jpolar
 from gcmiipy_tpu_torch import step_profile
 from gcmiipy_tpu_torch.dynamics import core25d, fused
+from gcmiipy_tpu_torch.grid import geometry
 from gcmiipy_tpu_torch.model.config import ModelConfig
+from gcmiipy_tpu_torch.model.state import random_prognostics
+from gcmiipy_tpu_torch.ops import mega_step as ms
 from gcmiipy_tpu_torch.ops import pgf_rest as pr
+from gcmiipy_tpu_torch.ops import polar_filter as tpolar
+from gcmiipy_tpu_torch.ops.fft_filter import fft_filter_ref
 
 from torch_port_helpers import (
     FIELDS, as_jax, as_torch, assert_close, port_geom, random_state)
@@ -207,6 +212,41 @@ def test_pgf_rest_on_cpu_run_the_plain_versions():
     assert (pr.pgf_parts.launches, pr.rest_parts.launches) == before
 
 
+def test_rest_stencil_on_cpu_runs_its_plain_version():
+    """The rest stencil on CPU tensors is its plain version, which with
+    K4's first stage gives K4's plain version; nothing is launched."""
+    jg = _jgeom(hill=True)
+    tg = port_geom(jg)
+    base, seval, filt, pg_phiv = (as_torch(x) if isinstance(x, tuple)
+                                  else as_torch([x])[0]
+                                  for x in _k4_inputs(jg, seed=31))
+    p_n, sd = pr.rest_column_ref(base[0], seval[0], seval[2], filt, DT, tg)
+    before = pr.rest_stencil.launches
+    out = pr.rest_stencil(*base, *seval, filt, pg_phiv, p_n, sd, DT, tg,
+                          coriolis=True, q_limiter=True)
+    assert pr.rest_stencil.launches == before
+    ref = pr.rest_parts_ref(*base, *seval, filt, pg_phiv, DT, tg,
+                            coriolis=True, q_limiter=True)
+    assert torch.equal(p_n, ref[0])
+    for a, b in zip(out, ref[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fault", ["p_n", "sd"])
+def test_rest_stencil_checks_its_stage_inputs(fault):
+    jg = _jgeom()
+    geom = port_geom(jg)
+    args = _rest_args(jg)
+    p_n, sd = torch.zeros_like(args[0]), torch.zeros_like(args[1])
+    pr._check_rest(args + [p_n, sd], geom, "rest_stencil")
+    if fault == "p_n":
+        p_n = args[1]
+    else:
+        sd = sd[:, :8]
+    with pytest.raises(ValueError, match="rest_stencil argument 1[23]"):
+        pr._check_rest(args + [p_n, sd], geom, "rest_stencil")
+
+
 def test_pgf_rest_refuse_other_devices():
     jg = _jgeom()
     tg = port_geom(jg)
@@ -317,3 +357,90 @@ def test_v2_step_on_gpu_launches_k3_k4_twice(cuda_device, shape):
         before[0] + 2, before[1] + 2)
     ref = fused.make_fused_matsuno_v2(tg, DT)(*s)
     assert_close(out, [x.numpy() for x in ref], 1e-12, 1e-12, FIELDS)
+
+
+# Grids off every tile multiple of the tiled rest stencil (32 columns, 8
+# rows a tile at float32 and 16 at float64), smaller than one tile, and
+# kMaxLayers at float64
+EDGE_GRIDS = [(9, 24, 36), (3, 20, 100), (1, 2, 36), (32, 16, 128)]
+
+
+def edge_geom(shape):
+    """The port's float64 CPU geometry of ``shape`` with a hill."""
+    L, H, W = shape
+    hm = np.zeros((H, W))
+    hm[H // 4:H // 2 + 1, W // 8:W // 3] = 1500.0
+    return geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 heightmap=hm, dtype=torch.float64,
+                                 device="cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", EDGE_GRIDS)
+def test_rest_parts_tiles_equal_plain_version_on_gpu(cuda_device, dtype,
+                                                     shape):
+    """K4's tiled rest stencil equals its plain version bit for bit, with
+    Coriolis, the q limiter and terrain on."""
+    geom = edge_geom(shape)
+    base, seval = random_prognostics(geom, 41), random_prognostics(geom, 42)
+    stack, pg_phiv = pr.pgf_parts_ref(seval[0], seval[1], seval[3], geom)
+    args = [x.to(device=cuda_device, dtype=dtype) for x in (
+        *base, *seval, tpolar.arakawa_1977(stack, geom), pg_phiv)]
+    geom = geom.to(dtype=dtype, device=cuda_device)
+    before = pr.rest_parts.launches, pr.rest_stencil.launches
+    out = pr.rest_parts(*args, DT, geom, coriolis=True, q_limiter=True)
+    torch.cuda.synchronize()
+    assert (pr.rest_parts.launches, pr.rest_stencil.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = pr.rest_parts_ref(*args, DT, geom, coriolis=True, q_limiter=True)
+    for name, a, b in zip(FIELDS, out, ref):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4),
+                                         (torch.float64, 1e-11)])
+def test_mega4_step_on_an_edge_grid_matches_plain_version_on_gpu(
+        cuda_device, dtype, bound):
+    """One step of backend='mega4' (K6: the tiled rest stencil twice) on a
+    grid off the tiles, against mega_step_ref with the kernel's FFT plan."""
+    geom = edge_geom((9, 24, 36)).to(dtype=dtype, device=cuda_device)
+    state = random_prognostics(geom, 43)
+    step = ms.MegaStep(geom, DT, coriolis=True, q_limiter=True)
+    before = ms.mega_step.launches, pr.rest_stencil.launches
+    out = step(*state)
+    torch.cuda.synchronize()
+    assert (ms.mega_step.launches, pr.rest_stencil.launches) == (
+        before[0] + 1, before[1] + 2)
+    fc = step.consts
+    ref = ms.mega_step_ref(*state, DT, geom, fc, coriolis=True,
+                           q_limiter=True,
+                           filter_ref=lambda X: fft_filter_ref(X, fc))
+    for name, a, b in zip(FIELDS, out, ref):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= bound, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", EDGE_GRIDS)
+def test_rest_stencil_alone_equals_plain_version_on_gpu(cuda_device, dtype,
+                                                        shape):
+    """The rest stencil alone, on the p_n and sd of K4's first stage,
+    equals its plain version bit for bit and counts its one launch."""
+    geom = edge_geom(shape)
+    base, seval = random_prognostics(geom, 46), random_prognostics(geom, 47)
+    stack, pg_phiv = pr.pgf_parts_ref(seval[0], seval[1], seval[3], geom)
+    filt = tpolar.arakawa_1977(stack, geom)
+    p_n, sd = pr.rest_column_ref(base[0], seval[0], seval[2], filt, DT, geom)
+    args = [x.to(device=cuda_device, dtype=dtype) for x in (
+        *base, *seval, filt, pg_phiv, p_n, sd)]
+    geom = geom.to(dtype=dtype, device=cuda_device)
+    before = pr.rest_stencil.launches
+    out = pr.rest_stencil(*args, DT, geom, coriolis=True, q_limiter=True)
+    torch.cuda.synchronize()
+    assert pr.rest_stencil.launches == before + 1
+    ref = pr.rest_stencil_ref(*args, DT, geom, coriolis=True, q_limiter=True)
+    for name, a, b in zip(FIELDS[1:], out, ref):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
