@@ -8,8 +8,12 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #   device   the card's name and power limit (nvidia-smi) and torch's name;
 #   build    nvcc builds the kernel sources of the paths (csrc/fused_parts.cu,
 #            csrc/mega_step.cu, csrc/stream_steps.cu, csrc/pgf_rest.cu,
-#            csrc/mega_half.cu and csrc/fft_filter.cu, all at once) and
-#            prints ptxas' counts;
+#            csrc/mega_half.cu and csrc/fft_filter.cu, all at once, each
+#            into a library and, where its code calls power, a float64
+#            library of its own, ops/cuda_lib.py) and prints ptxas' counts
+#            (from the log kept beside a library found built), failing if
+#            the pgf tile or the column-physics epilogue spills or keeps a
+#            per-layer array on its stack;
 #   kernels  each kernel against its plain PyTorch version on the card: the
 #            FFT filter stage (fft_filter, against its plain version and
 #            the TPU kernels' banded DFT form), K1 (fused_parts), K6
@@ -19,7 +23,10 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            and with the TPU kernel's unbanded DFT), and the rest stencil
 #            alone (rest_stencil, stage 5 of K4-K7); K1, K3, K4 and the
 #            rest stencil also log whether they equal their plain versions
-#            to the bit;
+#            to the bit, and K3 (pgf_parts: the pgf tile, stages 1-2 of K5,
+#            K6 and K7) must, at the main path's shape and on four edge
+#            grids at both types; K7's column-physics epilogue alone
+#            (column_physics);
 #   main     each path with its launch counts set to 0 just before it and
 #            read just after: run_model(512, 1024, 9, 30.0, 20, guard=True)
 #            with backend='fused' (K1) and backend='mega4' (K6), held against
@@ -35,7 +42,8 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            the plain core with the DFT filter and against mega4, from the
 #            quiescent and the perturbed start; then 20 steps of
 #            make_fused_matsuno_v2 (K3, torch.fft, K4) from the perturbed
-#            start against 'fused';
+#            start against 'fused'; the pgf tile's and the epilogue's
+#            launches are counted where the C entries make them;
 #   timing   ms/step of the backends, mega4 and stream also with the
 #            physics (windows of 20 steps between CUDA events, each twice),
 #            the v2 step beside the fused step (dynamics alone), each
@@ -47,7 +55,10 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            (csrc/stencil_tile.cuh) with its own plain version and bytes
 #            bound, its launches those that the C entries of K4-K7 counted
 #            on the main paths (the rest stencil launches of each path are
-#            also read in the main phase).
+#            also read in the main phase); K3's row is the pgf tile
+#            (csrc/pgf_tile.cuh) with the launches the C entries of K3 and
+#            K5-K7 counted, and a row for the epilogue alone
+#            (csrc/column_physics.cuh), launched in place as K7 does.
 # The line before the last is the kernels JSON, the last the result JSON.
 # Imports nothing of JAX: the card's machine needs none.
 
@@ -70,6 +81,14 @@ STEP1_REL, RUN_REL, DRIFT_PA = 1e-4, 2e-3, 0.5
 # kernel vs its plain version: same operations in the same order (fmad off),
 # so only pow/sin ulps and the compiler's choices can differ
 KERNEL_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# the column-physics epilogue alone vs its plain version, over each field's
+# scale: float32 pow/log ulps (1.473e-7 measured on the card at the main
+# path's shape with convection and drag), float64 as KERNEL_REL
+EPILOGUE_REL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# each case must move t (and u where the drag is on) by at least this many
+# times EPILOGUE_REL over the field's scale, so that an epilogue that skips
+# or mis-scales a term cannot pass within the bound
+EPILOGUE_MOVE = 10.0
 # K6 vs its plain version after one call: the kernel's filter is an FFT, the
 # plain version's the TPU kernel's banded DFT, so agreement is to rounding
 MEGA_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
@@ -203,10 +222,15 @@ def phase_device():
 
 
 def phase_build():
-    """Every source at once (one nvcc each), with ptxas' register counts."""
+    """Every source at once (one nvcc each), with ptxas' register counts;
+    fails if the pgf tile or the column-physics epilogue spills or keeps a
+    stack frame of a per-layer array (kMaxLayers values of its type)."""
     from gcmiipy_tpu_torch.ops import cuda_lib
     t = time.perf_counter()
-    built = cuda_lib.build_many(SOURCES)
+    # a source whose code calls power has a float64 library of its own
+    built = cuda_lib.build_many(sorted({cuda_lib.library_name(s, double)
+                                        for s in SOURCES
+                                        for double in (False, True)}))
     for name, (text, seconds) in built.items():
         entry = "?"
         for line in (text or "").splitlines():
@@ -218,6 +242,47 @@ def phase_build():
                      f"{seconds:.1f}s")
     log("build", f"all sources in {time.perf_counter() - t:.1f}s "
                  f"({cuda_lib.BUILD_DIR})")
+    redesigned = {"pgf_tile": "pgf_rest", "column_physics": "stream_steps"}
+    for kernel, source in redesigned.items():
+        for dtype, mangled, size in (("float", "IfEEv", 4),
+                                     ("double", "IdEEv", 8)):
+            # each type from the library its tensors launch
+            name = cuda_lib.library_name(source, dtype == "double")
+            # a library found built is read from the log kept beside it
+            text = built[name][0] or cuda_lib.build_log(name)
+            if text is None:
+                fail("build", f"{name} was found built without its compiler "
+                              "log: no ptxas report to check")
+            usage = ptxas_usage(text, kernel + mangled)
+            log("build", f"{kernel}<{dtype}>: {usage['registers']} registers, "
+                         f"{usage['stack']} bytes stack frame, "
+                         f"{usage['spill_stores']} bytes spill stores, "
+                         f"{usage['spill_loads']} bytes spill loads")
+            if (usage["spill_stores"] or usage["spill_loads"]
+                    or usage["stack"] >= 32 * size):
+                fail("build", f"{kernel}<{dtype}> spills or keeps a per-layer "
+                              "array on its stack")
+
+
+def ptxas_usage(text, key):
+    """Registers, stack frame and spills that ``ptxas -v`` printed for the
+    entry function whose mangled name holds ``key``; fails if none."""
+    usage, entry, props = None, "", ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+        elif key in props and "stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            usage = dict(stack=nums[0], spill_stores=nums[1],
+                         spill_loads=nums[2], registers="?")
+        elif key in entry and "Used" in line and "registers" in line and usage:
+            usage["registers"] = int(line.split("Used")[1].split()[0])
+    if usage is None:
+        fail("build", f"ptxas printed nothing for an entry holding {key}")
+    return usage
 
 
 def phase_kernels(device):
@@ -516,6 +581,125 @@ def k3k4_inputs(shape, dtype, hill, device):
     return geom, base, seval, polar_filter.arakawa_1977(stack, geom), pg_phiv
 
 
+# Grids off every tile multiple (32 columns, 8 rows a tile at float32 and 16
+# at float64), smaller than one tile, and kMaxLayers
+EDGE_GRIDS = ((9, 24, 36), (3, 20, 100), (1, 2, 36), (32, 16, 128))
+
+
+def phase_kernels_pgf(device):
+    """K3, the pgf tile of K3 and K5-K7, against its plain version bit for
+    bit: at the main path's shape and on the edge grids, float32 and
+    float64 (whose library takes PyTorch's rounding of double pow,
+    csrc/gcm_pow.cu), flat and with a hill."""
+    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts, pgf_parts_ref, pgf_tile
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    cases = 0
+    for shape in (main_shape,) + EDGE_GRIDS:
+        for dtype in (torch.float32, torch.float64):
+            for hill in (False, True):
+                geom, args = k1_inputs(shape, dtype, hill, device)
+                sp, su, st = args[5], args[6], args[8]
+                before = pgf_tile.launches
+                out = pgf_parts(sp, su, st, geom)
+                torch.cuda.synchronize()
+                ref = pgf_parts_ref(sp, su, st, geom)
+                tag = f"pgf_parts {tuple(shape)} {str(dtype)[6:]} hill={hill}"
+                if pgf_tile.launches != before + 1:
+                    fail("kernels", f"{tag}: pgf_tile launched "
+                                    f"{pgf_tile.launches - before} times")
+                if any(tuple(a.shape) != tuple(b.shape)
+                       for a, b in zip(out, ref)):
+                    fail("kernels", f"{tag}: output shapes differ")
+                if not all(torch.isfinite(a).all() for a in out):
+                    fail("kernels", f"{tag}: output not finite")
+                if not bit_equal(out, ref):
+                    differ = [int((a != b).sum()) for a, b in zip(out, ref)]
+                    fail("kernels", f"{tag}: not equal to pgf_parts_ref to the "
+                                    f"bit (max rel {rel_err(out, ref):.3e}; "
+                                    f"{differ} elements differ)")
+                cases += 1
+    log("kernels", f"pgf_parts (the pgf tile) equals pgf_parts_ref to the "
+                   f"bit in {cases} cases: {main_shape} and "
+                   f"{', '.join(map(str, EDGE_GRIDS))}, float32 and float64, "
+                   "flat and with a hill")
+
+
+def physics_inputs(shape, dtype, device, seed=2, **kw):
+    """Geometry, a random state's p, u, v, t, a ground temperature from
+    ``seed``, the clock and the epilogue's parameters (the main path's
+    convection and drag, updated by ``kw``)."""
+    from gcmiipy_tpu_torch.grid import geometry
+    from gcmiipy_tpu_torch.ops import stream_steps as ss
+    L, H, W = shape
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 dtype=dtype, device=device)
+    p, u, v, t, _ = random_state(geom, seed, device, dtype)
+    rng = np.random.default_rng(seed + 50)
+    gt = torch.as_tensor(290.0 + 20.0 * rng.random((H, W))).to(
+        device=device, dtype=dtype)
+    ph = ss.make_physics(geom, **{"drag_tau": PHYSICS["drag_tau"],
+                                  "convection": PHYSICS["convection"], **kw})
+    return geom, (p, u, v, t, gt), torch.tensor(3.1e4, dtype=dtype,
+                                                device=device), ph
+
+
+def phase_kernels_physics(device):
+    """The column-physics epilogue alone (K7's last launch a step) against
+    physics_epilogue_ref: float32 at the main path's shape with the main
+    path's convection and drag and with neither, float64 at 3x24x36 with
+    the seasonal clock, at 9x512x1024 and at kMaxLayers (32x16x128).  The
+    same operations in the same order, so only pow/log/sin/cos ulps
+    differ: held within EPILOGUE_REL, each case moving t (and u with the
+    drag) by EPILOGUE_MOVE times that bound or more."""
+    from gcmiipy_tpu_torch.ops.stream_steps import (
+        column_physics, physics_epilogue_ref)
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    cases = [(main_shape, torch.float32, {}),
+             (main_shape, torch.float32, {"convection": False,
+                                          "drag_tau": 0.0}),
+             ((3, 24, 36), torch.float64, {"seasonal": True}),
+             (main_shape, torch.float64, {}),
+             ((32, 16, 128), torch.float64, {})]
+    worst, main_abs = {}, 0.0
+    for shape, dtype, kw in cases:
+        geom, (p, u, v, t, gt), utc, ph = physics_inputs(shape, dtype, device,
+                                                         **kw)
+        before = column_physics.launches
+        out = column_physics(p, u, v, t, gt, utc, geom, MAIN["dt"], ph)
+        torch.cuda.synchronize()
+        ref = physics_epilogue_ref(p, u, v, t, gt, utc, geom, MAIN["dt"], ph)
+        bound = EPILOGUE_REL[dtype]
+        moved = {"t": rel_err([ref[2]], [t])}
+        if ph.drag_tau:
+            moved["u"] = rel_err([ref[0]], [u])
+        tag = (f"column_physics {tuple(shape)} {str(dtype)[6:]}"
+               f"{' ' + str(kw) if kw else ''} over u,v,t,gt, moving "
+               + ", ".join(f"{k} by rel {x:.3e}" for k, x in moved.items()))
+        for name, x in moved.items():
+            if not x >= EPILOGUE_MOVE * bound:
+                fail("kernels", f"{tag}: the plain version moves {name} by "
+                                f"less than {EPILOGUE_MOVE:g} times the bound "
+                                f"{bound:g}; the case cannot tell a fault")
+        if column_physics.launches != before + 1:
+            fail("kernels", f"{tag}: launched "
+                            f"{column_physics.launches - before} times")
+        if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(out, ref)):
+            fail("kernels", f"{tag}: output shapes differ")
+        if not all(torch.isfinite(a).all() for a in out):
+            fail("kernels", f"{tag}: output not finite")
+        rel = rel_err(out, ref)
+        log("kernels", f"{tag}: max rel {rel:.3e} (bound {bound:g}), "
+                       f"equal to the bit: {bit_equal(out, ref)}")
+        if not rel <= bound:
+            fail("kernels", f"{tag}: disagrees with physics_epilogue_ref")
+        worst[dtype] = max(worst.get(dtype, 0.0), rel)
+        if dtype == torch.float32 and not kw:
+            main_abs = abs_err(out, ref)
+    log("kernels", "column_physics ok, max rel: float32 "
+                   f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
+    return main_abs
+
+
 def phase_kernels_k3k4(device):
     """K3, K4 and the rest stencil alone (on the p_n and sd of K4's plain
     first stage) against their plain versions: float32 at the main path's
@@ -564,6 +748,8 @@ def phase_kernels_k3k4(device):
                            f"{bit_equal(out, ref)}")
             if not rel <= KERNEL_REL[dtype]:
                 fail("kernels", f"{name} {tag} disagrees with its plain version")
+            if name == "pgf_parts" and not bit_equal(out, ref):
+                fail("kernels", f"{name} {tag} not equal to the bit")
             worst[name, dtype] = max(worst.get((name, dtype), 0.0), rel)
         if bool((k4[2][:, -1] == 0).all()):
             fail("kernels", f"rest_parts {tag}: v walled inside the kernel")
@@ -724,8 +910,8 @@ def phase_main(device):
     from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
     from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
-    from gcmiipy_tpu_torch.ops.pgf_rest import rest_stencil
-    kernels = (fused_parts, mega_step, fft_filter, rest_stencil)
+    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_tile, rest_stencil
+    kernels = (fused_parts, mega_step, fft_filter, rest_stencil, pgf_tile)
     n = MAIN["steps"]
     launches = {}
 
@@ -735,12 +921,12 @@ def phase_main(device):
     launches["fused_parts"] = counts[0]
     log("main", f"run_model fused {n} steps in {time.perf_counter() - t:.2f}s, "
                 f"launches fused_parts {counts[0]} mega_step {counts[1]} "
-                f"fft_filter {counts[2]} rest_stencil {counts[3]}, total "
-                f"energy drift "
+                f"fft_filter {counts[2]} rest_stencil {counts[3]} pgf_tile "
+                f"{counts[4]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [2 * n, 0, 0, 0]:
+    if counts != [2 * n, 0, 0, 0, 0]:
         fail("main", f"run_model fused launched {counts}, expected "
-                     f"[{2 * n}, 0, 0, 0]")
+                     f"[{2 * n}, 0, 0, 0, 0]")
 
     t = time.perf_counter()
     (mega_n, stats), counts = _counted(kernels, lambda: _run_model(
@@ -748,14 +934,15 @@ def phase_main(device):
     launches["mega_step"] = counts[1]
     launches["fft_filter mega4"] = counts[2]
     launches["rest_stencil mega4"] = counts[3]
+    launches["pgf_tile mega4"] = counts[4]
     log("main", f"run_model mega4 {n} steps in {time.perf_counter() - t:.2f}s, "
                 f"launches fused_parts {counts[0]} mega_step {counts[1]} "
-                f"fft_filter {counts[2]} rest_stencil {counts[3]}, total "
-                f"energy drift "
+                f"fft_filter {counts[2]} rest_stencil {counts[3]} pgf_tile "
+                f"{counts[4]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, n, 2 * n, 2 * n]:
+    if counts != [0, n, 2 * n, 2 * n, 2 * n]:
         fail("main", f"run_model mega4 launched {counts}, expected "
-                     f"[0, {n}, {2 * n}, {2 * n}]")
+                     f"[0, {n}, {2 * n}, {2 * n}, {2 * n}]")
 
     xla_n, _ = _run_model("xla", device, n)
     dft_n, _ = _run_model("xla", device, n, "dft")
@@ -791,9 +978,9 @@ def phase_main(device):
     k2_step = fused.make_fused_matsuno(geom, MAIN["dt"])
     k2_out, counts = _counted(kernels, lambda: k2_step(*prog))
     launches["k2"] = counts[0]
-    if counts != [2, 0, 0, 0]:
+    if counts != [2, 0, 0, 0, 0]:
         fail("main", f"make_fused_matsuno launched {counts}, expected "
-                     "[2, 0, 0, 0]")
+                     "[2, 0, 0, 0, 0]")
     ref = core25d.matsuno_timestep(*prog, MAIN["dt"], geom)
     k2_rel = rel_err(k2_out, ref)
     log("main", f"make_fused_matsuno (K2's path) one step, fused_parts "
@@ -813,9 +1000,10 @@ def phase_main_stream(device, geom, start):
     from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
     from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
-    from gcmiipy_tpu_torch.ops.pgf_rest import rest_stencil
-    from gcmiipy_tpu_torch.ops.stream_steps import stream_steps
-    kernels = (fused_parts, mega_step, stream_steps, fft_filter, rest_stencil)
+    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_tile, rest_stencil
+    from gcmiipy_tpu_torch.ops.stream_steps import column_physics, stream_steps
+    kernels = (fused_parts, mega_step, stream_steps, fft_filter, rest_stencil,
+               pgf_tile, column_physics)
     n = MAIN["steps"]
 
     t = time.perf_counter()
@@ -824,22 +1012,23 @@ def phase_main_stream(device, geom, start):
     log("main", f"run_model stream+physics {n} steps in "
                 f"{time.perf_counter() - t:.2f}s, launches fused_parts "
                 f"{counts[0]} mega_step {counts[1]} stream_steps {counts[2]} "
-                f"fft_filter {counts[3]} rest_stencil {counts[4]}, total "
-                f"energy drift "
+                f"fft_filter {counts[3]} rest_stencil {counts[4]} pgf_tile "
+                f"{counts[5]} column_physics {counts[6]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, 0, 1, 2 * n, 2 * n]:
+    if counts != [0, 0, 1, 2 * n, 2 * n, 2 * n, n]:
         fail("main", f"run_model stream+physics launched {counts}, "
-                     f"expected [0, 0, 1, {2 * n}, {2 * n}]")
+                     f"expected [0, 0, 1, {2 * n}, {2 * n}, {2 * n}, {n}]")
     launches = {"stream_steps": counts[2], "fft_filter stream": counts[3],
-                "rest_stencil stream": counts[4]}
+                "rest_stencil stream": counts[4], "pgf_tile stream": counts[5],
+                "column_physics": counts[6]}
 
     runs = {}
     for backend in ("stream", "mega4"):
         for steps in (2, n):
             runs[backend, steps], counts = _counted(
                 kernels, lambda: _run_from(backend, geom, start, steps))
-            want = ([0, 0, 1, 2 * steps, 2 * steps] if backend == "stream"
-                    else [0, steps, 0, 2 * steps, 2 * steps])
+            want = ([0, 0, 1] if backend == "stream" else [0, steps, 0]) + [
+                2 * steps, 2 * steps, 2 * steps, 0]
             if counts != want:
                 fail("main", f"{backend} {steps} steps launched {counts}, "
                              f"expected {want}")
@@ -852,8 +1041,9 @@ def phase_main_stream(device, geom, start):
             runs[backend, steps], counts = _counted(
                 kernels, lambda: _run_from(backend, geom, start, steps,
                                            **physics))
-            want = ([0, 0, 1, 2 * steps, 2 * steps] if backend == "stream"
-                    else [0, steps, 0, 2 * steps, 2 * steps])
+            want = ([0, 0, 1] if backend == "stream" else [0, steps, 0]) + [
+                2 * steps, 2 * steps, 2 * steps,
+                steps if backend == "stream" else 0]
             if counts != want:
                 fail("main", f"{backend}+physics {steps} steps launched "
                              f"{counts}, expected {want}")
@@ -887,9 +1077,9 @@ def phase_main_mega_v2(device, geom, start, runs):
     from gcmiipy_tpu_torch.ops.mega_half import mega_half
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
     from gcmiipy_tpu_torch.ops.pgf_rest import (
-        pgf_parts, rest_parts, rest_stencil)
+        pgf_parts, pgf_tile, rest_parts, rest_stencil)
     kernels = (fused_parts, mega_step, mega_half, pgf_parts, rest_parts,
-               fft_filter, rest_stencil)
+               fft_filter, rest_stencil, pgf_tile)
     n = MAIN["steps"]
     launches = {}
 
@@ -899,15 +1089,16 @@ def phase_main_mega_v2(device, geom, start, runs):
     launches["mega_half"] = counts[2]
     launches["fft_filter mega"] = counts[5]
     launches["rest_stencil mega"] = counts[6]
+    launches["pgf_tile mega"] = counts[7]
     log("main", f"run_model mega {n} steps in {time.perf_counter() - t:.2f}s, "
                 f"launches fused_parts {counts[0]} mega_step {counts[1]} "
                 f"mega_half {counts[2]} pgf_parts {counts[3]} rest_parts "
                 f"{counts[4]} fft_filter {counts[5]} rest_stencil "
-                f"{counts[6]}, total energy drift "
+                f"{counts[6]} pgf_tile {counts[7]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, 0, 2 * n, 0, 0, 2 * n, 2 * n]:
+    if counts != [0, 0, 2 * n, 0, 0, 2 * n, 2 * n, 2 * n]:
         fail("main", f"run_model mega launched {counts}, expected "
-                     f"[0, 0, {2 * n}, 0, 0, {2 * n}, {2 * n}]")
+                     f"[0, 0, {2 * n}, 0, 0, {2 * n}, {2 * n}, {2 * n}]")
     mega4_n, _ = _run_model("mega4", device, n)
     dft_n, _ = _run_model("xla", device, n, "dft")
     one = {b: _run_model(b, device, 1, pf)[0] for b, pf in
@@ -922,7 +1113,8 @@ def phase_main_mega_v2(device, geom, start, runs):
     for steps in (1, n):
         mega_p[steps], counts = _counted(kernels, lambda: _run_from(
             "mega", geom, start, steps))
-        if counts != [0, 0, 2 * steps, 0, 0, 2 * steps, 2 * steps]:
+        if counts != [0, 0, 2 * steps, 0, 0, 2 * steps, 2 * steps,
+                      2 * steps]:
             fail("main", f"mega {steps} steps launched {counts}")
     _held("perturbed start, mega vs plain core (dft)", mega_p[1], mega_p[n],
           *runs["xla", "dft"])
@@ -942,14 +1134,15 @@ def phase_main_mega_v2(device, geom, start, runs):
     v2_n, counts = _counted(kernels, lambda: v2_run(n))
     launches["pgf_parts"], launches["rest_parts"] = counts[3], counts[4]
     launches["rest_stencil v2"] = counts[6]
+    launches["pgf_tile v2"] = counts[7]
     log("main", f"make_fused_matsuno_v2 {n} steps from the perturbed start in "
                 f"{time.perf_counter() - t:.2f}s, launches fused_parts "
                 f"{counts[0]} mega_step {counts[1]} mega_half {counts[2]} "
                 f"pgf_parts {counts[3]} rest_parts {counts[4]} fft_filter "
-                f"{counts[5]} rest_stencil {counts[6]}")
-    if counts != [0, 0, 0, 2 * n, 2 * n, 0, 2 * n]:
+                f"{counts[5]} rest_stencil {counts[6]} pgf_tile {counts[7]}")
+    if counts != [0, 0, 0, 2 * n, 2 * n, 0, 2 * n, 2 * n]:
         fail("main", f"make_fused_matsuno_v2 launched {counts}, expected "
-                     f"[0, 0, 0, {2 * n}, {2 * n}, 0, {2 * n}]")
+                     f"[0, 0, 0, {2 * n}, {2 * n}, 0, {2 * n}, {2 * n}]")
     _check_run("make_fused_matsuno_v2 from the perturbed state", v2_n, ())
     if not bool((v2_n[2][:, -1] == 0).all()):
         fail("main", "make_fused_matsuno_v2: v not 0 on the wall row")
@@ -1158,8 +1351,42 @@ def phase_timing(device, launches, max_abs, geom, start):
                      "gcmiipy_tpu/ops/pallas_stream.py:102",
                      launches["stream_steps"], max_abs["k7"], ms, plain_ms,
                      nbytes, ops, k7_fft_ms, f"stream_steps (k={k}, physics)"))
+    rows.append(timing_physics(device, launches, max_abs))
     rows += timing_k345(launches, max_abs, geom, prog)
     return rows
+
+
+def timing_physics(device, launches, max_abs):
+    """The row of K7's column-physics epilogue alone at the main path's
+    shape, launched in place as K7 launches it (the wrapper's copies of u,
+    v and t are not timed): reads p, t, the ground temperature and layer 0
+    of u and v, writes t, the ground temperature and layer 0 of u and v.
+    Its launches are those K7's C entry counted on the stream+physics main
+    path (one a step)."""
+    from gcmiipy_tpu_torch.ops.stream_steps import (
+        column_physics_inplace, physics_epilogue_ref, physics_table)
+    from gcmiipy_tpu_torch.step_profile import kernel_ms
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    geom, (p, u, v, t, gt), utc, ph = physics_inputs(main_shape, torch.float32,
+                                                     device)
+    args = (p, u, v, t, gt, utc, geom, MAIN["dt"], ph)
+    table = physics_table(ph, MAIN["dt"], device)
+    work = [x.clone() for x in (u, v, t)]
+    gt_out = torch.empty_like(gt)
+
+    def launch():
+        column_physics_inplace(p, *work, gt, gt_out, utc, geom, table)
+
+    nbytes = (_bytes((p, t, gt, u[0], v[0])) + _bytes((t, gt, u[0], v[0])))
+    return _row(
+        "column_physics (K7's epilogue)",
+        "gcmiipy_tpu_torch/csrc/column_physics.cuh",
+        "gcmiipy_tpu/ops/pallas_stream.py:314", launches["column_physics"],
+        max_abs["physics"], cuda_ms(launch, 50),
+        cuda_ms(lambda: physics_epilogue_ref(*args), 10), nbytes,
+        {torch.float32: count_ops(physics_epilogue_ref, *args,
+                                  dtypes=(torch.float32,))},
+        None, "column_physics", launch_ms=kernel_ms(launch))
 
 
 def timing_k345(launches, max_abs, geom, prog):
@@ -1181,16 +1408,26 @@ def timing_k345(launches, max_abs, geom, prog):
     seval = half(prog, prog)
     rows = []
 
-    # K3: reads sp, su, st and the geometry, writes the stack and pg_phiv
+    # K3, one launch of the pgf tile (csrc/pgf_tile.cuh, stages 1-2 of K5,
+    # K6 and K7 too): reads sp, su, st and the geometry, writes the stack
+    # and pg_phiv.  Its launches are those the C entries of K3, K5, K6 and
+    # K7 counted on the main paths (two a step each).
     k3_args = (seval[0], seval[1], seval[3], geom)
     outs = pgf_parts_ref(*k3_args)
+    paths = ("mega4", "stream", "mega", "v2")
+    tile_launches = sum(launches[f"pgf_tile {p}"] for p in paths)
+    log("timing", "pgf tile launches on the main paths: " + ", ".join(
+        f"{p} {launches[f'pgf_tile {p}']}" for p in paths)
+        + f"; pgf_parts calls on the v2 path {launches['pgf_parts']}")
     rows.append(_row(
-        "pgf_parts", "gcmiipy_tpu_torch/csrc/pgf_rest.cu",
-        "gcmiipy_tpu/ops/pallas_stencil.py:398", launches["pgf_parts"],
+        "pgf_parts (the pgf tile, stages 1-2 of K3 and K5-K7)",
+        "gcmiipy_tpu_torch/csrc/pgf_tile.cuh",
+        "gcmiipy_tpu/ops/pallas_stencil.py:398", tile_launches,
         max_abs["k3"], cuda_ms(lambda: pgf_parts(*k3_args), 50),
         cuda_ms(lambda: pgf_parts_ref(*k3_args), 10),
         _bytes((*k3_args[:3], *geo, *outs)),
-        {torch.float32: count_ops(pgf_parts_ref, *k3_args)}, None, "pgf_parts"))
+        {torch.float32: count_ops(pgf_parts_ref, *k3_args)}, None, "pgf_parts",
+        launch_ms=kernel_ms(lambda: pgf_parts(*k3_args))))
 
     # K4: the 10 fields, the filtered stack and pg_phiv in, 5 fields out
     stack, pg_phiv = outs
@@ -1288,6 +1525,8 @@ def main():
     max_abs["k6"] = phase_kernels_k6(device)
     max_abs["k7"] = phase_kernels_k7(device)
     max_abs.update(phase_kernels_k3k4(device))
+    phase_kernels_pgf(device)
+    max_abs["physics"] = phase_kernels_physics(device)
     max_abs["k5"] = phase_kernels_k5(device)
     launches, geom, start, max_abs["k2"], runs = phase_main(device)
     launches.update(phase_main_stream(device, geom, start))

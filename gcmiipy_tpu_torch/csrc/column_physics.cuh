@@ -4,15 +4,27 @@
 // its steps (physics_epilogue, :314-347).  The plain version is
 // gcmiipy_tpu_torch/ops/stream_steps.py:physics_epilogue_ref.
 //
-// One thread per (j,i) column holds its L <= 32 layers: the Exner factor,
-// the true temperature and the grey-radiation ladder (the emission of each
-// layer, the downward and upward absorption sweeps), the ground's budget,
-// then the adjustment sweeps over the layer pairs, and the drag on layer
-// 0 of u and v.  The transmittances t^dsig and their cumulative products
-// are computed on the host in double and come in the PhysTable, as the
-// JAX kernel's Python floats, and so do the other per-layer constants
-// such as G / (Cp dsig_k).  log(p_k / p_k+1) and 1 / (m_k + m_k+1) are computed
-// once per column, before the sweeps (physics/convection.py).
+// One thread per (j,i) column, coalesced over i.  Its per-layer values
+// live in dynamic shared memory, laid out [array][k][thread] so that a
+// warp's accesses fall on consecutive words: the Exner factor, the true
+// temperature, each layer's emission, the downward absorption and, for
+// the convective sweeps, log(p_k / p_k+1) and 1 / (m_k + m_k+1).  The
+// layer pressure p*sig_k + ptop and mass p*dsig_k are formed again where
+// they are needed: one expression rounds the same each time.  The block
+// stages the table's per-layer rows in shared memory too, converted to the
+// working type once.  So no per-layer array lives in local memory; at
+// float64 with L = 32 a block of 128 threads takes 198 KB.  The
+// transmittances t^dsig and their cumulative products are computed on the
+// host in double and come in the table, as the JAX kernel's Python floats,
+// and so do the other per-layer constants such as G / (Cp dsig_k).  The
+// table lives in device memory (a kernel parameter indexed by a runtime k
+// would be copied to the stack).
+//
+// The column's work: the Exner factor, the true temperature and the
+// grey-radiation ladder (the emission of each layer, the downward and
+// upward absorption sweeps), the ground's budget, then the adjustment
+// sweeps over the layer pairs (physics/convection.py), and the drag on
+// layer 0 of u and v.
 //
 // The clock of step s is utc0 + s*dt in the working type, utc0 read from
 // the state's 0-dim tensor in device memory (no host read).  The ground
@@ -28,7 +40,10 @@
 // Bound: bytes.  It reads p, t, the ground temperature, u[0] and v[0] and
 // writes t, the ground temperature, u[0] and v[0]: 2L + 7 (H,W) planes,
 // 52 MB at 9x512x1024 float32, 0.016 ms at 3.35 TB/s (chip_smoke.py counts
-// its operations).
+// its operations).  On the H100 the launch is held back by instruction
+// issue, not bytes: two pow and a log a layer, the divisions and the
+// sines and cosines are the CUDA math library's long instruction
+// sequences (PERF.md).
 
 #pragma once
 
@@ -61,10 +76,10 @@ enum PhysRow {
   kPhysRows
 };
 
-struct PhysTable {
-  double s[kPhysScalars];
-  double r[kPhysRows][kMaxLayers];
-};
+constexpr int kPhysTableSize = kPhysScalars + kPhysRows * kMaxLayers;
+
+// Per-thread arrays of the column, in shared memory after the rows.
+enum PhysArray { kEx, kTt, kEm, kLwa, kLr, kIm, kPhysArrays };
 
 template <typename T>
 struct ColumnArgs {
@@ -74,103 +89,159 @@ struct ColumnArgs {
   T* gt_out;           // (H,W) ground temperature after it
   const T *lat, *lon;  // (H) and (W) [rad]
   const T* utc;        // 0-dim: the clock at the start of the call
+  const double* table; // (kPhysTableSize) in device memory
   int step;            // the step's index in the call
   int L, H, W;
 };
 
+// Dynamic shared memory of a block of kBlock threads, in bytes.
 template <typename T>
-__global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a, const PhysTable c) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+inline size_t column_physics_bytes(int L) {
+  return (size_t)(kPhysRows + kPhysArrays * kBlock) * L * sizeof(T);
+}
+
+// The epilogue: grid (ceil(W/kBlock), H), kBlock threads,
+// column_physics_bytes<T>(L) of dynamic shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  T* const sm = reinterpret_cast<T*>(tile_smem);
+  const int L = a.L, tid = threadIdx.x;
+  const double* const c = a.table;
+  // the table's per-layer rows in T: row r, layer k at sm[r*L + k]
+  for (int e = tid; e < kPhysRows * L; e += kBlock) {
+    const int r = e / L;
+    sm[e] = T(c[kPhysScalars + r * kMaxLayers + (e - r * L)]);
+  }
+  __syncthreads();
+  const int i = blockIdx.x * kBlock + tid;
   if (i >= a.W) return;
-  const int j = blockIdx.y, L = a.L;
+  auto row = [&](int r, int k) { return sm[r * L + k]; };
+  T* const arrays = sm + kPhysRows * L + tid;
+  auto at = [&](int n, int k) -> T& { return arrays[(n * L + k) * kBlock]; };
+
+  const int j = blockIdx.y;
   const size_t HW = (size_t)a.H * a.W;
   const size_t col = (size_t)j * a.W + i;
   const T one = T(1), zero = T(0);
-  const T dt = T(c.s[kDt]);
+  const T dt = T(c[kDt]);
   const T p = a.p[col];
+  const T ptop = T(c[kPtop]);
+  const int sweeps = (int)c[kSweeps];
+  const bool convect = sweeps > 0 && L > 1;
 
   // the clock at the start of this step, and the clamped cos(zenith)
   const T utc = a.utc[0] + T(a.step) * dt;
   T sin_d = zero, cos_d = one;
-  if (c.s[kSeasonal] != 0.0) {
+  if (c[kSeasonal] != 0.0) {
     const T d = utc * (one / T(86400.0));
-    const T decl = T(c.s[kNegObliquity]) *
-                   cosine((T(c.s[kTwoPi]) * (d + T(10.0))) * (one / T(c.s[kYearDays])));
+    const T decl = T(c[kNegObliquity]) *
+                   cosine((T(c[kTwoPi]) * (d + T(10.0))) * (one / T(c[kYearDays])));
     sin_d = sine(decl);
     cos_d = cosine(decl);
   }
-  const T hour = ((utc * (one / T(-86400.0))) * T(2)) * T(c.s[kPi]);
+  const T hour = ((utc * (one / T(-86400.0))) * T(2)) * T(c[kPi]);
   const T lat = a.lat[j];
   T sza = sine(lat) * sin_d + (cosine(lat) * cos_d) * cosine(a.lon[i] + hour);
   sza = sza < zero ? zero : sza;
 
-  // Exner factor, true temperature and each layer's emission
-  T tp[kMaxLayers], ex[kMaxLayers], tt[kMaxLayers], em[kMaxLayers], lwa[kMaxLayers];
+  // Exner factor, true temperature and each layer's emission; for the
+  // sweeps log(p_k / p_k+1) and 1 / (m_k + m_k+1)
+  const T p0 = T(c[kP0]), kappa = T(c[kKappa]);
+  T tp_prev = zero, m_prev = zero;
   for (int k = 0; k < L; ++k) {
-    tp[k] = p * T(c.r[kSig][k]) + T(c.s[kPtop]);
-    ex[k] = power((one / tp[k]) * T(c.s[kP0]), T(c.s[kKappa]));
-    tt[k] = a.t[k * HW + col] / ex[k];
-    em[k] = T(c.r[kEmis][k]) * power(tt[k], T(4));
+    const T tp = p * row(kSig, k) + ptop;
+    const T ex = power((one / tp) * p0, kappa);
+    const T tt = a.t[k * HW + col] / ex;
+    at(kEx, k) = ex;
+    at(kTt, k) = tt;
+    at(kEm, k) = row(kEmis, k) * power(tt, T(4));
+    if (convect) {
+      const T m = p * row(kDsig, k);
+      if (k > 0) {
+        at(kLr, k - 1) = logarithm(tp_prev / tp);
+        at(kIm, k - 1) = one / (m_prev + m);
+      }
+      tp_prev = tp;
+      m_prev = m;
+    }
   }
 
   // the ground's budget
-  T B = em[0] * T(c.r[kClw][0]);
-  for (int k = 1; k < L; ++k) B = B + em[k] * T(c.r[kClw][k]);
-  const T Sc = T(c.s[kSolar]) * sza;
-  const T S = (T(c.s[kOneMinusAlbedo]) * Sc) * T(c.s[kCumSwTop0]);
+  T B = at(kEm, 0) * row(kClw, 0);
+  for (int k = 1; k < L; ++k) B = B + at(kEm, k) * row(kClw, k);
+  const T Sc = T(c[kSolar]) * sza;
+  const T S = (T(c[kOneMinusAlbedo]) * Sc) * T(c[kCumSwTop0]);
   const T gt = a.gt_in[col];
-  const T U_s = T(c.s[kSb]) * power(gt, T(4));
-  const T dtg = (((B + S) - U_s) * (one / T(c.s[kCg]))) * (one / T(0.1));
+  const T U_s = T(c[kSb]) * power(gt, T(4));
+  const T dtg = (((B + S) - U_s) * (one / T(c[kCg]))) * (one / T(0.1));
   a.gt_out[col] = gt + dtg * dt;
 
   // downwelling LW absorption, top -> bottom
   T d = zero;
   for (int k = L - 1; k >= 0; --k) {
-    lwa[k] = d * T(c.r[kOneMinusLw][k]);
-    d = d * T(c.r[kLw][k]) + em[k];
+    at(kLwa, k) = d * row(kOneMinusLw, k);
+    d = d * row(kLw, k) + at(kEm, k);
   }
   // upwelling from layer emission only, bottom -> top, and the heating
   d = zero;
   for (int k = 0; k < L; ++k) {
-    const T lwb = d * T(c.r[kOneMinusLw][k]);
-    d = d * T(c.r[kLw][k]) + em[k];
-    const T U_n = T(c.r[kUn][k]) * U_s;
-    const T S_n = T(c.r[kSn][k]) * Sc;
-    const T dTdt = ((((U_n + S_n) - T(2) * em[k]) + lwa[k]) + lwb) * T(c.r[kHeat][k]) / p;
-    tt[k] = tt[k] + dTdt * dt;
+    const T em = at(kEm, k);
+    const T lwb = d * row(kOneMinusLw, k);
+    d = d * row(kLw, k) + em;
+    const T U_n = row(kUn, k) * U_s;
+    const T S_n = row(kSn, k) * Sc;
+    const T dTdt = ((((U_n + S_n) - T(2) * em) + at(kLwa, k)) + lwb) * row(kHeat, k) / p;
+    at(kTt, k) = at(kTt, k) + dTdt * dt;
   }
 
   // fixed-sweep convective adjustment, bottom-up over the layer pairs
-  const int sweeps = (int)c.s[kSweeps];
-  if (sweeps > 0 && L > 1) {
-    T m[kMaxLayers], lr[kMaxLayers], im[kMaxLayers];
-    for (int k = 0; k < L; ++k) m[k] = p * T(c.r[kDsig][k]);
-    for (int k = 0; k + 1 < L; ++k) {
-      lr[k] = logarithm(tp[k] / tp[k + 1]);
-      im[k] = one / (m[k] + m[k + 1]);
-    }
-    const T rd = T(c.s[kRd]), inv_g = one / T(c.s[kG]), lapse = T(c.s[kLapse]);
+  if (convect) {
+    const T rd = T(c[kRd]), inv_g = one / T(c[kG]), lapse = T(c[kLapse]);
     for (int sw = 0; sw < sweeps; ++sw) {
+      T t_dn = at(kTt, 0);
+      T m_dn = p * row(kDsig, 0);
       for (int k = 0; k + 1 < L; ++k) {
-        const T t_dn = tt[k], t_up = tt[k + 1];
+        const T t_up = at(kTt, k + 1);
+        const T m_up = p * row(kDsig, k + 1);
         const T tbar = T(0.5) * (t_dn + t_up);
-        const T dz = ((rd * tbar) * inv_g) * lr[k];
+        const T dz = ((rd * tbar) * inv_g) * at(kLr, k);
         const T D = lapse * dz;
         if (t_up < t_dn - D) {
-          const T t_dn_new = ((m[k] * t_dn + m[k + 1] * t_up) + m[k + 1] * D) * im[k];
-          tt[k] = t_dn_new;
-          tt[k + 1] = t_dn_new - D;
+          const T t_dn_new = ((m_dn * t_dn + m_up * t_up) + m_up * D) * at(kIm, k);
+          at(kTt, k) = t_dn_new;
+          t_dn = t_dn_new - D;
+          at(kTt, k + 1) = t_dn;
+        } else {
+          t_dn = t_up;
         }
+        m_dn = m_up;
       }
     }
   }
-  for (int k = 0; k < L; ++k) a.t[k * HW + col] = tt[k] * ex[k];
+  for (int k = 0; k < L; ++k) a.t[k * HW + col] = at(kTt, k) * at(kEx, k);
 
-  if (c.s[kDrag] != 0.0) {
-    const T f = T(c.s[kDragFactor]);
+  if (c[kDrag] != 0.0) {
+    const T f = T(c[kDragFactor]);
     a.u0[col] = a.u0[col] * f;
     a.v0[col] = a.v0[col] * f;
   }
+}
+
+// Launch the epilogue on the caller's stream; returns 0 or the CUDA error
+// of the attribute call or the launch.  A launch that was accepted adds
+// one to *launches (when not null).
+template <typename T>
+int launch_column_physics(const ColumnArgs<T>& a, cudaStream_t stream, int* launches) {
+  const size_t bytes = column_physics_bytes<T>(a.L);
+  const cudaError_t err = cudaFuncSetAttribute(
+      column_physics<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.W + kBlock - 1) / kBlock, a.H);
+  column_physics<T><<<grid, kBlock, bytes, stream>>>(a);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess && launches) ++*launches;
+  return (int)launched;
 }
 
 }  // namespace gcm

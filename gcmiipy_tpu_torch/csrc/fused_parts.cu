@@ -13,8 +13,9 @@
 //      vertical recurrences: aflux's column sum pit and suffix sum sd
 //      (core25d.py aflux), p_n = p - pit*dt, and the pgf column: p^kappa,
 //      rho and the geopotential ladder phi (core25d.py pgf).  It writes p_n
-//      and the scratch planes sd, phi, rho (gcm_stencil.cuh, shared with
-//      the column stages of K3-K7).
+//      and the scratch planes sd, phi, rho (gcm_stencil.cuh; the aflux
+//      column is stage 4 of K4-K7, and the pgf tile of K3-K7 forms the pgf
+//      column's values with the same expressions).
 //   2. the tiled stencil launch (stencil_tile.cuh, shared with the rest
 //      stencil of K4-K7): one block per (8 x 32) tile of columns looping
 //      over the layers, its inputs and the scratch planes staged in shared

@@ -1,9 +1,9 @@
 // Device code shared by the port's stencil kernels: the column recurrences
-// and the pgf stencil of one half step of the 2.5D core
-// (gcmiipy_tpu_torch/dynamics/core25d.py); the other point stencils are in
-// stencil_tile.cuh.  K1 (fused_parts.cu) and K3-K7 (mega_stages.cuh) build
-// their stages from these pieces, so the kernels round every expression
-// alike.
+// and the pgf forces of one half step of the 2.5D core
+// (gcmiipy_tpu_torch/dynamics/core25d.py); the point stencils are in
+// stencil_tile.cuh and pgf_tile.cuh.  K1 (fused_parts.cu) and K3-K7
+// (mega_stages.cuh) build their stages from these pieces, so the kernels
+// round every expression alike.
 //
 // Every expression keeps the operand order of the plain PyTorch version,
 // and the library is built with -fmad=false, so each a*b+c rounds twice as
@@ -23,7 +23,13 @@ constexpr int kMaxLayers = 32;
 constexpr int kBlock = 128;
 
 __device__ __forceinline__ float power(float x, float y) { return powf(x, y); }
+#ifdef GCM_POW_LINKED
+// a float64 library: double pow as PyTorch rounds it (gcm_pow.cu)
+__device__ double pow_contracted(double x, double y);
+__device__ __forceinline__ double power(double x, double y) { return pow_contracted(x, y); }
+#else
 __device__ __forceinline__ double power(double x, double y) { return pow(x, y); }
+#endif
 __device__ __forceinline__ float sine(float x) { return sinf(x); }
 __device__ __forceinline__ double sine(double x) { return sin(x); }
 
@@ -111,7 +117,9 @@ __device__ __forceinline__ void aflux_column(const Params<T>& a, int j, int i) {
 }
 
 // The pgf column (core25d.pgf) on column (j,i): p^kappa, rho and the
-// geopotential ladder phi.  Writes a.rho and a.phi.
+// geopotential ladder phi, for K1's column pass (the pgf tile of K3-K7
+// forms the same values layer by layer, pgf_tile.cuh).  Writes a.rho and
+// a.phi.
 template <typename T>
 __device__ __forceinline__ void pgf_column(const Params<T>& a, int j, int i) {
   const int L = a.L;
@@ -147,7 +155,8 @@ __device__ __forceinline__ void pgf_column(const Params<T>& a, int j, int i) {
 }
 
 // pgf's forces at a point from sp, rho and phi at the point and at its
-// i+1 and j+1 neighbours, shared by the pgf stencil and K1's tiled launch.
+// i+1 and j+1 neighbours, shared by the pgf tile (pgf_tile.cuh) and K1's
+// tiled launch.
 template <typename T>
 __device__ __forceinline__ void pgf_terms(T sig, T sp_c, T sp_ip, T sp_jp, T rho_c, T rho_ip,
                                           T rho_jp, T phi_c, T phi_ip, T phi_jp, T rdx_j,
@@ -160,40 +169,5 @@ __device__ __forceinline__ void pgf_terms(T sig, T sp_c, T sp_ip, T sp_jp, T rho
   phiu = ((sp_c + sp_ip) * half) * ((phi_ip - phi_c) * rdx_j);
   phiv = ((sp_c + sp_jp) * half) * ((phi_jp - phi_c) * rdy);
 }
-
-// The pgf stencil at point (k,j,i), one thread a point.  The column
-// scratch (phi, rho) of the neighbour columns comes from a column pass
-// launched before.
-template <typename T>
-struct Point {
-  const Params<T>& a;
-  int k, j, i, ip, jp, W;
-  size_t HW, o;
-  T half, rdx_j, rdy;
-
-  __device__ __forceinline__ Point(const Params<T>& a_, int k_, int j_, int i_)
-      : a(a_), k(k_), j(j_), i(i_), W(a_.W) {
-    HW = (size_t)a.H * W;
-    ip = i + 1 == W ? 0 : i + 1;
-    jp = j + 1 == a.H ? 0 : j + 1;
-    o = k * HW + (size_t)j * W + i;
-    half = T(0.5);
-    rdx_j = T(1) / a.dx_j[j];
-    rdy = T(1) / a.dy[0];
-  }
-
-  // (H,W) plane and layer-kk plane of an (L,H,W) field
-  __device__ __forceinline__ T s2(const T* x, int jj, int ii) const { return x[(size_t)jj * W + ii]; }
-  __device__ __forceinline__ T s3(const T* x, int kk, int jj, int ii) const {
-    return x[kk * HW + (size_t)jj * W + ii];
-  }
-
-  // pgf(sp, st): the forces from the column pass's rho and phi
-  __device__ __forceinline__ void pgf(T& pgu, T& pgv, T& phiu, T& phiv) const {
-    pgf_terms(a.sig[k], s2(a.sp, j, i), s2(a.sp, j, ip), s2(a.sp, jp, i), s3(a.rho, k, j, i),
-              s3(a.rho, k, j, ip), s3(a.rho, k, jp, i), s3(a.phi, k, j, i),
-              s3(a.phi, k, j, ip), s3(a.phi, k, jp, i), rdx_j, rdy, pgu, pgv, phiu, phiv);
-  }
-};
 
 }  // namespace gcm

@@ -2,9 +2,9 @@
 // polar filter, shared by K6 (mega_step.cu, one step a call), K7
 // (stream_steps.cu, k steps a call on the packed ping-pong buffer), K5
 // (mega_half.cu, one half step a call) and the v2 pair K3/K4 (pgf_rest.cu:
-// stages 1-2 and 4-5, the filter outside), so that each stage exists once.
-// gcmiipy_tpu_torch/ops/mega_step.py: mega_step_ref is the plain version of
-// one step.
+// stages 1-2 and 4-5, the filter outside), so that each stage exists
+// once.  gcmiipy_tpu_torch/ops/mega_step.py: mega_step_ref is the plain
+// version of one step.
 //
 // They replace the bodies matsuno_block_body (:1290) and
 // matsuno_block_stages (:1009) of gcmiipy_tpu/ops/pallas_stencil.py.  The
@@ -14,10 +14,12 @@
 // carry over.  A step does:
 //
 //   per half (base, evaluated):
-//     1. pgf_column_pass   one thread per (j,i) column: p^kappa, rho and the
-//                          geopotential ladder (scratch rho, phi)
-//     2. pgf_stencil_pass  one thread per (k,j,i): pgf_forces, i.e. the
-//                          stacked X = [spu_raw; pg_phi] (2L,H,W) and pg_phiv
+//   1-2. pgf_tile          the pgf stages (pgf_tile.cuh): one block per
+//                          (8 x 32) tile of columns runs the column
+//                          recurrence of the tile and its i+1/j+1 halo and
+//                          the stencil layer by layer, rho and phi in
+//                          shared memory only; pgf_forces, i.e. the stacked
+//                          X = [spu_raw; pg_phi] (2L,H,W) and pg_phiv
 //     3. fft_filter_pow2   one filter round on X in place (fft_filter.cuh):
 //                          one block per (damped latitude, row pair), the
 //                          transform in registers and shared memory, at
@@ -35,12 +37,13 @@
 //                          v = (pv - pg_phiv dt)/jph(p_n) * keep (the polar
 //                          wall, 0 on row H-1)
 //
-// ten launches per step on the caller's stream, no PyTorch op between
-// them.  Scratch lives in device memory and the stream order gives the
-// grid-wide dependencies (the corrector's stencils read the starred state
-// of neighbour rows) that the TPU got from recomputing halos.  Stages 1, 2,
-// 4 and 5 are K1's device code (gcm_stencil.cuh, stencil_tile.cuh), so
-// they round as K1 and the plain version do.
+// eight launches per step on the caller's stream, no PyTorch op between
+// them.  Scratch (X, pg_phiv, sd) lives in device memory and the stream
+// order gives the grid-wide dependencies (the corrector's stencils read
+// the starred state of neighbour rows) that the TPU got from recomputing
+// halos.  Stages 1-2, 4 and 5 keep the expressions of K1's device code
+// (gcm_stencil.cuh, stencil_tile.cuh), so they round as K1 and the plain
+// version do.
 //
 // The filter is the TPU kernel's banded DFT, Y = X + irfft((m-1) rfft X),
 // computed as a float64 FFT (fft_filter.cuh): every sum in double for
@@ -58,16 +61,10 @@
 
 #include "fft_filter.cuh"
 #include "gcm_stencil.cuh"
+#include "pgf_tile.cuh"
 #include "stencil_tile.cuh"
 
 namespace gcm {
-
-template <typename T>
-__global__ void pgf_column_pass(const Params<T> a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.W) return;
-  gcm::pgf_column(a, blockIdx.y, i);
-}
 
 template <typename T>
 __global__ void aflux_column_pass(const Params<T> a) {
@@ -76,31 +73,17 @@ __global__ void aflux_column_pass(const Params<T> a) {
   gcm::aflux_column(a, blockIdx.y, i);
 }
 
-// pgf_forces(sp, su, st): X[k] = spu_raw = su * iph(sp), X[L+k] = pgu + phiu,
-// pg_phiv = pgv + phiv.
-template <typename T>
-__global__ void pgf_stencil_pass(const Params<T> a, T* X, T* pg_phiv) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.W) return;
-  const Point<T> x(a, blockIdx.z, blockIdx.y, i);
-  T pgu, pgv, phiu, phiv;
-  x.pgf(pgu, pgv, phiu, phiv);
-  X[x.o] = a.su[x.o] * ((x.s2(a.sp, x.j, i) + x.s2(a.sp, x.j, x.ip)) * x.half);
-  X[(size_t)a.L * x.HW + x.o] = pgu + phiu;
-  pg_phiv[x.o] = pgv + phiv;
-}
-
 template <typename T>
 struct Step {
   void* const* geo;
   FftFilter f;
   const T* keep;
-  T *X, *pg_phiv;
-  T *sd, *phi, *rho;
+  T *X, *pg_phiv, *sd;
   int L, H, W;
   const double* consts;
   int coriolis, q_limiter;
   cudaStream_t stream;
+  int* pgf_launches;      // host count of the pgf tile's launches
   int* filter_launches;   // host count of the filter kernel's launches
   int* stencil_launches;  // host count of the rest stencil's launches
 };
@@ -113,12 +96,12 @@ struct Step {
 
 // The Params of one half step: base (p,u,v,t,q) advanced with the
 // tendencies at seval (sp,su,sv,st,sq), spu the filtered zonal mass flux,
-// p_n the new surface pressure, sd/phi/rho the column scratch.  A pointer
+// p_n the new surface pressure, sd the sigma-dot scratch.  A pointer
 // that the caller's stages do not read may be null.
 template <typename T>
 Params<T> half_params(void* const* base, void* const* seval, const T* spu, void* const* geo,
                       int L, int H, int W, const double* consts, int coriolis, int q_limiter,
-                      T* p_n, T* sd, T* phi, T* rho) {
+                      T* p_n, T* sd) {
   void* in[11];
   for (int n = 0; n < 5; ++n) {
     in[n] = base[n];
@@ -127,23 +110,11 @@ Params<T> half_params(void* const* base, void* const* seval, const T* spu, void*
   in[10] = const_cast<T*>(spu);
   Params<T> a = gcm::make_params<T>(in, geo, L, H, W, consts, coriolis, q_limiter);
   a.p_n = p_n;
-  a.sd = sd; a.phi = phi; a.rho = rho;
+  a.sd = sd;
   return a;
 }
 
 inline dim3 column_grid(int H, int W) { return dim3((W + kBlock - 1) / kBlock, H); }
-inline dim3 point_grid(int L, int H, int W) { return dim3((W + kBlock - 1) / kBlock, H, L); }
-
-// Stages 1-2: pgf_forces(sp, su, st) into X = [spu_raw; pg_phi] (2L,H,W)
-// and pg_phiv (L,H,W).  Reads a.sp, a.su, a.st; writes a.rho, a.phi.
-template <typename T>
-int pgf_stages(const Params<T>& a, T* X, T* pg_phiv, cudaStream_t stream) {
-  pgf_column_pass<T><<<column_grid(a.H, a.W), kBlock, 0, stream>>>(a);
-  GCM_CHECK();
-  pgf_stencil_pass<T><<<point_grid(a.L, a.H, a.W), kBlock, 0, stream>>>(a, X, pg_phiv);
-  GCM_CHECK();
-  return 0;
-}
 
 // Stages 4-5: half_timestep_rest with the filtered a.spu and the momentum
 // epilogue with out's filtered pgfu, pg_phiv and the wall's keep (H; null:
@@ -164,8 +135,9 @@ int half_step(const Step<T>& s, void* const* base, void* const* seval, void* con
   T* const* fo = reinterpret_cast<T* const*>(out);
   // spu: the filtered spu, the first L planes of X after stage 3
   const Params<T> a = half_params<T>(base, seval, s.X, s.geo, s.L, s.H, s.W, s.consts,
-                                     s.coriolis, s.q_limiter, fo[0], s.sd, s.phi, s.rho);
-  int err = pgf_stages(a, s.X, s.pg_phiv, s.stream);
+                                     s.coriolis, s.q_limiter, fo[0], s.sd);
+  // stages 1-2: pgf_forces(sp, su, st) into X = [spu_raw; pg_phi], pg_phiv
+  int err = launch_pgf_tile(a, s.X, s.pg_phiv, s.stream, s.pgf_launches);
   if (err) return err;
   err = fft_filter(s.X, s.f, s.stream, s.filter_launches);
   if (err) return err;
@@ -177,28 +149,27 @@ int half_step(const Step<T>& s, void* const* base, void* const* seval, void* con
 // The per-step arguments of half_step from the C entry points' tables.
 // filt: the filter's mask (H, W/2+1) and twiddles (W, 2), both double, and
 // keep (H).  lats: int32 (R) listed latitudes; plan: nstages radices.
-// scratch: X (2L,H,W), pg_phiv, sd, phi, rho (L,H,W).  *filter_launches
-// and *stencil_launches are set to 0; each launch of the filter kernel or
-// of the rest stencil adds one to its count.
+// scratch: X (2L,H,W), pg_phiv, sd (L,H,W).  launches: the host counts
+// of the pgf tile's, the filter kernel's and the rest stencil's launches,
+// each set to 0; each launch adds one to its count.
 template <typename T>
 Step<T> make_step(void* const* geo, void* const* filt, const void* lats, int R, const int* plan,
                   int nstages, void* const* scratch, int L, int H, int W, const double* consts,
-                  int coriolis, int q_limiter, int* filter_launches, int* stencil_launches,
-                  cudaStream_t stream) {
+                  int coriolis, int q_limiter, int* const* launches, cudaStream_t stream) {
   Step<T> s;
   s.geo = geo;
   s.f = make_fft(filt[0], filt[1], lats, R, 2 * L, H, W, plan, nstages);
   s.keep = static_cast<const T*>(filt[2]);
   T* const* fs = reinterpret_cast<T* const*>(scratch);
-  s.X = fs[0]; s.pg_phiv = fs[1]; s.sd = fs[2]; s.phi = fs[3]; s.rho = fs[4];
+  s.X = fs[0]; s.pg_phiv = fs[1]; s.sd = fs[2];
   s.L = L; s.H = H; s.W = W;
   s.consts = consts;
   s.coriolis = coriolis; s.q_limiter = q_limiter;
   s.stream = stream;
-  s.filter_launches = filter_launches;
-  s.stencil_launches = stencil_launches;
-  *filter_launches = 0;
-  *stencil_launches = 0;
+  s.pgf_launches = launches[0];
+  s.filter_launches = launches[1];
+  s.stencil_launches = launches[2];
+  for (int n = 0; n < 3; ++n) *launches[n] = 0;
   return s;
 }
 

@@ -6,12 +6,12 @@
 // Replace gcmiipy_tpu/ops/pallas_stencil.py:make_pgf_kernel_padded (the
 // pl.pallas_call at :459) and make_rest_kernel_padded (:583).  The TPU
 // kernels tile (lat, lon) blocks with a wrap-padded halo in VMEM; here the
-// fields stay unpadded, every index wraps in the stencils, and each kernel
-// is two launches of the stages in mega_stages.cuh (each stage exists once):
+// fields stay unpadded, every index wraps in the stencils, and the kernels
+// are the stages of mega_stages.cuh (each stage exists once):
 //
-//   gcm_pgf_parts   pgf_column_pass -> pgf_stencil_pass: pgf_forces into
-//                   the caller's (2L,H,W) stack [spu_raw; pg_phi] and
-//                   pg_phiv (L,H,W);
+//   gcm_pgf_parts   one launch of the pgf tile (pgf_tile.cuh): pgf_forces
+//                   into the caller's (2L,H,W) stack [spu_raw; pg_phi] and
+//                   pg_phiv (L,H,W), rho and phi in shared memory only;
 //   gcm_rest_parts  aflux_column_pass -> the tiled rest stencil
 //                   (stencil_tile.cuh): half_timestep_rest with the
 //                   filtered spu (the stack's first L planes) and the
@@ -23,9 +23,8 @@
 // Bound: bytes.  At 9x512x1024 float32 K3 reads sp, su, st and writes the
 // stack and pg_phiv (about 98 MB with the geometry, 0.03 ms at 3.35 TB/s);
 // K4 reads 10 fields, the stack and pg_phiv and writes 5 fields (about 290
-// MB, 0.087 ms).  K3's column launch writes its recurrences (rho, phi) to
-// device memory for its one-thread-per-point stencil launch, which reads
-// each neighbour column's values once more.  K4's
+// MB, 0.087 ms).  K3's tile keeps its recurrences (rho, phi) in shared
+// memory and reads st a second time, mostly from L2 (pgf_tile.cuh).  K4's
 // column launch writes sd and p_n, and its tiled stencil reads each plane
 // of its inputs from device memory about once (stencil_tile.cuh), so the
 // sd round trip (about 38 MB) is what it moves beyond its bound: the TPU
@@ -39,14 +38,15 @@ namespace {
 void* const kNone[5] = {nullptr, nullptr, nullptr, nullptr, nullptr};
 
 template <typename T>
-int pgf(void* const* in, void* const* geo, void* X, void* pg_phiv, void* const* scratch, int L,
-        int H, int W, const double* consts, cudaStream_t stream) {
+int pgf(void* const* in, void* const* geo, void* X, void* pg_phiv, int L, int H, int W,
+        const double* consts, int* pgf_launches, cudaStream_t stream) {
+  *pgf_launches = 0;
   if (gcm::bad_shape(L, H, W)) return (int)cudaErrorInvalidValue;
   void* const seval[5] = {in[0], in[1], nullptr, in[2], nullptr};  // sp, su, st
-  T* const* fs = reinterpret_cast<T* const*>(scratch);
   const gcm::Params<T> a = gcm::half_params<T>(kNone, seval, nullptr, geo, L, H, W, consts, 0, 0,
-                                               nullptr, nullptr, fs[0], fs[1]);
-  return gcm::pgf_stages(a, static_cast<T*>(X), static_cast<T*>(pg_phiv), stream);
+                                               nullptr, nullptr);
+  return gcm::launch_pgf_tile(a, static_cast<T*>(X), static_cast<T*>(pg_phiv), stream,
+                             pgf_launches);
 }
 
 // K4's stages 4-5 (stencil_only: stage 5 alone, on the caller's p_n and
@@ -60,8 +60,7 @@ int rest(void* const* in, const void* filt_stack, const void* pg_phiv, void* con
   const T* stack = static_cast<const T*>(filt_stack);
   T* const* fo = reinterpret_cast<T* const*>(out);
   const gcm::Params<T> a = gcm::half_params<T>(in, in + 5, stack, geo, L, H, W, consts,
-                                               coriolis, q_limiter, fo[0], static_cast<T*>(sd),
-                                               nullptr, nullptr);
+                                               coriolis, q_limiter, fo[0], static_cast<T*>(sd));
   const T* const no_wall = nullptr;
   const gcm::RestOut<T> o{fo[1], fo[2], fo[3], fo[4], stack + (size_t)L * H * W,
                           static_cast<const T*>(pg_phiv), no_wall};
@@ -71,17 +70,18 @@ int rest(void* const* in, const void* filt_stack, const void* pg_phiv, void* con
 
 }  // namespace
 
-// K3: pgf_forces(sp, su, st).  in: sp (H,W), su, st (L,H,W).  geo: dx_j,
-// dx_h, lat, heightmap, sig, sigt, sigb, dsig, dy, ptop.  X: the (2L,H,W)
-// stack out, pg_phiv (L,H,W) out.  scratch: phi, rho (L,H,W).  consts: dt,
-// 1/dt, kappa, Rd, Cp, G, 1/P0, 2*omega (dt is not read).  Returns 0 or the
-// first CUDA error.
+// K3, the pgf tile alone: pgf_forces(sp, su, st).  in: sp (H,W), su, st
+// (L,H,W).  geo: dx_j, dx_h, lat, heightmap, sig, sigt, sigb, dsig, dy,
+// ptop.  X: the (2L,H,W) stack out, pg_phiv (L,H,W) out.  consts: dt,
+// 1/dt, kappa, Rd, Cp, G, 1/P0, 2*omega (dt is not read).
+// *pgf_launches: set to the pgf tile's launches made.  Returns 0 or the
+// CUDA error.
 extern "C" int gcm_pgf_parts(int is_double, void* const* in, void* const* geo, void* X,
-                             void* pg_phiv, void* const* scratch, int L, int H, int W,
-                             const double* consts, void* stream) {
+                             void* pg_phiv, int L, int H, int W, const double* consts,
+                             int* pgf_launches, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? pgf<double>(in, geo, X, pg_phiv, scratch, L, H, W, consts, s)
-                   : pgf<float>(in, geo, X, pg_phiv, scratch, L, H, W, consts, s);
+  return is_double ? pgf<double>(in, geo, X, pg_phiv, L, H, W, consts, pgf_launches, s)
+                   : pgf<float>(in, geo, X, pg_phiv, L, H, W, consts, pgf_launches, s);
 }
 
 // K4: half_timestep_rest and the momentum epilogue.  in: p,u,v,t,q,

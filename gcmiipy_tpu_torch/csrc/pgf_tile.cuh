@@ -1,0 +1,199 @@
+// The pgf stages of a half step as one tiled launch: pgf_forces(sp, su,
+// st), i.e. X[k] = spu_raw = su * iph(sp), X[L+k] = pgu + phiu and pg_phiv
+// = pgv + phiv (gcmiipy_tpu_torch/dynamics/core25d.py: pgf, pgf_forces).
+// It is K3 (pgf_rest.cu) and stages 1-2 of K5, K6 and K7
+// (mega_stages.cuh), and replaces the column pass and the
+// one-thread-per-point stencil that wrote rho and phi, 2L planes, to
+// device memory and read them back at three points each.
+//
+// One block owns an (8 x 32) tile of (j,i) columns.  The pgf stencil reads
+// rho, phi and sp at a point and at its i+1 and j+1 neighbours, so the
+// block also runs the column recurrence of column i0+32 of each tile row
+// and of row j0+8 of each tile column: 9*33-1 columns, one thread each
+// (320 threads, 24 of them idle; two columns for some threads, or a 16-row
+// tile at float32, measured no faster on the H100).  Every column's (j,i)
+// wraps once, when its offsets are formed; the halo rows and columns of a
+// grid off the tiles are the wrapped ones the plain version's torch.roll
+// reads.
+//
+// The recurrence runs once per column, k = 0 .. L-1, and keeps no
+// per-layer array in registers or local memory: layer k's rho and
+// stp[k-1] go into layer k's planes of rho and phi in shared memory, and
+// the column's base, the sum over k of s1[k] - sigt[k]*stp[k] plus
+// heightmap*G, is carried in k order (stp[L-1] from layer 0's p^kappa: the
+// periodic kp of the plain version).  A second loop over the column's
+// phi plane turns it into the geopotential ladder, phi[0] = base, phi[k] =
+// phi[k-1] + stp[k-1].  After one barrier the tile's threads compute the
+// stencil layer by layer from the planes and from sp, staged once, with su
+// read one layer ahead.  All L layers of both planes fit: 2 * 32 * 297
+// values of 8 bytes at float64 (152 KB; the tile has 8 rows at both types
+// for that, where the rest stencil's float64 tile has 16).
+//
+// Every expression keeps the operand order of the plain version and of
+// gcm_stencil.cuh's pgf_column and pgf_terms (built with -fmad=false), so
+// the launch equals pgf_parts_ref bit for bit wherever the card's pow
+// rounds as PyTorch's does.
+//
+// Bound: bytes.  At 9x512x1024 float32 it reads sp, su, st and the
+// geometry and writes the stack and pg_phiv: about 98.6 MB, 0.029 ms at
+// 3.35 TB/s.  Beyond that it reads each halo column's sp and st once more
+// (the halo is 16% of the tile) and computes its p^kappa once more.
+// chip_smoke.py works the bound out from its run's tensors.  On the H100
+// the launch is held back by instruction issue, not bytes: p^kappa and
+// the IEEE divisions of every point are the CUDA math library's long
+// instruction sequences (PERF.md).
+
+#pragma once
+
+#include "gcm_stencil.cuh"
+#include "stencil_tile.cuh"
+
+namespace gcm {
+
+// Shared-memory layout of the pgf tile, in elements of T: sp, then the
+// geometry's layer rows, then L planes of rho and L planes of phi; a plane
+// holds rows j0 .. j0+8 and columns i0 .. i0+32 (the corner is not used).
+template <typename T>
+struct PgfTile {
+  static constexpr int TJ = 8, TI = 32;
+  static constexpr int kTile = TJ * TI;  // threads 0 .. kTile-1: the tile's columns
+  static constexpr int kHalo = TJ + TI;  // threads kTile .. kTile+kHalo-1: the halo's
+  static constexpr int kThreads = (kTile + kHalo + 31) / 32 * 32;
+  static constexpr int C = TI + 1;
+  static constexpr int kPlane = (TJ + 1) * C;
+  static constexpr int kSigAt = kPlane;  // sig, sigt, dsig (kMaxLayers each)
+  static constexpr int kRhoAt = kSigAt + 3 * kMaxLayers;
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 1;  // __launch_bounds__
+  static size_t bytes(int L) { return (size_t)(kRhoAt + 2 * L * kPlane) * sizeof(T); }
+  static_assert((kRhoAt + 2 * kMaxLayers * kPlane) * sizeof(T) <= kMaxSharedBytes,
+                "pgf tile exceeds a block's shared memory");
+};
+
+// The tiled pgf launch: grid (ceil(W/32), ceil(H/8)), kThreads threads,
+// PgfTile<T>::bytes(L) of dynamic shared memory.
+template <typename T>
+__global__ void __launch_bounds__(PgfTile<T>::kThreads, PgfTile<T>::kMinBlocks)
+    pgf_tile(const Params<T> a, T* X, T* pg_phiv) {
+  using S = PgfTile<T>;
+  constexpr int C = S::C, P = S::kPlane;
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  T* const sm = reinterpret_cast<T*>(tile_smem);
+  const int L = a.L, H = a.H, W = a.W;
+  const size_t HW = (size_t)H * W;
+  const int tid = threadIdx.x;
+  const int ti = tid % S::TI, tj = tid / S::TI;
+  const int i0 = blockIdx.x * S::TI, j0 = blockIdx.y * S::TJ;
+  const int i = i0 + ti, j = j0 + tj;
+  const T half = T(0.5);
+  T* const sig = sm + S::kSigAt;
+  T* const sigt = sig + kMaxLayers;
+  T* const dsig = sigt + kMaxLayers;
+  T* const rho = sm + S::kRhoAt;  // layer k at rho[k * P]
+  T* const phi = rho + L * P;
+
+  // this thread's column: its point of the tile, or column i0+32 of row
+  // j0+h (h < TJ) or row j0+TJ of column i0+h-TJ of the halo, h =
+  // tid-kTile; j and i wrap here, once
+  const bool has_col = tid < S::kTile + S::kHalo;
+  int r = tj, cc = ti;
+  if (tid >= S::kTile) {
+    const int h = tid - S::kTile;
+    r = h < S::TJ ? h : S::TJ;
+    cc = h < S::TJ ? S::TI : h - S::TJ;
+  }
+  const int off = ((j0 + r) % H) * W + (i0 + cc) % W;
+  const int at = r * C + cc;
+  if (has_col) sm[at] = a.sp[off];
+  for (int k = tid; k < L; k += S::kThreads) {
+    sig[k] = a.sig[k];
+    sigt[k] = a.sigt[k];
+    dsig[k] = a.dsig[k];
+  }
+  const T ptop = a.ptop[0];
+  __syncthreads();
+
+  // The column recurrence: layer k's rho into rho[k], stp[k-1] into
+  // phi[k], base = sum over k of (s1[k] - sigt[k]*stp[k]) in k order plus
+  // heightmap*G; then phi[0] = base, phi[k] = phi[k-1] + stp[k-1]
+  if (has_col) {
+    T* const rho_c = rho + at;
+    T* const phi_c = phi + at;
+    const T sp = sm[at];
+    const T st0 = a.st[off];
+    T st_k = st0, pk0 = T(0), pk_prev = T(0), st_prev = T(0), s1_prev = T(0), base = T(0);
+    for (int k = 0; k < L; ++k) {
+      const T st_next = k + 1 < L ? a.st[(k + 1) * HW + off] : T(0);
+      const T tp = sp * sig[k] + ptop;
+      const T pk = power(tp * a.inv_p0, a.kappa);
+      const T tt = st_k * pk;
+      const T rk = tp / (a.rd * tt);
+      rho_c[k * P] = rk;
+      const T s1 = ((sig[k] * sp) / rk) * dsig[k];
+      if (k == 0) {
+        pk0 = pk;
+      } else {
+        const T stp = (a.cp * ((st_prev + st_k) * half)) * (pk_prev - pk);
+        phi_c[k * P] = stp;
+        const T term = s1_prev - sigt[k - 1] * stp;
+        base = k == 1 ? term : base + term;
+      }
+      s1_prev = s1;
+      pk_prev = pk;
+      st_prev = st_k;
+      st_k = st_next;
+    }
+    const T stp = (a.cp * ((st_prev + st0) * half)) * (pk_prev - pk0);
+    const T term = s1_prev - sigt[L - 1] * stp;
+    base = L == 1 ? term : base + term;
+    T ph = base + a.heightmap[off] * a.g;
+    phi_c[0] = ph;
+    for (int k = 1; k < L; ++k) {
+      ph = ph + phi_c[k * P];
+      phi_c[k * P] = ph;
+    }
+  }
+  __syncthreads();  // every column's planes are whole
+  if (tid >= S::kTile || i >= W || j >= H) return;
+
+  // the stencil, layer by layer; what does not depend on k first
+  const int c0 = tj * C + ti;
+  const T* const sps = sm + c0;
+  const T rdx_j = T(1) / a.dx_j[j];
+  const T rdy = T(1) / a.dy[0];
+  const T iph_sp = (sps[0] + sps[1]) * half;
+  const size_t jw = (size_t)j * W + i;
+  T su_k = a.su[jw];
+  for (int k = 0; k < L; ++k) {
+    const T su_next = k + 1 < L ? a.su[(k + 1) * HW + jw] : T(0);
+    const T* const rk = rho + k * P + c0;
+    const T* const pk = phi + k * P + c0;
+    T pgu, pgv, phiu, phiv;
+    pgf_terms(sig[k], sps[0], sps[1], sps[C], rk[0], rk[1], rk[C], pk[0], pk[1], pk[C], rdx_j,
+              rdy, pgu, pgv, phiu, phiv);
+    const size_t o = (size_t)k * HW + jw;
+    X[o] = su_k * iph_sp;
+    X[(size_t)L * HW + o] = pgu + phiu;
+    pg_phiv[o] = pgv + phiv;
+    su_k = su_next;
+  }
+}
+
+// Launch the tiled pgf stage on the caller's stream; returns 0 or the CUDA
+// error of the attribute call or the launch.  A launch that was accepted
+// adds one to *launches (when not null).  A plane's offsets are 32-bit.
+template <typename T>
+int launch_pgf_tile(const Params<T>& a, T* X, T* pg_phiv, cudaStream_t stream, int* launches) {
+  using S = PgfTile<T>;
+  if ((size_t)a.H * a.W > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const size_t bytes = S::bytes(a.L);
+  const cudaError_t err = cudaFuncSetAttribute(
+      pgf_tile<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.W + S::TI - 1) / S::TI, (a.H + S::TJ - 1) / S::TJ);
+  pgf_tile<T><<<grid, S::kThreads, bytes, stream>>>(a, X, pg_phiv);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess && launches) ++*launches;
+  return (int)launched;
+}
+
+}  // namespace gcm

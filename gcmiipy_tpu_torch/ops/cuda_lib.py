@@ -1,20 +1,35 @@
 """Build and load the port's CUDA sources: ``nvcc`` in a subprocess into a
 shared library with a plain C interface, loaded with ``ctypes``.
 
-Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so``, the hash taken
-over the source, the shared headers ``csrc/*.cuh`` and the flags.  The
-library is written under a temporary name and moved into place with
-``os.replace``, so a stale or half-written library is never loaded and no
-lock file exists.  Nothing builds at import.
+Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so``, which the
+wrappers launch on float32 tensors, and on float64 ones too unless the
+source's code calls ``power`` (``gcm_stencil.cuh``).  Such a source gets a
+second library, ``_build/<name>-f64-<hash>.so`` (library name
+``<name>-f64``), for float64 tensors: its double ``pow`` is
+``csrc/gcm_pow.cu``'s, built with nvcc's default contraction
+(``_build/gcm_pow-<hash>.o``) and linked as relocatable device code,
+because the CUDA math library's double ``pow`` compiled under the kernels'
+``-fmad=false`` rounds apart from PyTorch's in some values.  The float32
+libraries keep the plain build: ``powf`` rounds alike under both flags,
+and relocatable device code slows some float32 kernels.  Each hash is
+taken over the source, the shared headers ``csrc/*.cuh``,
+``csrc/gcm_pow.cu`` and the flags.  Each file is written under a
+temporary name and moved into place with ``os.replace``, so a stale or
+half-written one is never used and no lock file exists; the compiler's
+log (ptxas' register and stack report) is kept beside its library as
+``<library>.log``.  Nothing builds at import.
 """
 
 import concurrent.futures
 import ctypes
+import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import threading
 import time
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,9 +41,15 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+FLOAT64 = "-f64"  # a library name's suffix: the source's float64 library
+FLOAT64_FLAGS = ("-rdc=true", "-DGCM_POW_LINKED")
+POW_SOURCE = "gcm_pow"
+POW_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-rdc=true", "-Xcompiler", "-fPIC", "-c")
 BUILD_TIMEOUT_S = 600
 
 _libraries = {}
+_pow_lock = threading.Lock()
 
 
 def nvcc_path():
@@ -43,27 +64,74 @@ def nvcc_path():
                        "the CUDA kernels build only where the toolkit is")
 
 
-def library_path(name):
-    """(source, library) paths of kernel source ``csrc/<name>.cu``."""
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+# a call of gcm::power, not its definitions ("float power(", "double power(")
+_POWER_CALL = re.compile(r"(?<!float )(?<!double )\bpower\s*\(")
+
+
+def calls_power(source):
+    """True when ``csrc/<source>.cu`` or a header it includes (at any
+    depth) calls ``power``, so that its float64 kernels need the linked
+    ``pow``.  Read once per source directory."""
+    return _calls_power(CSRC_DIR, source)
+
+
+@functools.lru_cache(maxsize=None)
+def _calls_power(csrc, source):
+    seen, todo = set(), [source + ".cu"]
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        with open(os.path.join(csrc, name)) as f:
+            code = re.sub(r"//[^\n]*", "", f.read())
+        if _POWER_CALL.search(code):
+            return True
+        todo += [n for n in _INCLUDE.findall(code)
+                 if os.path.isfile(os.path.join(csrc, n))]
+    return False
+
+
+def library_name(source, double):
+    """The name of the library that launches ``csrc/<source>.cu``'s
+    kernels on float64 tensors (``double``) or on float32 ones."""
+    return source + FLOAT64 if double and calls_power(source) else source
+
+
+def _hashed_path(name, sources, flags, ext):
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
         with open(path, "rb") as f:
             digest.update(f.read())
-    return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}{ext}")
 
 
-def build(name):
-    """Build ``csrc/<name>.cu`` unless its library exists.  Returns the
-    compiler log, or None when nothing was built; raises with the log if
-    ``nvcc`` fails or times out."""
-    src, lib = library_path(name)
-    if os.path.exists(lib):
-        return None
+def _pow_source():
+    return os.path.join(CSRC_DIR, POW_SOURCE + ".cu")
+
+
+def library_path(name):
+    """(source, library) paths of library ``name``: ``<source>`` or
+    ``<source>-f64``, the libraries of ``csrc/<source>.cu``."""
+    double = name.endswith(FLOAT64)
+    source = name[:-len(FLOAT64)] if double else name
+    src = os.path.join(CSRC_DIR, source + ".cu")
+    paths = [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    if double:
+        paths.append(_pow_source())
+    flags = NVCC_FLAGS + (FLOAT64_FLAGS + POW_FLAGS if double else ())
+    return src, _hashed_path(name, paths, flags, ".so")
+
+
+def _nvcc(flags, inputs, out):
+    """nvcc ``flags`` on ``inputs`` into ``out``, written under a temporary
+    name and moved into place after its log (``<out>.log``); returns the
+    log, raises with it if nvcc fails or times out."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.tmp{os.getpid()}"
+    tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
     try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.run([nvcc_path(), *flags, "-o", tmp, *inputs],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True, timeout=BUILD_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -71,14 +139,49 @@ def build(name):
     if proc is None or proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"nvcc failed for {src}:\n" + (
+        raise RuntimeError(f"nvcc failed for {inputs[0]}:\n" + (
             proc.stdout if proc else f"timed out after {BUILD_TIMEOUT_S} s"))
-    os.replace(tmp, lib)
+    with open(tmp + ".log", "w") as f:
+        f.write(proc.stdout)
+    os.replace(tmp + ".log", out + ".log")
+    os.replace(tmp, out)
     return proc.stdout
 
 
+def _pow_object():
+    """The object of ``csrc/gcm_pow.cu``, built unless it exists (one
+    thread at a time)."""
+    obj = _hashed_path(POW_SOURCE, [_pow_source()], POW_FLAGS, ".o")
+    with _pow_lock:
+        if not os.path.exists(obj):
+            _nvcc(POW_FLAGS, [_pow_source()], obj)
+    return obj
+
+
+def build(name):
+    """Build library ``name`` (see :func:`library_path`) unless it exists.
+    Returns the compiler log, or None when nothing was built; raises with
+    the log if ``nvcc`` fails or times out."""
+    src, lib = library_path(name)
+    if os.path.exists(lib):
+        return None
+    if name.endswith(FLOAT64):
+        return _nvcc(NVCC_FLAGS + FLOAT64_FLAGS, [src, _pow_object()], lib)
+    return _nvcc(NVCC_FLAGS, [src], lib)
+
+
+def build_log(name):
+    """The compiler log kept beside library ``name``, or None when there
+    is none."""
+    path = library_path(name)[1] + ".log"
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return f.read()
+
+
 def build_many(names):
-    """Build several sources at once, one ``nvcc`` each, all started
+    """Build several libraries at once, one ``nvcc`` each, all started
     together.  Returns ``{name: (log or None, seconds)}``; raises with the
     first failure's log after every build has ended."""
     def timed(name):
@@ -92,7 +195,8 @@ def build_many(names):
 
 
 def load(name):
-    """The loaded ``ctypes`` library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded ``ctypes`` library ``name`` (see :func:`library_path`),
+    built if needed."""
     if name not in _libraries:
         build(name)
         _libraries[name] = ctypes.CDLL(library_path(name)[1])

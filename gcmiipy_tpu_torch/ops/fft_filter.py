@@ -227,8 +227,8 @@ def add_launches(count):
     fft_filter.launches += count.value
 
 
-def _library():
-    lib = cuda_lib.load("fft_filter")
+def _library(double):
+    lib = cuda_lib.load(cuda_lib.library_name("fft_filter", double))
     fn = lib.gcm_fft_filter
     if fn.argtypes is None:
         i, vp = ctypes.c_int, ctypes.c_void_p
@@ -256,7 +256,7 @@ def fft_filter(X, fc):
     check_consts("fft_filter", fc, device, H, W)
     plan, nstages = plan_array(W)
     R = int(fc.lats.shape[0])
-    fn = _library()
+    fn = _library(X.dtype == torch.float64)
     count = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = fn(int(X.dtype == torch.float64), X.data_ptr(), P, H, W,

@@ -35,8 +35,8 @@ def fused_parts_ref(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
                                        q_limiter=q_limiter)
 
 
-def _library():
-    lib = cuda_lib.load("fused_parts")
+def _library(double):
+    lib = cuda_lib.load(cuda_lib.library_name("fused_parts", double))
     fn = lib.gcm_fused_parts
     if fn.argtypes is None:
         ptrs = ctypes.POINTER(ctypes.c_void_p)
@@ -119,7 +119,7 @@ def fused_parts(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
                                q_limiter=q_limiter)
     _check(fields, geom)
     device = p.device
-    fn = _library()
+    fn = _library(p.dtype == torch.float64)
     L, H, W = geom.layers, geom.height, geom.width
     outs = [torch.empty((H, W), dtype=p.dtype, device=device)] + [
         torch.empty((L, H, W), dtype=p.dtype, device=device) for _ in range(5)]

@@ -24,38 +24,39 @@ FFT over the latitudes with some damping
   launches ``csrc/mega_half.cu`` on CUDA tensors, or raises.
 
 ``mega_half.launches`` counts the calls that launched the kernel; each adds
-to ``fft_filter.launches`` and ``pgf_rest.rest_stencil.launches`` the
-launches of the filter and of the rest stencil that its C entry counted
-(one each).  The polar wall is applied
-inside (the constants' ``keep``), where the JAX kernel leaves it to its
-caller; the result is the same.  The filter sums in float64 for float32
-fields too, as K6's does (``mega_step``'s docstring); the JAX kernel's
-TPU-only 3-pass bf16 split is not ported.
+to ``pgf_rest.pgf_tile.launches``, ``fft_filter.launches`` and
+``pgf_rest.rest_stencil.launches`` the launches of the pgf tile, the
+filter and the rest stencil that its C entry counted (one each).  The
+polar wall is applied inside (the constants' ``keep``), where the JAX
+kernel leaves it to its caller; the result is the same.  The filter sums
+in float64 for float32 fields too, as K6's does (``mega_step``'s
+docstring); the JAX kernel's TPU-only 3-pass bf16 split is not ported.
 """
 
 import ctypes
 
 import torch
 
-from gcmiipy_tpu_torch.ops import cuda_lib, fft_filter as fft
+from gcmiipy_tpu_torch.ops import cuda_lib
 from gcmiipy_tpu_torch.ops.fused_parts import (
     GEOM_FIELDS, kernel_consts, on_cpu, pointer_array)
 from gcmiipy_tpu_torch.ops.mega_step import (
-    FilterConsts, _check, build_filter_consts, filter_args, mega_half_ref)
-from gcmiipy_tpu_torch.ops.pgf_rest import add_stencil_launches
+    FilterConsts, _check, add_stage_launches, build_filter_consts,
+    filter_args, mega_half_ref)
 
 __all__ = ["MegaHalf", "mega_half", "mega_half_ref"]
 
 
-def _library():
-    lib = cuda_lib.load("mega_half")
+def _library(double):
+    lib = cuda_lib.load(cuda_lib.library_name("mega_half", double))
     fn = lib.gcm_mega_half
     if fn.argtypes is None:
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         i, vp = ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [i, ptrs, ptrs, ptrs, ptrs, vp, i, ctypes.POINTER(i), i,
                        ptrs, ptrs, i, i, i, ctypes.POINTER(ctypes.c_double),
-                       i, i, ctypes.POINTER(i), ctypes.POINTER(i), vp]
+                       i, i, ctypes.POINTER(i), ctypes.POINTER(i),
+                       ctypes.POINTER(i), vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -78,16 +79,16 @@ def mega_half(base, seval, dt, geom, fc, coriolis=False, q_limiter=False):
         return mega_half_ref(tuple(base), tuple(seval), dt, geom, fc,
                              coriolis=coriolis, q_limiter=q_limiter)
     _check_half(fields, geom, fc)
-    fn = _library()
     L, H, W = geom.layers, geom.height, geom.width
     dtype, device = fields[0].dtype, fields[0].device
+    fn = _library(dtype == torch.float64)
 
     def new(*shape):
         return torch.empty(shape, dtype=dtype, device=device)
 
     outs = [new(H, W)] + [new(L, H, W) for _ in range(4)]
-    scratch = [new(2 * L, H, W)] + [new(L, H, W) for _ in range(4)]
-    filter_launches, stencil_launches = ctypes.c_int(0), ctypes.c_int(0)
+    scratch = [new(2 * L, H, W), new(L, H, W), new(L, H, W)]
+    counts = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(device):
         err = fn(int(dtype == torch.float64), pointer_array(fields[:5]),
                  pointer_array(fields[5:]),
@@ -95,10 +96,9 @@ def mega_half(base, seval, dt, geom, fc, coriolis=False, q_limiter=False):
                  *filter_args(fc, W), pointer_array(outs),
                  pointer_array(scratch), L, H, W, kernel_consts(dt),
                  int(bool(coriolis)), int(bool(q_limiter)),
-                 ctypes.byref(filter_launches), ctypes.byref(stencil_launches),
+                 *map(ctypes.byref, counts),
                  torch.cuda.current_stream(device).cuda_stream)
-    fft.add_launches(filter_launches)
-    add_stencil_launches(stencil_launches)
+    add_stage_launches(counts)
     if err != 0:
         raise RuntimeError(f"mega_half kernel launch failed: CUDA error {err}")
     mega_half.launches += 1

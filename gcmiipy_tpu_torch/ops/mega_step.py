@@ -17,9 +17,9 @@ corrector repeats it on (base, starred).
   tensors, or raises.
 
 ``mega_step.launches`` counts the calls that launched the kernel; each adds
-to ``fft_filter.launches`` and ``pgf_rest.rest_stencil.launches`` the
-launches of the filter and of the rest stencil that its C entry counted
-(two each).  The
+to ``pgf_rest.pgf_tile.launches``, ``fft_filter.launches`` and
+``pgf_rest.rest_stencil.launches`` the launches of the pgf tile, the
+filter and the rest stencil that its C entry counted (two each).  The
 kernel's filter stage is the float64 FFT of
 :mod:`gcmiipy_tpu_torch.ops.fft_filter`, which computes the banded DFT's
 function, so the kernel agrees with its plain version to rounding.
@@ -41,7 +41,7 @@ from gcmiipy_tpu_torch.ops import cuda_lib, fft_filter as fft, polar_filter
 from gcmiipy_tpu_torch.ops.fused_parts import (
     GEOM_FIELDS, check_args, kernel_consts, on_cpu, pointer_array)
 from gcmiipy_tpu_torch.ops.pgf_rest import (
-    add_stencil_launches, pgf_parts_ref, rest_parts_ref)
+    add_pgf_launches, add_stencil_launches, pgf_parts_ref, rest_parts_ref)
 
 CHUNK_COLUMNS = 2 * polar_filter.FILTER_CHUNK  # C and S halves of a chunk
 
@@ -164,8 +164,8 @@ def mega_step_ref(p, u, v, t, q, dt, geom, fc, coriolis=False,
                          dt, geom, fc, **kw)
 
 
-def _library():
-    lib = cuda_lib.load("mega_step")
+def _library(double):
+    lib = cuda_lib.load(cuda_lib.library_name("mega_step", double))
     fn = lib.gcm_mega_step
     if fn.argtypes is None:
         ptrs = ctypes.POINTER(ctypes.c_void_p)
@@ -173,7 +173,8 @@ def _library():
         fn.argtypes = [i, ptrs, ptrs, ptrs, vp, i, ctypes.POINTER(i), i,
                        ptrs, ptrs, ptrs, i, i, i,
                        ctypes.POINTER(ctypes.c_double), i, i,
-                       ctypes.POINTER(i), ctypes.POINTER(i), vp]
+                       ctypes.POINTER(i), ctypes.POINTER(i),
+                       ctypes.POINTER(i), vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -191,6 +192,17 @@ def _check(fields, geom, fc, kernel="mega_step"):
             or tuple(fc.keep.shape) != (H, 1) or not fc.keep.is_contiguous()):
         raise ValueError(f"{kernel} filter buffer keep: a contiguous "
                          f"{p.dtype} ({H}, 1) tensor on {p.device} expected")
+
+
+def add_stage_launches(counts):
+    """Adds the launches a C entry of K5, K6 or K7 counted (``counts``: the
+    ``ctypes.c_int`` of the pgf tile, the filter and the rest stencil) to
+    ``pgf_rest.pgf_tile``'s, ``fft_filter``'s and ``pgf_rest.rest_stencil``'s
+    counts."""
+    pgf, filt, stencil = counts
+    add_pgf_launches(pgf)
+    fft.add_launches(filt)
+    add_stencil_launches(stencil)
 
 
 def filter_args(fc, W):
@@ -212,7 +224,7 @@ def mega_step(p, u, v, t, q, dt, geom, fc, coriolis=False, q_limiter=False):
                              q_limiter=q_limiter)
     _check(fields, geom, fc)
     device = p.device
-    fn = _library()
+    fn = _library(p.dtype == torch.float64)
     L, H, W = geom.layers, geom.height, geom.width
 
     def new(*shape):
@@ -220,18 +232,17 @@ def mega_step(p, u, v, t, q, dt, geom, fc, coriolis=False, q_limiter=False):
 
     starred = [new(H, W)] + [new(L, H, W) for _ in range(4)]
     outs = [new(H, W)] + [new(L, H, W) for _ in range(4)]
-    scratch = [new(2 * L, H, W)] + [new(L, H, W) for _ in range(4)]
-    filter_launches, stencil_launches = ctypes.c_int(0), ctypes.c_int(0)
+    scratch = [new(2 * L, H, W), new(L, H, W), new(L, H, W)]
+    counts = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(device):
         err = fn(int(p.dtype == torch.float64), pointer_array(fields),
                  pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
                  *filter_args(fc, W), pointer_array(starred),
                  pointer_array(outs), pointer_array(scratch), L, H, W,
                  kernel_consts(dt), int(bool(coriolis)), int(bool(q_limiter)),
-                 ctypes.byref(filter_launches), ctypes.byref(stencil_launches),
+                 *map(ctypes.byref, counts),
                  torch.cuda.current_stream(device).cuda_stream)
-    fft.add_launches(filter_launches)
-    add_stencil_launches(stencil_launches)
+    add_stage_launches(counts)
     if err != 0:
         raise RuntimeError(f"mega_step kernel launch failed: CUDA error {err}")
     mega_step.launches += 1

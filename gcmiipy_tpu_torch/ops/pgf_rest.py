@@ -16,15 +16,20 @@ returns, :func:`rest_parts` (K4), and the polar wall.
   sd of the first (:func:`rest_column_ref`); :func:`rest_stencil_ref` is
   its plain version.
 
+K3 is one launch of the pgf tile (``csrc/pgf_tile.cuh``), which is also
+the pgf stage of K5, K6 and K7.
+
 ``pgf_parts.launches`` and ``rest_parts.launches`` count the calls that
-launched a kernel.  ``rest_stencil.launches`` counts every launch of the
-rest stencil where the C entries make it: :func:`rest_stencil`'s own and
-those inside K4, K5, K6 and K7, which their wrappers add after the call
-(:func:`add_stencil_launches`).  The kernels are bound by bytes (the
-sources' headers work the numbers out).
+launched a kernel.  ``pgf_tile.launches`` and ``rest_stencil.launches``
+count every launch of the pgf tile and of the rest stencil where the C
+entries make it: K3's or :func:`rest_stencil`'s own and those inside K4,
+K5, K6 and K7, which their wrappers add after the call
+(:func:`add_pgf_launches`, :func:`add_stencil_launches`).  The kernels are
+bound by bytes (the sources' headers work the numbers out).
 """
 
 import ctypes
+import types
 
 import torch
 
@@ -83,8 +88,9 @@ def rest_parts_ref(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv,
         geom, coriolis=coriolis, q_limiter=q_limiter)
 
 
-def _function(name, argtypes):
-    fn = getattr(cuda_lib.load("pgf_rest"), name)
+def _function(name, argtypes, double):
+    fn = getattr(cuda_lib.load(cuda_lib.library_name("pgf_rest", double)),
+                 name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -94,7 +100,8 @@ def _function(name, argtypes):
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _CONSTS = ctypes.POINTER(ctypes.c_double)
 _I, _VP = ctypes.c_int, ctypes.c_void_p
-PGF_ARGTYPES = [_I, _PTRS, _PTRS, _VP, _VP, _PTRS, _I, _I, _I, _CONSTS, _VP]
+PGF_ARGTYPES = [_I, _PTRS, _PTRS, _VP, _VP, _I, _I, _I, _CONSTS,
+                ctypes.POINTER(_I), _VP]
 REST_ARGTYPES = [_I, _PTRS, _VP, _VP, _PTRS, _PTRS, _VP, _I, _I, _I, _CONSTS,
                  _I, _I, ctypes.POINTER(_I), _VP]
 
@@ -120,18 +127,19 @@ def pgf_parts(sp, su, st, geom):
         return pgf_parts_ref(sp, su, st, geom)
     _check_pgf(fields, geom)
     L, H, W = geom.layers, geom.height, geom.width
-    fn = _function("gcm_pgf_parts", PGF_ARGTYPES)
+    fn = _function("gcm_pgf_parts", PGF_ARGTYPES, sp.dtype == torch.float64)
     device = sp.device
     stack = torch.empty((2 * L, H, W), dtype=sp.dtype, device=device)
-    pg_phiv, phi, rho = (torch.empty((L, H, W), dtype=sp.dtype, device=device)
-                         for _ in range(3))
+    pg_phiv = torch.empty((L, H, W), dtype=sp.dtype, device=device)
+    count = ctypes.c_int(0)
     with torch.cuda.device(device):
         # dt is not read by the pgf stages
         err = fn(int(sp.dtype == torch.float64), pointer_array(fields),
                  pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
-                 stack.data_ptr(), pg_phiv.data_ptr(),
-                 pointer_array([phi, rho]), L, H, W, kernel_consts(1.0),
+                 stack.data_ptr(), pg_phiv.data_ptr(), L, H, W,
+                 kernel_consts(1.0), ctypes.byref(count),
                  torch.cuda.current_stream(device).cuda_stream)
+    add_pgf_launches(count)
     if err != 0:
         raise RuntimeError(f"pgf_parts kernel launch failed: CUDA error {err}")
     pgf_parts.launches += 1
@@ -166,6 +174,15 @@ def rest_parts(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv, dt,
 
 rest_parts.launches = 0
 
+# the pgf tile's launches, counted where the C entries make them
+pgf_tile = types.SimpleNamespace(launches=0)
+
+
+def add_pgf_launches(count):
+    """Adds to ``pgf_tile.launches`` the pgf tile's launches a C entry
+    reports in ``count`` (a ``ctypes.c_int`` it set)."""
+    pgf_tile.launches += count.value
+
 
 def add_stencil_launches(count):
     """Adds to ``rest_stencil.launches`` the rest stencil's launches a C
@@ -181,8 +198,9 @@ def _rest_call(name, fields, outs, sd, dt, geom, coriolis, q_limiter):
     device = p.device
     count = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = _function(name, REST_ARGTYPES)(
-            int(p.dtype == torch.float64), pointer_array(fields[:10]),
+        double = p.dtype == torch.float64
+        err = _function(name, REST_ARGTYPES, double)(
+            int(double), pointer_array(fields[:10]),
             filt_stack.data_ptr(), pg_phiv.data_ptr(),
             pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
             pointer_array(outs), sd.data_ptr(), L, H, W, kernel_consts(dt),

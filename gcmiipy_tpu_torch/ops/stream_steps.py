@@ -15,9 +15,15 @@ at the clock ``utc0 + s*dt``.  k is even, so the state ends in buffer 0.
 * :func:`stream_steps` runs it on CPU tensors and launches
   ``csrc/stream_steps.cu`` (with ``csrc/column_physics.cuh``) on CUDA
   tensors, or raises; ``stream_steps.launches`` counts the launching calls,
-  each of which adds to ``fft_filter.launches`` and
-  ``pgf_rest.rest_stencil.launches`` the launches of the filter and of the
-  rest stencil that its C entry counted (2k each).
+  each of which adds to ``pgf_rest.pgf_tile.launches``,
+  ``fft_filter.launches`` and ``pgf_rest.rest_stencil.launches`` the
+  launches of the pgf tile, the filter and the rest stencil that its C
+  entry counted (2k each), and to ``column_physics.launches`` the
+  epilogue's (k with the physics).
+* :func:`column_physics` is the epilogue alone (C entry
+  ``gcm_column_physics``), with the arguments of
+  :func:`physics_epilogue_ref`, its plain version;
+  :func:`column_physics_inplace` is its launch on K7's in-place terms.
 * :class:`StreamSteps` holds the filter's buffers, the physics table and
   the kernel's scratch, allocated once and reused by every call.
 """
@@ -29,16 +35,18 @@ from typing import NamedTuple
 import torch
 
 from gcmiipy_tpu_torch import constants
-from gcmiipy_tpu_torch.ops import cuda_lib, fft_filter as fft
+from gcmiipy_tpu_torch.ops import cuda_lib
 from gcmiipy_tpu_torch.ops.fused_parts import (
-    GEOM_FIELDS, MAX_LAYERS, kernel_consts, on_cpu, pointer_array)
+    GEOM_FIELDS, MAX_LAYERS, check_args, kernel_consts, on_cpu,
+    pointer_array)
 from gcmiipy_tpu_torch.ops.mega_step import (
-    MegaStep, _check as check_filter_args, banded_round, filter_args,
-    mega_step_ref)
-from gcmiipy_tpu_torch.ops.pgf_rest import add_stencil_launches
+    MegaStep, _check as check_filter_args, add_stage_launches, banded_round,
+    filter_args, mega_step_ref)
 from gcmiipy_tpu_torch.physics import convection, radiation
 
 CONVECTION_SWEEPS = 4  # the fixed-sweep count of the JAX kernel's epilogue
+# kPhysScalars and kPhysRows of csrc/column_physics.cuh
+PHYS_SCALARS, PHYS_ROWS = 20, 9
 
 
 def n_planes(layers):
@@ -146,9 +154,9 @@ def stream_steps_ref(S, utc0, k, dt, geom, fc, coriolis=False,
     return S
 
 
-def physics_table(ph, dt):
-    """The epilogue's ``PhysTable`` (``csrc/column_physics.cuh``) as a C
-    array of doubles: the scalars, then each per-layer row padded to
+def physics_table(ph, dt, device="cpu"):
+    """The epilogue's table (``csrc/column_physics.cuh``) as a float64
+    tensor on ``device``: the scalars, then each per-layer row padded to
     ``MAX_LAYERS``.  Each entry is the Python float that
     :func:`physics_epilogue_ref` uses at that point."""
     lw_t, sw_t, cum_sw_top, clw_b_div = radiation.ladder_constants(
@@ -175,7 +183,7 @@ def physics_table(ph, dt):
     flat = list(map(float, scalars))
     for row in rows:
         flat += list(map(float, row)) + [0.0] * (MAX_LAYERS - L)
-    return (ctypes.c_double * len(flat))(*flat)
+    return torch.tensor(flat, dtype=torch.float64, device=device)
 
 
 def _check_steps(S, k, geom, physics):
@@ -188,30 +196,54 @@ def _check_steps(S, k, geom, physics):
         raise ValueError(f"k must be even (buffer ping-pong), got {k}")
 
 
-def _library():
-    lib = cuda_lib.load("stream_steps")
-    fn = lib.gcm_stream_steps
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+_COUNT = ctypes.POINTER(ctypes.c_int)
+_I, _VP = ctypes.c_int, ctypes.c_void_p
+_ARGTYPES = {
+    "gcm_stream_steps": [_I, _VP, _I, _I, _VP, _PTRS, _PTRS, _VP, _I, _COUNT,
+                         _I, _PTRS, _I, _I, _I,
+                         ctypes.POINTER(ctypes.c_double), _I, _I, _VP, _VP,
+                         _VP, _COUNT, _COUNT, _COUNT, _COUNT, _VP],
+    "gcm_column_physics": [_I, _PTRS, _VP, _VP, _VP, _VP, _I, _I, _I, _COUNT,
+                           _VP],
+}
+
+
+def _function(name, double):
+    fn = getattr(cuda_lib.load(cuda_lib.library_name("stream_steps", double)),
+                 name)
     if fn.argtypes is None:
-        ptrs = ctypes.POINTER(ctypes.c_void_p)
-        dbl = ctypes.POINTER(ctypes.c_double)
-        i, vp = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [i, vp, i, i, vp, ptrs, ptrs, vp, i,
-                       ctypes.POINTER(i), i, ptrs, i, i, i, dbl, i, i, dbl,
-                       vp, vp, ctypes.POINTER(i), ctypes.POINTER(i), vp]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
 def new_scratch(geom, dtype, device):
     """The kernel's scratch: the predictor's p, u, v, t, q, then X (2L,H,W),
-    pg_phiv, sd, phi, rho (L,H,W)."""
+    pg_phiv, sd (L,H,W)."""
     L, H, W = geom.layers, geom.height, geom.width
 
     def new(*shape):
         return torch.empty(shape, dtype=dtype, device=device)
 
     return ([new(H, W)] + [new(L, H, W) for _ in range(4)]
-            + [new(2 * L, H, W)] + [new(L, H, W) for _ in range(4)])
+            + [new(2 * L, H, W), new(L, H, W), new(L, H, W)])
+
+
+def _check_table(kernel, table, device):
+    n = PHYS_SCALARS + PHYS_ROWS * MAX_LAYERS
+    if (table.device != device or table.dtype != torch.float64
+            or tuple(table.shape) != (n,) or not table.is_contiguous()):
+        raise ValueError(f"{kernel}: the physics table must be a contiguous "
+                         f"float64 ({n},) tensor on {device}")
+
+
+def _check_lat_lon(kernel, geom, dtype, device):
+    for name in ("lat", "long"):
+        x = getattr(geom, name)
+        if x.device != device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{kernel}: geom.{name} must be a contiguous "
+                             f"{dtype} tensor on {device}")
 
 
 def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
@@ -220,7 +252,8 @@ def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
     and returns it, as :func:`stream_steps_ref`.  ``utc0``: 0-dim clock
     tensor at the start of the call (read on the device); ``fc`` from
     :func:`mega_step.build_filter_consts`; ``table``/``scratch``: the
-    physics table and :func:`new_scratch`, made here when not given."""
+    physics table on S's device (:func:`physics_table`) and
+    :func:`new_scratch`, made here when not given."""
     if on_cpu("stream_steps", (S, utc0)):
         return stream_steps_ref(S, utc0, k, dt, geom, fc, coriolis=coriolis,
                                 q_limiter=q_limiter, physics=physics)
@@ -232,30 +265,29 @@ def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
         raise ValueError(f"stream_steps: utc0 must be a 0-dim {S.dtype} "
                          f"tensor on {device}")
     check_filter_args(unpack_state(S[0], geom.layers), geom, fc)
-    lat, lon = geom.lat, geom.long
-    for name, x in (("lat", lat), ("long", lon)):
-        if x.device != device or x.dtype != S.dtype or not x.is_contiguous():
-            raise ValueError(f"geom.{name} must be a contiguous {S.dtype} "
-                             f"tensor on {device}")
-    if physics is not None and table is None:
-        table = physics_table(physics, dt)
+    _check_lat_lon("stream_steps", geom, S.dtype, device)
+    if physics is not None:
+        if table is None:
+            table = physics_table(physics, dt, device)
+        _check_table("stream_steps", table, device)
     if scratch is None:
         scratch = new_scratch(geom, S.dtype, device)
-    fn = _library()
+    fn = _function("gcm_stream_steps", S.dtype == torch.float64)
     L, H, W = geom.layers, geom.height, geom.width
-    filter_launches, stencil_launches = ctypes.c_int(0), ctypes.c_int(0)
+    counts = [ctypes.c_int(0) for _ in range(4)]
     with torch.cuda.device(device):
         err = fn(int(S.dtype == torch.float64), S.data_ptr(), S.shape[1],
                  int(k), utc0.data_ptr(),
                  pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
                  *filter_args(fc, W), pointer_array(scratch), L, H, W,
                  kernel_consts(dt), int(bool(coriolis)),
-                 int(bool(q_limiter)), table,
-                 lat.data_ptr(), lon.data_ptr(), ctypes.byref(filter_launches),
-                 ctypes.byref(stencil_launches),
+                 int(bool(q_limiter)),
+                 table.data_ptr() if physics is not None else None,
+                 geom.lat.data_ptr(), geom.long.data_ptr(),
+                 *map(ctypes.byref, counts),
                  torch.cuda.current_stream(device).cuda_stream)
-    fft.add_launches(filter_launches)
-    add_stencil_launches(stencil_launches)
+    add_stage_launches(counts[:3])
+    column_physics.launches += counts[3].value
     if err != 0:
         raise RuntimeError(
             f"stream_steps kernel launch failed: CUDA error {err}")
@@ -266,31 +298,81 @@ def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
 stream_steps.launches = 0
 
 
+def column_physics(p, u, v, t, gt, utc_s, geom, dt, ph, table=None):
+    """The epilogue alone: ``(u, v, t, gt)`` after one step's column
+    physics, as :func:`physics_epilogue_ref` (new tensors; the inputs are
+    not changed).  ``p``, ``gt`` are (H,W), ``u``, ``v``, ``t`` (L,H,W),
+    ``utc_s`` a 0-dim clock tensor; ``table``: :func:`physics_table` on the
+    fields' device, made here when not given."""
+    if on_cpu("column_physics", (p, u, v, t, gt, utc_s)):
+        return physics_epilogue_ref(p, u, v, t, gt, utc_s, geom, dt, ph)
+    if table is None:
+        table = physics_table(ph, dt, p.device)
+    u, v, t = u.clone(), v.clone(), t.clone()
+    gt_n = torch.empty_like(gt)
+    column_physics_inplace(p, u, v, t, gt, gt_n, utc_s, geom, table)
+    return u, v, t, gt_n
+
+
+def column_physics_inplace(p, u, v, t, gt, gt_out, utc_s, geom, table):
+    """The epilogue's launch on CUDA tensors, as K7 runs it on its
+    destination buffer: updates layer 0 of ``u`` and ``v`` and ``t`` in
+    place and writes ``gt_out`` from ``gt``.  ``table``: :func:`physics_table`
+    on the fields' device.  Raises on CPU tensors."""
+    L, H, W = geom.layers, geom.height, geom.width
+    fields = (p, u, v, t, gt, gt_out)
+    if on_cpu("column_physics", fields + (utc_s,)):
+        raise ValueError("column_physics_inplace: CUDA tensors expected")
+    check_args("column_physics", fields, [(H, W)] + [(L, H, W)] * 3
+               + [(H, W)] * 2, geom)
+    device, dtype = p.device, p.dtype
+    if utc_s.device != device or utc_s.dtype != dtype or utc_s.dim() != 0:
+        raise ValueError(f"column_physics: utc_s must be a 0-dim {dtype} "
+                         f"tensor on {device}")
+    _check_lat_lon("column_physics", geom, dtype, device)
+    _check_table("column_physics", table, device)
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _function("gcm_column_physics", dtype == torch.float64)(
+            int(dtype == torch.float64), pointer_array(fields),
+            geom.lat.data_ptr(), geom.long.data_ptr(), utc_s.data_ptr(),
+            table.data_ptr(), L, H, W, ctypes.byref(count),
+            torch.cuda.current_stream(device).cuda_stream)
+    column_physics.launches += count.value
+    if err != 0:
+        raise RuntimeError(
+            f"column_physics kernel launch failed: CUDA error {err}")
+
+
+# every launch of the epilogue, counted where the C entries make it
+column_physics.launches = 0
+
+
 class StreamSteps(MegaStep):
     """The 'stream' launch of one geometry: ``StreamSteps(geom, dt,
     physics=...)(S, utc0, k)`` runs :func:`stream_steps` with the filter
     buffers of :class:`MegaStep`, the physics table and the scratch it
-    holds (the scratch is made at the first call on a card and reused by
-    every later one)."""
+    holds (both made at the first call on a card and reused by every later
+    one)."""
 
     def __init__(self, geom, dt, coriolis=False, q_limiter=False,
                  physics=None):
         super().__init__(geom, dt, coriolis=coriolis, q_limiter=q_limiter)
         self.physics = physics
-        self.table = (None if physics is None
-                      else physics_table(physics, self.dt))
-        self.scratch = None
+        self.scratch = self.table = None
 
     def forward(self, S, utc0, k):
-        scratch = None
+        scratch = table = None
         if S.device.type == "cuda":
             if (self.scratch is None or self.scratch[0].dtype != S.dtype
                     or self.scratch[0].device != S.device):
                 self.scratch = new_scratch(self.geom, S.dtype, S.device)
-            scratch = self.scratch
+                self.table = (None if self.physics is None else
+                              physics_table(self.physics, self.dt, S.device))
+            scratch, table = self.scratch, self.table
         return stream_steps(S, utc0, k, self.dt, self.geom, self.consts,
                             coriolis=self.coriolis, q_limiter=self.q_limiter,
-                            physics=self.physics, table=self.table,
+                            physics=self.physics, table=table,
                             scratch=scratch)
 
 

@@ -9,6 +9,7 @@ without a card) and by chip_smoke.py.
 
 import os
 import shutil
+import types
 import warnings
 
 import jax.numpy as jnp
@@ -193,6 +194,74 @@ def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
     with open(tmp_path / "gcm_stencil.cuh", "a") as f:
         f.write("// edited\n")
     assert cuda_lib.library_path("fused_parts")[1] != lib
+
+
+def test_float64_library_links_the_contracted_pow(tmp_path, monkeypatch):
+    """Each source's float64 library is its own build, relocatable device
+    code with csrc/gcm_pow.cu's double pow, named by that source too."""
+    assert cuda_lib.library_name("fused_parts", False) == "fused_parts"
+    name = cuda_lib.library_name("fused_parts", True)
+    src, lib = cuda_lib.library_path(name)
+    assert src == cuda_lib.library_path("fused_parts")[0]
+    assert lib != cuda_lib.library_path("fused_parts")[1]
+    assert "-rdc=true" in cuda_lib.FLOAT64_FLAGS
+    assert "-fmad=false" not in cuda_lib.POW_FLAGS
+    for fname in ("fused_parts.cu", "gcm_stencil.cuh", "gcm_pow.cu"):
+        shutil.copy(os.path.join(cuda_lib.CSRC_DIR, fname), tmp_path / fname)
+    monkeypatch.setattr(cuda_lib, "CSRC_DIR", str(tmp_path))
+    before = [cuda_lib.library_path(n)[1] for n in ("fused_parts", name)]
+    with open(tmp_path / "gcm_pow.cu", "a") as f:
+        f.write("// edited\n")
+    after = [cuda_lib.library_path(n)[1] for n in ("fused_parts", name)]
+    assert after[0] == before[0] and after[1] != before[1]
+
+
+def test_only_sources_that_call_power_get_a_float64_library(tmp_path,
+                                                            monkeypatch):
+    """The float64 library is worked out from the sources: a source whose
+    code (or an included header's) calls power has one, the FFT filter,
+    which does not, launches both types from its one library."""
+    for source in ("fused_parts", "mega_step", "stream_steps", "pgf_rest",
+                   "mega_half"):
+        assert cuda_lib.calls_power(source)
+        assert cuda_lib.library_name(source, True) == source + "-f64"
+    assert not cuda_lib.calls_power("fft_filter")
+    assert cuda_lib.library_name("fft_filter", True) == "fft_filter"
+    defines, calls = tmp_path / "defines", tmp_path / "calls"
+    for d in (defines, calls):
+        d.mkdir()
+        (d / "a.cu").write_text('#include "b.cuh"\n// power(x, y)\n')
+    (defines / "b.cuh").write_text(
+        "__device__ float power(float x, float y) { return powf(x, y); }\n")
+    (calls / "b.cuh").write_text('#include "c.cuh"\n#include <math.h>\n')
+    (calls / "c.cuh").write_text("float f(float x) { return power(x, 2.f); }")
+    monkeypatch.setattr(cuda_lib, "CSRC_DIR", str(defines))
+    assert cuda_lib.library_name("a", True) == "a"
+    monkeypatch.setattr(cuda_lib, "CSRC_DIR", str(calls))
+    assert cuda_lib.library_name("a", True) == "a-f64"
+    assert cuda_lib.library_name("a", False) == "a"
+
+
+def test_build_keeps_the_compiler_log_beside_the_library(tmp_path,
+                                                         monkeypatch):
+    """nvcc's log (ptxas' report) is moved into place with the library, so
+    a library found built still has its report."""
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_lib, "nvcc_path", lambda: "nvcc")
+
+    def run(cmd, **kw):
+        with open(cmd[cmd.index("-o") + 1], "w") as f:
+            f.write("library")
+        return types.SimpleNamespace(returncode=0, stdout="ptxas info: log")
+
+    monkeypatch.setattr(cuda_lib.subprocess, "run", run)
+    assert cuda_lib.build_log("fft_filter") is None
+    assert cuda_lib.build("fft_filter") == "ptxas info: log"
+    assert cuda_lib.build("fft_filter") is None  # found built
+    assert cuda_lib.build_log("fft_filter") == "ptxas info: log"
+    assert sorted(os.listdir(tmp_path)) == [
+        os.path.basename(cuda_lib.library_path("fft_filter")[1]) + ext
+        for ext in ("", ".log")]
 
 
 def test_build_many_builds_every_source(monkeypatch):

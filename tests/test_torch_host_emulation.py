@@ -3,13 +3,19 @@
 ``torch_host_emulation`` (beside this file) builds ``csrc/*.cu`` with the host
 compiler (skipped without ``g++``) against an emulation of the CUDA subset
 they use, and the wrappers take CPU tensors down their kernel paths.  K1,
-K4 and the rest stencil alone (the tiled stencil in both of its forms) and
-K6 (a whole step's ten launches, the FFT filter among them) are held
-against their plain versions at float64 on grids off the tiles and smaller
-than one: K4 and the rest stencil to the bit where no ``sin`` enters, and
-otherwise within 1e-12 of each field's scale, since the host's ``pow`` and
-``sin`` round apart from PyTorch's.  The rest stencil's launches are
-counted where the C entries make them.
+K4 and the rest stencil alone (the tiled stencil in both of its forms), K5
+(a half step's four launches), K6 (a whole step's eight, the FFT filter
+among them) and K7 with its physics are held against their plain versions
+at float64 on grids off the tiles and smaller than one: K4 and the rest
+stencil to the bit where no ``sin`` enters, and otherwise within 1e-12 of
+each field's scale (1e-11 after a K5 half, a K6 step or a K7 call), since
+the host's ``pow`` and ``sin`` round apart from PyTorch's.  K3, the pgf tile, is held to the bit at float32 and
+float64 against its plain version with the host's ``pow`` (``host_pow``),
+its one library function.  The column-physics epilogue alone is held
+within 1e-14 (float64) and 1e-6 (float32) of each field's scale: its
+``pow``, ``log``, ``sin`` and ``cos`` are the host's.  The launches of the
+pgf tile, the rest stencil and the epilogue are counted where the C
+entries make them.
 """
 
 import shutil
@@ -25,8 +31,9 @@ from gcmiipy_tpu_torch.ops import fused_parts as fp
 from gcmiipy_tpu_torch.ops import mega_step as ms
 from gcmiipy_tpu_torch.ops import pgf_rest as pr
 from gcmiipy_tpu_torch.ops import polar_filter
+from gcmiipy_tpu_torch.ops import stream_steps as ss
 from gcmiipy_tpu_torch.ops.fft_filter import fft_filter_ref
-from torch_host_emulation import kernels_on_cpu, rewrite_launches
+from torch_host_emulation import host_pow, kernels_on_cpu, rewrite_launches
 
 torch.set_num_threads(1)
 
@@ -41,7 +48,7 @@ def build_dir(tmp_path_factory):
     return str(tmp_path_factory.mktemp("host_emulation"))
 
 
-def _geom(shape, hill):
+def _geom(shape, hill, dtype=torch.float64):
     L, H, W = shape
     hm = None
     if hill:
@@ -49,7 +56,7 @@ def _geom(shape, hill):
         hm[H // 4:H // 2 + 1, W // 8:W // 3] = 1500.0
     return geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
                                  heightmap=hm, dtype=torch.float64,
-                                 device="cpu")
+                                 device="cpu").to(dtype=dtype)
 
 
 def _scaled_err(out, ref):
@@ -132,14 +139,134 @@ def test_mega_step_source_matches_plain_version(build_dir):
     geom = _geom((3, 20, 36), True)
     state = random_prognostics(geom, 55)
     step = ms.MegaStep(geom, DT, coriolis=True, q_limiter=True)
-    before = ms.mega_step.launches, pr.rest_stencil.launches
+    before = (ms.mega_step.launches, pr.rest_stencil.launches,
+              pr.pgf_tile.launches)
     with kernels_on_cpu(build_dir):
         out = step(*state)
-    assert (ms.mega_step.launches, pr.rest_stencil.launches) == (
-        before[0] + 1, before[1] + 2)
+    assert (ms.mega_step.launches, pr.rest_stencil.launches,
+            pr.pgf_tile.launches) == (before[0] + 1, before[1] + 2,
+                                      before[2] + 2)
     fc = step.consts
     ref = ms.mega_step_ref(*state, DT, geom, fc, coriolis=True,
                            q_limiter=True,
                            filter_ref=lambda X: fft_filter_ref(X, fc))
     assert _scaled_err(out, ref) <= 1e-11
     assert bool((out[2][:, -1] == 0).all())
+
+
+def test_mega_half_source_matches_plain_version(build_dir):
+    """K5, a corrector half (the pgf tile, the filter, the aflux column and
+    the rest stencil once each), against mega_half_ref with the kernel's
+    FFT plan."""
+    from gcmiipy_tpu_torch.ops import mega_half as mh
+    geom = _geom((3, 20, 36), True)
+    base, seval = random_prognostics(geom, 61), random_prognostics(geom, 62)
+    half = mh.MegaHalf(geom, DT, coriolis=True, q_limiter=True)
+    before = (mh.mega_half.launches, pr.pgf_tile.launches,
+              pr.rest_stencil.launches)
+    with kernels_on_cpu(build_dir):
+        out = half(base, seval)
+    assert (mh.mega_half.launches, pr.pgf_tile.launches,
+            pr.rest_stencil.launches) == (before[0] + 1, before[1] + 1,
+                                          before[2] + 1)
+    fc = half.consts
+    ref = mh.mega_half_ref(base, seval, DT, geom, fc, coriolis=True,
+                           q_limiter=True,
+                           filter_ref=lambda X: fft_filter_ref(X, fc))
+    assert _scaled_err(out, ref) <= 1e-11
+    assert bool((out[2][:, -1] == 0).all())
+
+
+# kMaxLayers, and a grid off the tiles at both types (19 rows: neither 8
+# nor 16 divides it; 45 columns)
+PGF_GRIDS = GRIDS + [(32, 20, 36), (5, 19, 45)]
+
+
+@pytest.mark.parametrize("hill", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", PGF_GRIDS)
+def test_pgf_parts_source_equals_plain_version_to_the_bit(build_dir, shape,
+                                                         dtype, hill):
+    """K3, one launch of the pgf tile, equals pgf_parts_ref bit for bit
+    when both take the host's pow, and counts its launch."""
+    geom = _geom(shape, hill, dtype)
+    sp, su, _, st, _ = (x.to(dtype) for x in
+                        random_prognostics(_geom(shape, hill), 58))
+    before = pr.pgf_parts.launches, pr.pgf_tile.launches
+    with kernels_on_cpu(build_dir):
+        out = pr.pgf_parts(sp, su, st, geom)
+    assert (pr.pgf_parts.launches, pr.pgf_tile.launches) == (
+        before[0] + 1, before[1] + 1)
+    with host_pow():
+        ref = pr.pgf_parts_ref(sp, su, st, geom)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b), float((a - b).abs().max() / b.abs().max())
+
+
+def _physics_args(shape, dtype, **kw):
+    """The epilogue's arguments: a random state's p, u, v, t, a ground
+    temperature, the clock, the geometry, dt and the parameters."""
+    L, H, W = shape
+    geom = _geom(shape, False)
+    p, u, v, t, _ = random_prognostics(geom, 59)
+    gt = torch.as_tensor(290.0 + 20.0 * np.random.default_rng(59).random(
+        (H, W)))
+    geom = geom.to(dtype=dtype)
+    return (*(x.to(dtype) for x in (p, u, v, t, gt)),
+            torch.tensor(3.1e4, dtype=dtype), geom, DT,
+            ss.make_physics(geom, **kw))
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-14),
+                                         (torch.float32, 1e-6)])
+@pytest.mark.parametrize("shape,kw", [
+    ((9, 13, 140), {}),
+    ((9, 13, 140), {"convection": True}),
+    ((9, 13, 140), {"drag_tau": 7200.0}),
+    ((9, 13, 140), {"convection": True, "drag_tau": 86400.0,
+                    "seasonal": True}),
+    ((32, 4, 36), {"convection": True, "drag_tau": 86400.0})])
+def test_column_physics_source_matches_plain_version(build_dir, shape, kw,
+                                                     dtype, bound):
+    """The epilogue alone (C entry gcm_column_physics) against
+    physics_epilogue_ref, with and without the sweeps and the drag, at a
+    width of two blocks (140) and at kMaxLayers: within ``bound`` of each
+    field's scale, the host's pow, log, sin and cos rounding apart from
+    PyTorch's.  The inputs are not changed."""
+    args = _physics_args(shape, dtype, **kw)
+    kept = [x.clone() for x in args[:5]]
+    before = ss.column_physics.launches
+    with kernels_on_cpu(build_dir):
+        out = ss.column_physics(*args)
+    assert ss.column_physics.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(args[:5], kept))
+    ref = ss.physics_epilogue_ref(*args)
+    assert _scaled_err(out, ref) <= bound
+    moved = float((ref[2] - args[3]).abs().max() / args[3].abs().max())
+    assert moved > 1e-5  # the epilogue did work
+
+
+def test_stream_steps_source_matches_plain_version(build_dir):
+    """K7 with the physics (4 steps: the pgf tile, the filter and the rest
+    stencil twice a step, the epilogue once) against stream_steps_ref with
+    the kernel's FFT plan."""
+    L, H, W = 3, 20, 36
+    geom = _geom((L, H, W), True)
+    gt = torch.as_tensor(290.0 + 20.0 * np.random.default_rng(60).random(
+        (H, W)))
+    packed = ss.pack_state(*random_prognostics(geom, 60), gt=gt)
+    S = torch.stack([packed, torch.zeros_like(packed)])
+    ph = ss.make_physics(geom, drag_tau=86400.0, convection=True,
+                         seasonal=True)
+    fc = ms.build_filter_consts(geom)
+    utc0 = torch.tensor(7200.0, dtype=torch.float64)
+    counts = (pr.pgf_tile, pr.rest_stencil, ss.column_physics)
+    before = [c.launches for c in counts]
+    with kernels_on_cpu(build_dir):
+        out = ss.stream_steps(S.clone(), utc0, 4, DT, geom, fc,
+                              coriolis=True, physics=ph)
+    assert [c.launches - b for c, b in zip(counts, before)] == [8, 8, 4]
+    ref = ss.stream_steps_ref(S.clone(), utc0, 4, DT, geom, fc,
+                              coriolis=True, physics=ph,
+                              filter_ref=lambda X: fft_filter_ref(X, fc))
+    assert _scaled_err(list(out[0]), list(ref[0])) <= 1e-11

@@ -26,6 +26,7 @@ from gcmiipy_tpu_torch.model import driver
 from gcmiipy_tpu_torch.model.config import ModelConfig
 from gcmiipy_tpu_torch.ops import mega_step as ms
 from gcmiipy_tpu_torch.ops import stream_steps as ss
+from gcmiipy_tpu_torch.ops.fused_parts import MAX_LAYERS
 
 from torch_port_helpers import (
     FIELDS, as_jax, as_torch, assert_close, port_geom, port_state,
@@ -192,6 +193,43 @@ def test_stream_steps_on_cpu_runs_the_plain_version():
     assert torch.equal(out, ref)
     assert ss.stream_steps.launches == before
     assert step.scratch is None
+
+
+def _epilogue_args(jg, tg, physics, seed=3):
+    """p, u, v, t, the ground temperature, the clock, the geometry, dt and
+    the parameters of the epilogue on a random packed state."""
+    packed = torch.as_tensor(_packed(jg, seed, True))
+    p, u, v, t, _ = ss.unpack_state(packed, jg.layers)
+    return (p, u, v, t, packed[-1], torch.tensor(7200.0, dtype=torch.float64),
+            tg, 300.0, _physics_pair(jg, tg, physics)[1])
+
+
+def test_column_physics_on_cpu_runs_the_plain_version():
+    jg = _jgeom()
+    args = _epilogue_args(jg, port_geom(jg), "all")
+    before = ss.column_physics.launches
+    out = ss.column_physics(*args)
+    assert ss.column_physics.launches == before
+    for a, b in zip(out, ss.physics_epilogue_ref(*args)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="CUDA tensors expected"):
+        ss.column_physics_inplace(*args[:5], torch.empty_like(args[4]),
+                                  args[5], args[6], None)
+
+
+def test_physics_table_holds_the_c_layout():
+    """The epilogue's table: the scalars, then each per-layer row padded to
+    kMaxLayers, float64, on the device asked for."""
+    jg = _jgeom()
+    ph = _physics_pair(jg, port_geom(jg), "all")[1]
+    table = ss.physics_table(ph, 300.0)
+    assert table.dtype == torch.float64 and table.device.type == "cpu"
+    assert table.shape == (ss.PHYS_SCALARS + ss.PHYS_ROWS * MAX_LAYERS,)
+    assert float(table[0]) == 300.0  # kDt
+    rows = table[ss.PHYS_SCALARS:].reshape(ss.PHYS_ROWS, MAX_LAYERS)
+    assert rows[0, :3].tolist() == list(ph.sig)
+    assert rows[1, :3].tolist() == list(ph.dsig)
+    assert bool((rows[:, 3:] == 0).all())
 
 
 def test_stream_steps_checks_its_arguments():
@@ -414,3 +452,34 @@ def test_run_model_stream_on_gpu_launches_k7_once_per_call(cuda_device):
     ref = driver.run_model(24, 36, 3, 300.0, 7, device="cpu", config=cfg)
     assert_close(out[:5], [x.numpy() for x in ref[:5]], 1e-11, 1e-11, FIELDS)
     assert_close((out[5].gt,), (ref[5].gt.numpy(),), 1e-11, 1e-11, ("gt",))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12),
+                                         (torch.float32, 1e-6)])
+@pytest.mark.parametrize("physics", ["radiation", "all", "drag"])
+def test_column_physics_matches_plain_version_on_gpu(cuda_device, dtype,
+                                                     bound, physics):
+    """The epilogue alone against physics_epilogue_ref: the same
+    operations in the same order, only pow/log/sin/cos ulps apart.  The
+    plain version moves t (and u with the drag) by ten times the bound or
+    more, so a skipped or mis-scaled term cannot pass."""
+    L, H, W = 3, 24, 36
+    jg = jgeometry.gen_geometry(H, W, L, sig_func=jgeometry.manabe_sig)
+    args = list(_epilogue_args(jg, port_geom(jg), physics, seed=5))
+    args[:6] = [x.to(dtype=dtype, device=cuda_device) for x in args[:6]]
+    args[6] = args[6].to(dtype=dtype, device=cuda_device)
+    before = ss.column_physics.launches
+    out = ss.column_physics(*args)
+    torch.cuda.synchronize()
+    assert ss.column_physics.launches == before + 1
+    ref = ss.physics_epilogue_ref(*args)
+    for name, a, b in zip(("u", "v", "t", "gt"), out, ref):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= bound, (name, err)
+    moved = {"t": (ref[2], args[3])}
+    if args[8].drag_tau:
+        moved["u"] = (ref[0], args[1])
+    for name, (b, x) in moved.items():
+        move = float((b - x).abs().max() / x.abs().max())
+        assert move >= 10 * bound, (name, move)

@@ -408,11 +408,13 @@ def test_mega4_step_on_an_edge_grid_matches_plain_version_on_gpu(
     geom = edge_geom((9, 24, 36)).to(dtype=dtype, device=cuda_device)
     state = random_prognostics(geom, 43)
     step = ms.MegaStep(geom, DT, coriolis=True, q_limiter=True)
-    before = ms.mega_step.launches, pr.rest_stencil.launches
+    before = (ms.mega_step.launches, pr.rest_stencil.launches,
+              pr.pgf_tile.launches)
     out = step(*state)
     torch.cuda.synchronize()
-    assert (ms.mega_step.launches, pr.rest_stencil.launches) == (
-        before[0] + 1, before[1] + 2)
+    assert (ms.mega_step.launches, pr.rest_stencil.launches,
+            pr.pgf_tile.launches) == (before[0] + 1, before[1] + 2,
+                                      before[2] + 2)
     fc = step.consts
     ref = ms.mega_step_ref(*state, DT, geom, fc, coriolis=True,
                            q_limiter=True,
@@ -444,3 +446,36 @@ def test_rest_stencil_alone_equals_plain_version_on_gpu(cuda_device, dtype,
     ref = pr.rest_stencil_ref(*args, DT, geom, coriolis=True, q_limiter=True)
     for name, a, b in zip(FIELDS[1:], out, ref):
         assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
+def _pgf_on_gpu(device, dtype, shape, hill):
+    """K3 on the card and its plain version, counting the launches."""
+    L, H, W = shape
+    geom = edge_geom(shape) if hill else geometry.gen_geometry(
+        H, W, L, sig_func=geometry.manabe_sig, dtype=torch.float64,
+        device="cpu")
+    seval = random_prognostics(geom, 48)
+    sp, su, st = (x.to(device=device, dtype=dtype)
+                  for x in (seval[0], seval[1], seval[3]))
+    geom = geom.to(dtype=dtype, device=device)
+    before = pr.pgf_parts.launches, pr.pgf_tile.launches
+    out = pr.pgf_parts(sp, su, st, geom)
+    torch.cuda.synchronize()
+    assert (pr.pgf_parts.launches, pr.pgf_tile.launches) == (
+        before[0] + 1, before[1] + 1)
+    return out, pr.pgf_parts_ref(sp, su, st, geom)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hill", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(9, 512, 1024)] + EDGE_GRIDS)
+def test_pgf_tile_equals_plain_version_on_gpu(cuda_device, dtype, shape,
+                                              hill):
+    """K3, one launch of the pgf tile, equals pgf_parts_ref bit for bit on
+    the main path's grid and the edge grids (at float64 through the
+    library whose double pow rounds as PyTorch's), and counts its launch
+    where its C entry makes it."""
+    out, ref = _pgf_on_gpu(cuda_device, dtype, shape, hill)
+    for name, a, b in zip(("stack", "pg_phiv"), out, ref):
+        assert torch.equal(a, b), (name, int((a != b).sum()))

@@ -12,11 +12,15 @@ tensors down their kernel path and call the emulated library::
 
 It checks what the sources compute (indexing, tiles, halos, the order of
 their stages).  The card's own ``pow`` and ``sin``, its memory model and
-anything about speed only a card shows.
+anything about speed only a card shows.  Inside :func:`host_pow` a plain
+version's ``x ** c`` calls the C library's ``pow``/``powf``, which the
+emulated kernels call, so that a kernel and its plain version can be held
+to the bit where ``pow`` is the only function they share.
 """
 
 import contextlib
 import ctypes
+import ctypes.util
 import hashlib
 import os
 import re
@@ -196,9 +200,11 @@ def kernels_on_cpu(build_dir, flags=()):
     libraries = {}
 
     def load(name):
-        if name not in libraries:
-            libraries[name] = ctypes.CDLL(build(name, build_dir, flags))
-        return libraries[name]
+        # one emulated library serves both types: the host has one pow
+        source = name.removesuffix(cuda_lib.FLOAT64)
+        if source not in libraries:
+            libraries[source] = ctypes.CDLL(build(source, build_dir, flags))
+        return libraries[source]
 
     saved = ([(cuda_lib, "load", cuda_lib.load),
               (torch.cuda, "device", torch.cuda.device),
@@ -215,3 +221,31 @@ def kernels_on_cpu(build_dir, flags=()):
     finally:
         for owner, attr, value in saved:
             setattr(owner, attr, value)
+
+
+_LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+_LIBM.pow.restype, _LIBM.pow.argtypes = ctypes.c_double, [ctypes.c_double] * 2
+_LIBM.powf.restype, _LIBM.powf.argtypes = ctypes.c_float, [ctypes.c_float] * 2
+
+
+@contextlib.contextmanager
+def host_pow():
+    """Within the block, ``tensor ** c`` with a Python float ``c`` on a
+    float32 or float64 CPU tensor is the C library's ``powf``/``pow`` of
+    each element and ``c`` rounded to the tensor's type, as the emulated
+    kernels compute ``power(x, T(c))``."""
+    pow_ = torch.Tensor.__pow__
+
+    def libm_pow(x, c):
+        if (not isinstance(c, float) or x.device.type != "cpu"
+                or x.dtype not in (torch.float32, torch.float64)):
+            return pow_(x, c)
+        f = _LIBM.pow if x.dtype == torch.float64 else _LIBM.powf
+        out = [f(e, c) for e in x.reshape(-1).tolist()]
+        return torch.tensor(out, dtype=x.dtype).reshape(x.shape)
+
+    torch.Tensor.__pow__ = libm_pow
+    try:
+        yield
+    finally:
+        torch.Tensor.__pow__ = pow_
