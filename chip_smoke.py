@@ -12,21 +12,23 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            into a library and, where its code calls power, a float64
 #            library of its own, ops/cuda_lib.py) and prints ptxas' counts
 #            (from the log kept beside a library found built), failing if
-#            the pgf tile or the column-physics epilogue spills or keeps a
-#            per-layer array on its stack;
+#            the pgf tile, the column-physics epilogue, the rest tile
+#            (tile_stencil<T, RestOut>), K1's tiled launch (tile_stencil<T,
+#            PartsOut>) or K1's column pass spills or keeps a per-layer
+#            array on its stack;
 #   kernels  each kernel against its plain PyTorch version on the card: the
 #            FFT filter stage (fft_filter, against its plain version and
 #            the TPU kernels' banded DFT form), K1 (fused_parts), K6
 #            (mega_step), K7 (stream_steps, with and without its
 #            column-physics epilogue), K3 and K4 (pgf_parts, rest_parts)
 #            and K5 (mega_half, against its plain version with the banded
-#            and with the TPU kernel's unbanded DFT), and the rest stencil
-#            alone (rest_stencil, stage 5 of K4-K7); K1, K3, K4 and the
-#            rest stencil also log whether they equal their plain versions
-#            to the bit, and K3 (pgf_parts: the pgf tile, stages 1-2 of K5,
-#            K6 and K7) must, at the main path's shape and on four edge
-#            grids at both types; K7's column-physics epilogue alone
-#            (column_physics);
+#            and with the TPU kernel's unbanded DFT); K1 logs whether it
+#            equals its plain version to the bit, and K3 (pgf_parts: the
+#            pgf tile, stages 1-2 of K5, K6 and K7), K4 (rest_parts: the
+#            rest tile with its aflux prologue, stages 4-5 of K5, K6 and
+#            K7), K1 and K1's column pass alone (pgf_column) must, at the
+#            main path's shape and on four edge grids at both types; K7's
+#            column-physics epilogue alone (column_physics);
 #   main     each path with its launch counts set to 0 just before it and
 #            read just after: run_model(512, 1024, 9, 30.0, 20, guard=True)
 #            with backend='fused' (K1) and backend='mega4' (K6), held against
@@ -42,23 +44,25 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            the plain core with the DFT filter and against mega4, from the
 #            quiescent and the perturbed start; then 20 steps of
 #            make_fused_matsuno_v2 (K3, torch.fft, K4) from the perturbed
-#            start against 'fused'; the pgf tile's and the epilogue's
-#            launches are counted where the C entries make them;
+#            start against 'fused'; the launches of the pgf tile, the
+#            filter, the rest tile, the epilogue and K1's two stages are
+#            counted where the C entries make them: six kernel launches a
+#            mega4 step, seven a stream step with the physics;
 #   timing   ms/step of the backends, mega4 and stream also with the
-#            physics (windows of 20 steps between CUDA events, each twice),
-#            the v2 step beside the fused step (dynamics alone), each
-#            kernel's ms beside its bound, its plain version's and, for the
-#            filter stage and the filters of K5, K6 and K7, torch.fft's;
-#            K1's and K4's rows also the device ms of each of their two
-#            launches (torch.profiler, step_profile.kernel_ms), and a row
-#            for the tiled rest stencil of K4-K7 alone
-#            (csrc/stencil_tile.cuh) with its own plain version and bytes
-#            bound, its launches those that the C entries of K4-K7 counted
-#            on the main paths (the rest stencil launches of each path are
-#            also read in the main phase); K3's row is the pgf tile
-#            (csrc/pgf_tile.cuh) with the launches the C entries of K3 and
-#            K5-K7 counted, and a row for the epilogue alone
-#            (csrc/column_physics.cuh), launched in place as K7 does.
+#            physics, mega4 also with the physics every 4th step (windows
+#            of 20 steps between CUDA events, each twice), the v2 step
+#            beside the fused step (dynamics alone), each kernel's ms
+#            beside its bound, its plain version's and, for the filter
+#            stage and the filters of K5, K6 and K7, torch.fft's; K1's,
+#            K3's and K4's rows also the device ms of each of their launches
+#            (torch.profiler, step_profile.kernel_ms); a row for K1's column
+#            pass alone (pgf_column) with its bytes bound; the row of the
+#            rest tile (csrc/stencil_tile.cuh, stages 4-5 of K4-K7) is K4's
+#            launch with the launches that the C entries of K4-K7 counted on
+#            the main paths; K3's row is the pgf tile (csrc/pgf_tile.cuh)
+#            with the launches the C entries of K3 and K5-K7 counted, and a
+#            row for the epilogue alone (csrc/column_physics.cuh), launched
+#            in place as K7 does.
 # The line before the last is the kernels JSON, the last the result JSON.
 # Imports nothing of JAX: the card's machine needs none.
 
@@ -221,10 +225,28 @@ def phase_device():
     return card, kind
 
 
+# The kernels that phase build holds to ptxas' report: a name, the source
+# whose libraries hold it, and the mangled-name piece of each type's
+# instantiation (float, double)
+REDESIGNED = (
+    ("pgf_tile", "pgf_rest", "pgf_tileIfEEv", "pgf_tileIdEEv"),
+    ("column_physics", "stream_steps", "column_physicsIfEEv",
+     "column_physicsIdEEv"),
+    ("tile_stencil<T, RestOut>", "pgf_rest",
+     "tile_stencilIfNS_7RestOutIfEEEEv", "tile_stencilIdNS_7RestOutIdEEEEv"),
+    ("tile_stencil<T, PartsOut>", "fused_parts",
+     "tile_stencilIfNS_8PartsOutIfEEEEv", "tile_stencilIdNS_8PartsOutIdEEEEv"),
+    ("column_pass (K1)", "fused_parts", "column_passIfEEv",
+     "column_passIdEEv"),
+)
+
+
 def phase_build():
     """Every source at once (one nvcc each), with ptxas' register counts;
-    fails if the pgf tile or the column-physics epilogue spills or keeps a
-    stack frame of a per-layer array (kMaxLayers values of its type)."""
+    fails if a kernel of REDESIGNED (the pgf tile, the column-physics
+    epilogue, the rest tile, K1's tiled launch and column pass) spills or
+    keeps a stack frame of a per-layer array (kMaxLayers values of its
+    type)."""
     from gcmiipy_tpu_torch.ops import cuda_lib
     t = time.perf_counter()
     # a source whose code calls power has a float64 library of its own
@@ -242,10 +264,8 @@ def phase_build():
                      f"{seconds:.1f}s")
     log("build", f"all sources in {time.perf_counter() - t:.1f}s "
                  f"({cuda_lib.BUILD_DIR})")
-    redesigned = {"pgf_tile": "pgf_rest", "column_physics": "stream_steps"}
-    for kernel, source in redesigned.items():
-        for dtype, mangled, size in (("float", "IfEEv", 4),
-                                     ("double", "IdEEv", 8)):
+    for kernel, source, key_f, key_d in REDESIGNED:
+        for dtype, key, size in (("float", key_f, 4), ("double", key_d, 8)):
             # each type from the library its tensors launch
             name = cuda_lib.library_name(source, dtype == "double")
             # a library found built is read from the log kept beside it
@@ -253,14 +273,14 @@ def phase_build():
             if text is None:
                 fail("build", f"{name} was found built without its compiler "
                               "log: no ptxas report to check")
-            usage = ptxas_usage(text, kernel + mangled)
-            log("build", f"{kernel}<{dtype}>: {usage['registers']} registers, "
+            usage = ptxas_usage(text, key)
+            log("build", f"{kernel} {dtype}: {usage['registers']} registers, "
                          f"{usage['stack']} bytes stack frame, "
                          f"{usage['spill_stores']} bytes spill stores, "
                          f"{usage['spill_loads']} bytes spill loads")
             if (usage["spill_stores"] or usage["spill_loads"]
                     or usage["stack"] >= 32 * size):
-                fail("build", f"{kernel}<{dtype}> spills or keeps a per-layer "
+                fail("build", f"{kernel} {dtype} spills or keeps a per-layer "
                               "array on its stack")
 
 
@@ -581,47 +601,95 @@ def k3k4_inputs(shape, dtype, hill, device):
     return geom, base, seval, polar_filter.arakawa_1977(stack, geom), pg_phiv
 
 
-# Grids off every tile multiple (32 columns, 8 rows a tile at float32 and 16
-# at float64), smaller than one tile, and kMaxLayers
+# Grids off every tile multiple (32 columns, 8 rows a tile), smaller than
+# one tile, and kMaxLayers
 EDGE_GRIDS = ((9, 24, 36), (3, 20, 100), (1, 2, 36), (32, 16, 128))
 
 
-def phase_kernels_pgf(device):
-    """K3, the pgf tile of K3 and K5-K7, against its plain version bit for
-    bit: at the main path's shape and on the edge grids, float32 and
-    float64 (whose library takes PyTorch's rounding of double pow,
-    csrc/gcm_pow.cu), flat and with a hill."""
-    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts, pgf_parts_ref, pgf_tile
+def _bits(tag, out, ref, counter, before):
+    """Fail unless the kernel's outputs equal its plain version's to the
+    bit and its stage launched once (``counter.launches`` from
+    ``before``)."""
+    if counter.launches != before + 1:
+        fail("kernels", f"{tag}: launched {counter.launches - before} times")
+    if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(out, ref)):
+        fail("kernels", f"{tag}: output shapes differ")
+    if not all(torch.isfinite(a).all() for a in out):
+        fail("kernels", f"{tag}: output not finite")
+    if not bit_equal(out, ref):
+        differ = [int((a != b).sum()) for a, b in zip(out, ref)]
+        fail("kernels", f"{tag}: not equal to its plain version to the bit "
+                        f"(max rel {rel_err(out, ref):.3e}; {differ} "
+                        "elements differ)")
+
+
+def phase_kernels_bits(device):
+    """The tiled kernels against their plain versions bit for bit, at the
+    main path's shape and on the edge grids, float32 and float64 (whose
+    libraries take PyTorch's rounding of double pow, csrc/gcm_pow.cu),
+    flat and with a hill: K3 (the pgf tile of K3 and K5-K7), K4 (the rest
+    tile of K4-K7, aflux in its prologue) and K1 (its column pass, then its
+    tiled launch with the aflux prologue) with Coriolis and the q limiter,
+    and K1's column pass alone.  Returns the float32 main-shape errors
+    (all 0 when it passes)."""
+    from gcmiipy_tpu_torch.dynamics import core25d
+    from gcmiipy_tpu_torch.ops import fused_parts as fp, polar_filter
+    from gcmiipy_tpu_torch.ops.pgf_rest import (
+        pgf_parts, pgf_parts_ref, pgf_tile, rest_parts, rest_parts_ref,
+        rest_stencil)
     main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
-    cases = 0
+    flags = dict(coriolis=True, q_limiter=True)
+    cases, main_abs = 0, {}
     for shape in (main_shape,) + EDGE_GRIDS:
         for dtype in (torch.float32, torch.float64):
             for hill in (False, True):
-                geom, args = k1_inputs(shape, dtype, hill, device)
-                sp, su, st = args[5], args[6], args[8]
+                geom, base, seval, filt, pg_phiv = k3k4_inputs(
+                    shape, dtype, hill, device)
+                spu = polar_filter.arakawa_1977(
+                    core25d.calc_pu(seval[0], seval[1]), geom)
+                sp, su, st = seval[0], seval[1], seval[3]
+                tag = f"{tuple(shape)} {str(dtype)[6:]} hill={hill}"
+                outs = {}
                 before = pgf_tile.launches
                 out = pgf_parts(sp, su, st, geom)
                 torch.cuda.synchronize()
-                ref = pgf_parts_ref(sp, su, st, geom)
-                tag = f"pgf_parts {tuple(shape)} {str(dtype)[6:]} hill={hill}"
-                if pgf_tile.launches != before + 1:
-                    fail("kernels", f"{tag}: pgf_tile launched "
-                                    f"{pgf_tile.launches - before} times")
-                if any(tuple(a.shape) != tuple(b.shape)
-                       for a, b in zip(out, ref)):
-                    fail("kernels", f"{tag}: output shapes differ")
-                if not all(torch.isfinite(a).all() for a in out):
-                    fail("kernels", f"{tag}: output not finite")
-                if not bit_equal(out, ref):
-                    differ = [int((a != b).sum()) for a, b in zip(out, ref)]
-                    fail("kernels", f"{tag}: not equal to pgf_parts_ref to the "
-                                    f"bit (max rel {rel_err(out, ref):.3e}; "
-                                    f"{differ} elements differ)")
+                outs["pgf_parts"] = out, pgf_parts_ref(sp, su, st, geom)
+                _bits(f"pgf_parts {tag}", *outs["pgf_parts"], pgf_tile, before)
+                before = rest_stencil.launches
+                k4_args = (*base, *seval, filt, pg_phiv, MAIN["dt"], geom)
+                out = rest_parts(*k4_args, **flags)
+                torch.cuda.synchronize()
+                outs["rest_parts"] = out, rest_parts_ref(*k4_args, **flags)
+                _bits(f"rest_parts {tag}", *outs["rest_parts"], rest_stencil,
+                      before)
+                before = fp.parts_stencil.launches, fp.column_pass.launches
+                k1_args = (*base, *seval, spu, MAIN["dt"], geom)
+                out = fp.fused_parts(*k1_args, **flags)
+                torch.cuda.synchronize()
+                outs["fused_parts"] = out, fp.fused_parts_ref(*k1_args, **flags)
+                _bits(f"fused_parts {tag}", *outs["fused_parts"],
+                      fp.parts_stencil, before[0])
+                if fp.column_pass.launches != before[1] + 1:
+                    fail("kernels", f"fused_parts {tag}: column pass launched "
+                                    f"{fp.column_pass.launches - before[1]} "
+                                    "times")
+                before = fp.column_pass.launches
+                out = fp.pgf_column(sp, st, geom)
+                torch.cuda.synchronize()
+                outs["pgf_column"] = out, core25d.pgf_column(sp, st, geom)
+                _bits(f"pgf_column {tag}", *outs["pgf_column"], fp.column_pass,
+                      before)
+                if shape == main_shape and dtype == torch.float32:
+                    for name, (o, r) in outs.items():
+                        main_abs[name] = max(main_abs.get(name, 0.0),
+                                             abs_err(o, r))
                 cases += 1
-    log("kernels", f"pgf_parts (the pgf tile) equals pgf_parts_ref to the "
-                   f"bit in {cases} cases: {main_shape} and "
-                   f"{', '.join(map(str, EDGE_GRIDS))}, float32 and float64, "
-                   "flat and with a hill")
+    log("kernels", f"pgf_parts (the pgf tile), rest_parts (the rest tile), "
+                   f"fused_parts and pgf_column (K1's column pass) equal their "
+                   f"plain versions to the bit in {cases} cases each: "
+                   f"{main_shape} and {', '.join(map(str, EDGE_GRIDS))}, "
+                   "float32 and float64, flat and with a hill")
+    return main_abs
 
 
 def physics_inputs(shape, dtype, device, seed=2, **kw):
@@ -701,20 +769,19 @@ def phase_kernels_physics(device):
 
 
 def phase_kernels_k3k4(device):
-    """K3, K4 and the rest stencil alone (on the p_n and sd of K4's plain
-    first stage) against their plain versions: float32 at the main path's
-    shape (flat; a hill with Coriolis; the q limiter) and float64 on two
-    small grids, every flag on.  K4 leaves v's wall row to its caller."""
+    """K3 and K4 (one launch of the rest tile, aflux in its prologue)
+    against their plain versions: float32 at the main path's shape (flat;
+    a hill with Coriolis; the q limiter) and float64 on two small grids,
+    every flag on.  K4 leaves v's wall row to its caller."""
     from gcmiipy_tpu_torch.ops.pgf_rest import (
-        pgf_parts, pgf_parts_ref, rest_column_ref, rest_parts,
-        rest_parts_ref, rest_stencil, rest_stencil_ref)
+        pgf_parts, pgf_parts_ref, rest_parts, rest_parts_ref)
     main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
     cases = [(main_shape, torch.float32, False, False, False),
              (main_shape, torch.float32, True, False, True),
              (main_shape, torch.float32, False, True, False),
              ((3, 16, 128), torch.float64, True, True, True),
              ((9, 24, 36), torch.float64, True, True, True)]
-    worst, main_abs = {}, {"k3": 0.0, "k4": 0.0, "stage": 0.0}
+    worst, main_abs = {}, {"k3": 0.0, "k4": 0.0}
     for shape, dtype, coriolis, q_limiter, hill in cases:
         geom, base, seval, filt, pg_phiv = k3k4_inputs(shape, dtype, hill,
                                                        device)
@@ -722,22 +789,14 @@ def phase_kernels_k3k4(device):
         k3 = pgf_parts(sp, su, st, geom)
         rest_args = (*base, *seval, filt, pg_phiv, MAIN["dt"], geom)
         k4 = rest_parts(*rest_args, coriolis=coriolis, q_limiter=q_limiter)
-        p_n, sd = rest_column_ref(base[0], sp, seval[2], filt, MAIN["dt"],
-                                  geom)
-        stage_args = (*base, *seval, filt, pg_phiv, p_n, sd, MAIN["dt"], geom)
-        stage = rest_stencil(*stage_args, coriolis=coriolis,
-                             q_limiter=q_limiter)
         torch.cuda.synchronize()
         ref3 = pgf_parts_ref(sp, su, st, geom)
         ref4 = rest_parts_ref(*rest_args, coriolis=coriolis,
                               q_limiter=q_limiter)
-        ref_stage = rest_stencil_ref(*stage_args, coriolis=coriolis,
-                                     q_limiter=q_limiter)
         tag = (f"{tuple(shape)} {str(dtype)[6:]} coriolis={coriolis} "
                f"q_limiter={q_limiter} hill={hill}")
         for name, out, ref in (("pgf_parts", k3, ref3),
-                               ("rest_parts", k4, ref4),
-                               ("rest_stencil", stage, ref_stage)):
+                               ("rest_parts", k4, ref4)):
             if any(tuple(a.shape) != tuple(b.shape) for a, b in zip(out, ref)):
                 fail("kernels", f"{name} output shapes differ")
             if not all(torch.isfinite(a).all() for a in out):
@@ -748,7 +807,7 @@ def phase_kernels_k3k4(device):
                            f"{bit_equal(out, ref)}")
             if not rel <= KERNEL_REL[dtype]:
                 fail("kernels", f"{name} {tag} disagrees with its plain version")
-            if name == "pgf_parts" and not bit_equal(out, ref):
+            if not bit_equal(out, ref):
                 fail("kernels", f"{name} {tag} not equal to the bit")
             worst[name, dtype] = max(worst.get((name, dtype), 0.0), rel)
         if bool((k4[2][:, -1] == 0).all()):
@@ -756,9 +815,7 @@ def phase_kernels_k3k4(device):
         if dtype == torch.float32:
             main_abs["k3"] = max(main_abs["k3"], abs_err(k3, ref3))
             main_abs["k4"] = max(main_abs["k4"], abs_err(k4, ref4))
-            main_abs["stage"] = max(main_abs["stage"],
-                                    abs_err(stage, ref_stage))
-    log("kernels", "pgf_parts, rest_parts and rest_stencil ok: max rel " + ", ".join(
+    log("kernels", "pgf_parts and rest_parts ok: max rel " + ", ".join(
         f"{n} {str(d)[6:]} {r:.3e}" for (n, d), r in worst.items()))
     return main_abs
 
@@ -908,10 +965,12 @@ def phase_main(device):
     from gcmiipy_tpu_torch.dynamics import core25d, fused
     from gcmiipy_tpu_torch.grid import geometry
     from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
-    from gcmiipy_tpu_torch.ops.fused_parts import fused_parts
+    from gcmiipy_tpu_torch.ops.fused_parts import (
+        column_pass, fused_parts, parts_stencil)
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
     from gcmiipy_tpu_torch.ops.pgf_rest import pgf_tile, rest_stencil
-    kernels = (fused_parts, mega_step, fft_filter, rest_stencil, pgf_tile)
+    kernels = (fused_parts, mega_step, fft_filter, rest_stencil, pgf_tile,
+               column_pass, parts_stencil)
     n = MAIN["steps"]
     launches = {}
 
@@ -919,14 +978,16 @@ def phase_main(device):
     (fused_n, stats), counts = _counted(kernels, lambda: _run_model(
         "fused", device, n))
     launches["fused_parts"] = counts[0]
+    launches["column_pass"] = counts[5]
     log("main", f"run_model fused {n} steps in {time.perf_counter() - t:.2f}s, "
                 f"launches fused_parts {counts[0]} mega_step {counts[1]} "
                 f"fft_filter {counts[2]} rest_stencil {counts[3]} pgf_tile "
-                f"{counts[4]}, total energy drift "
+                f"{counts[4]} column_pass {counts[5]} parts_stencil "
+                f"{counts[6]}, total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [2 * n, 0, 0, 0, 0]:
+    if counts != [2 * n, 0, 0, 0, 0, 2 * n, 2 * n]:
         fail("main", f"run_model fused launched {counts}, expected "
-                     f"[{2 * n}, 0, 0, 0, 0]")
+                     f"[{2 * n}, 0, 0, 0, 0, {2 * n}, {2 * n}]")
 
     t = time.perf_counter()
     (mega_n, stats), counts = _counted(kernels, lambda: _run_model(
@@ -938,11 +999,14 @@ def phase_main(device):
     log("main", f"run_model mega4 {n} steps in {time.perf_counter() - t:.2f}s, "
                 f"launches fused_parts {counts[0]} mega_step {counts[1]} "
                 f"fft_filter {counts[2]} rest_stencil {counts[3]} pgf_tile "
-                f"{counts[4]}, total energy drift "
+                f"{counts[4]}: {sum(counts[2:5]) / n:g} kernel launches a step, "
+                f"total energy drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
-    if counts != [0, n, 2 * n, 2 * n, 2 * n]:
+    # K6's C entry counts every launch it makes: the pgf tile, the filter
+    # and the rest tile (aflux in its prologue) twice a step, six in all
+    if counts != [0, n, 2 * n, 2 * n, 2 * n, 0, 0]:
         fail("main", f"run_model mega4 launched {counts}, expected "
-                     f"[0, {n}, {2 * n}, {2 * n}, {2 * n}]")
+                     f"[0, {n}, {2 * n}, {2 * n}, {2 * n}, 0, 0]")
 
     xla_n, _ = _run_model("xla", device, n)
     dft_n, _ = _run_model("xla", device, n, "dft")
@@ -978,9 +1042,9 @@ def phase_main(device):
     k2_step = fused.make_fused_matsuno(geom, MAIN["dt"])
     k2_out, counts = _counted(kernels, lambda: k2_step(*prog))
     launches["k2"] = counts[0]
-    if counts != [2, 0, 0, 0, 0]:
+    if counts != [2, 0, 0, 0, 0, 2, 2]:
         fail("main", f"make_fused_matsuno launched {counts}, expected "
-                     "[2, 0, 0, 0, 0]")
+                     "[2, 0, 0, 0, 0, 2, 2]")
     ref = core25d.matsuno_timestep(*prog, MAIN["dt"], geom)
     k2_rel = rel_err(k2_out, ref)
     log("main", f"make_fused_matsuno (K2's path) one step, fused_parts "
@@ -1013,7 +1077,9 @@ def phase_main_stream(device, geom, start):
                 f"{time.perf_counter() - t:.2f}s, launches fused_parts "
                 f"{counts[0]} mega_step {counts[1]} stream_steps {counts[2]} "
                 f"fft_filter {counts[3]} rest_stencil {counts[4]} pgf_tile "
-                f"{counts[5]} column_physics {counts[6]}, total energy drift "
+                f"{counts[5]} column_physics {counts[6]}: "
+                f"{sum(counts[3:]) / n:g} kernel launches a step, total energy "
+                f"drift "
                 f"{float(stats.total_energy[-1] / stats.total_energy[0] - 1):.3e}")
     if counts != [0, 0, 1, 2 * n, 2 * n, 2 * n, n]:
         fail("main", f"run_model stream+physics launched {counts}, "
@@ -1200,7 +1266,7 @@ def phase_timing(device, launches, max_abs, geom, start):
     from gcmiipy_tpu_torch.model.driver import make_run_fn
     from gcmiipy_tpu_torch.ops import polar_filter
     from gcmiipy_tpu_torch.ops.fused_parts import (
-        GEOM_FIELDS, fused_parts, fused_parts_ref)
+        GEOM_FIELDS, fused_parts, fused_parts_ref, pgf_column)
     from gcmiipy_tpu_torch.ops.mega_step import (
         MegaStep, banded_round, mega_step_ref)
     from gcmiipy_tpu_torch.ops.stream_steps import stream_steps_ref
@@ -1208,12 +1274,15 @@ def phase_timing(device, launches, max_abs, geom, start):
 
     # ms/step of the whole loop (make_run_fn with the guard and the stats):
     # windows of STEP_WINDOW steps between CUDA events, no host sync inside
-    # a window, each backend twice, in the order x f m m4 s m4+p s+p, then
-    # back.
+    # a window, each backend twice, in the order x f m m4 s m4+p m4+p/4 s+p,
+    # then back.  mega4+physics/4 runs the per-step physics every 4th step
+    # (the extras skipped off cadence, a host count of the steps).
     configs = {"xla": _config("xla"), "fused": _config("fused"),
                "mega": _config("mega"),
                "mega4": _config("mega4"), "stream": _config("stream"),
                "mega4+physics": _config("mega4", **PHYSICS),
+               "mega4+physics/4": _config("mega4", **dict(PHYSICS,
+                                                          physics_every=4)),
                "stream+physics": _config("stream", **PHYSICS)}
     backends = tuple(configs)
     runs = {b: make_run_fn(geom, c, STEP_WINDOW) for b, c in configs.items()}
@@ -1266,6 +1335,28 @@ def phase_timing(device, launches, max_abs, geom, start):
     rows.append(_row("fused_parts", replaces="gcmiipy_tpu/ops/pallas_stencil.py:221",
                      launches=launches["fused_parts"], max_abs=max_abs["k1"],
                      tag="fused_parts", **k1_timed(args, kgeom)))
+    # K1's column pass alone (pgf_column): reads sp, st and the heightmap,
+    # writes rho and phi; its launches those K1's C entry counted on the
+    # fused path.  Its ms is the launch's device time (torch.profiler): the
+    # wrapper's host work takes longer than the launch, so CUDA events
+    # around back-to-back calls time the host
+    col_args = (args[5], args[8], kgeom)
+    col_launch = kernel_ms(lambda: pgf_column(*col_args))
+    if not sum(col_launch.values()) > 0:
+        fail("timing", "torch.profiler saw no device time of the column pass")
+    log("timing", f"pgf_column by CUDA events over back-to-back calls "
+                  f"{cuda_ms(lambda: pgf_column(*col_args), 50):.4f} ms/call "
+                  "(the wrapper's host work)")
+    rows.append(_row(
+        "fused_parts column pass (pgf_column)",
+        "gcmiipy_tpu_torch/csrc/fused_parts.cu",
+        "gcmiipy_tpu/ops/pallas_stencil.py:221", launches["column_pass"],
+        max_abs["k1_column"], sum(col_launch.values()),
+        cuda_ms(lambda: core25d.pgf_column(*col_args), 10),
+        _bytes((args[5], args[8], kgeom.heightmap,
+                *core25d.pgf_column(*col_args))),
+        {torch.float32: count_ops(core25d.pgf_column, *col_args)}, None,
+        "pgf_column", launch_ms=col_launch))
     # K2's path: the kernel on the inputs of make_fused_matsuno's predictor
     # half from the perturbed start (base and evaluated state both the start)
     spu = polar_filter.arakawa_1977(core25d.calc_pu(prog[0], prog[1]), geom)
@@ -1399,8 +1490,7 @@ def timing_k345(launches, max_abs, geom, prog):
     from gcmiipy_tpu_torch.ops.mega_half import MegaHalf, mega_half_ref
     from gcmiipy_tpu_torch.ops.mega_step import banded_round
     from gcmiipy_tpu_torch.ops.pgf_rest import (
-        pgf_parts, pgf_parts_ref, rest_column_ref, rest_parts,
-        rest_parts_ref, rest_stencil, rest_stencil_ref)
+        pgf_parts, pgf_parts_ref, rest_parts, rest_parts_ref)
     from gcmiipy_tpu_torch.step_profile import kernel_ms
     dt = MAIN["dt"]
     geo = [getattr(geom, n) for n in GEOM_FIELDS]
@@ -1429,45 +1519,35 @@ def timing_k345(launches, max_abs, geom, prog):
         {torch.float32: count_ops(pgf_parts_ref, *k3_args)}, None, "pgf_parts",
         launch_ms=kernel_ms(lambda: pgf_parts(*k3_args))))
 
-    # K4: the 10 fields, the filtered stack and pg_phiv in, 5 fields out
+    # K4, one launch of the rest tile (aflux in its prologue): the 10
+    # fields, the filtered stack and pg_phiv in, 5 fields out
     stack, pg_phiv = outs
     filt = polar_filter.arakawa_1977(stack, geom)
     k4_args = (*prog, *seval, filt, pg_phiv, dt, geom)
     outs = rest_parts_ref(*k4_args)
-    k4_launch = kernel_ms(lambda: rest_parts(*k4_args))
+    k4 = dict(max_abs=max_abs["k4"],
+              ms=cuda_ms(lambda: rest_parts(*k4_args), 50),
+              plain_ms=cuda_ms(lambda: rest_parts_ref(*k4_args), 10),
+              nbytes=_bytes((*k4_args[:12], *geo, *outs)),
+              ops={torch.float32: count_ops(rest_parts_ref, *k4_args)},
+              library_ms=None,
+              launch_ms=kernel_ms(lambda: rest_parts(*k4_args)))
     rows.append(_row(
         "rest_parts", "gcmiipy_tpu_torch/csrc/pgf_rest.cu",
         "gcmiipy_tpu/ops/pallas_stencil.py:492", launches["rest_parts"],
-        max_abs["k4"], cuda_ms(lambda: rest_parts(*k4_args), 50),
-        cuda_ms(lambda: rest_parts_ref(*k4_args), 10),
-        _bytes((*k4_args[:12], *geo, *outs)),
-        {torch.float32: count_ops(rest_parts_ref, *k4_args)}, None,
-        "rest_parts", launch_ms=k4_launch))
-
-    # the rest stencil alone (stage 5 of K4-K7, the tiled launch of
-    # csrc/stencil_tile.cuh) on the p_n and sd of K4's plain first stage:
-    # reads the 10 fields, the filtered stack, pg_phiv, p_n and sd and
-    # writes u, v, t, q.  Its launches are those the C entries of K4, K5,
-    # K6 and K7 counted on the main paths (two a step each).
-    p_n, sd = rest_column_ref(prog[0], seval[0], seval[2], filt, dt, geom)
-    stage_args = (*prog, *seval, filt, pg_phiv, p_n, sd, dt, geom)
-    stage_out = rest_stencil_ref(*stage_args)
+        tag="rest_parts", **k4))
+    # the same launch as stages 4-5 of K5, K6 and K7 (csrc/stencil_tile.cuh,
+    # tile_stencil<T, RestOut>): its launches those the C entries of K4-K7
+    # counted on the main paths (two a step each)
     paths = ("mega4", "stream", "mega", "v2")
     stage_launches = sum(launches[f"rest_stencil {p}"] for p in paths)
-    log("timing", "rest stencil launches on the main paths: " + ", ".join(
-        f"{p} {launches[f'rest_stencil {p}']}" for p in paths)
-        + "; its device ms in K4's calls (torch.profiler): " + ", ".join(
-            f"{k} {v:.4f}" for k, v in k4_launch.items()
-            if "tile_stencil" in k))
+    log("timing", "rest tile launches on the main paths: " + ", ".join(
+        f"{p} {launches[f'rest_stencil {p}']}" for p in paths))
     rows.append(_row(
-        "rest_stencil (stage 5 of K4-K7)",
+        "rest_stencil (the rest tile, stages 4-5 of K4-K7)",
         "gcmiipy_tpu_torch/csrc/stencil_tile.cuh",
         "gcmiipy_tpu/ops/pallas_stencil.py:1199", stage_launches,
-        max_abs["stage"], cuda_ms(lambda: rest_stencil(*stage_args), 50),
-        cuda_ms(lambda: rest_stencil_ref(*stage_args), 10),
-        _bytes((*stage_args[:14], *geo, *stage_out)),
-        {torch.float32: count_ops(rest_stencil_ref, *stage_args)}, None,
-        "rest_stencil", launch_ms=kernel_ms(lambda: rest_stencil(*stage_args))))
+        tag="rest_stencil", **k4))
 
     # K5: one corrector half; the float32 elementwise operations of the
     # plain version (the banded DFT, its factors built once) and the FFT
@@ -1525,7 +1605,7 @@ def main():
     max_abs["k6"] = phase_kernels_k6(device)
     max_abs["k7"] = phase_kernels_k7(device)
     max_abs.update(phase_kernels_k3k4(device))
-    phase_kernels_pgf(device)
+    max_abs["k1_column"] = phase_kernels_bits(device)["pgf_column"]
     max_abs["physics"] = phase_kernels_physics(device)
     max_abs["k5"] = phase_kernels_k5(device)
     launches, geom, start, max_abs["k2"], runs = phase_main(device)

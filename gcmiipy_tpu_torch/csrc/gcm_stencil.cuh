@@ -1,9 +1,11 @@
 // Device code shared by the port's stencil kernels: the column recurrences
-// and the pgf forces of one half step of the 2.5D core
+// (aflux_column, the rest tile's prologue; pgf_column, the pgf tile's and
+// K1's column pass) and the pgf forces of one half step of the 2.5D core
 // (gcmiipy_tpu_torch/dynamics/core25d.py); the point stencils are in
 // stencil_tile.cuh and pgf_tile.cuh.  K1 (fused_parts.cu) and K3-K7
 // (mega_stages.cuh) build their stages from these pieces, so the kernels
-// round every expression alike.
+// round every expression alike.  Neither recurrence keeps a per-layer
+// array: its values go to the caller's planes as they are formed.
 //
 // Every expression keeps the operand order of the plain PyTorch version,
 // and the library is built with -fmad=false, so each a*b+c rounds twice as
@@ -43,10 +45,10 @@ struct Params {
   const T *spu;
   // geometry: rows (H), heightmap (H,W), sigma ladder (L), scalars
   const T *dx_j, *dx_h, *lat, *heightmap, *sig, *sigt, *sigb, *dsig, *dy, *ptop;
-  // new surface pressure (H,W), written by aflux_column
+  // new surface pressure (H,W), written by the rest tile's aflux prologue
   T* p_n;
-  // column scratch (L,H,W): sigma-dot, geopotential, density
-  T *sd, *phi, *rho;
+  // K1's column scratch (L,H,W): geopotential, density
+  T *phi, *rho;
   int L, H, W;
   // Python floats of the plain version, cast to T as PyTorch casts them
   T dt, inv_dt, kappa, rd, cp, g, inv_p0, two_omega;
@@ -67,7 +69,7 @@ Params<T> make_params(void* const* in, void* const* geo, int L, int H, int W,
   const T* const* g = reinterpret_cast<const T* const*>(geo);
   a.dx_j = g[0]; a.dx_h = g[1]; a.lat = g[2]; a.heightmap = g[3];
   a.sig = g[4]; a.sigt = g[5]; a.sigb = g[6]; a.dsig = g[7]; a.dy = g[8]; a.ptop = g[9];
-  a.p_n = nullptr; a.sd = nullptr; a.phi = nullptr; a.rho = nullptr;
+  a.p_n = nullptr; a.phi = nullptr; a.rho = nullptr;
   a.L = L; a.H = H; a.W = W;
   a.dt = T(c[0]); a.inv_dt = T(c[1]); a.kappa = T(c[2]); a.rd = T(c[3]);
   a.cp = T(c[4]); a.g = T(c[5]); a.inv_p0 = T(c[6]); a.two_omega = T(c[7]);
@@ -80,10 +82,14 @@ inline bool bad_shape(int L, int H, int W) {
 }
 
 // aflux (core25d.aflux) on column (j,i): the convergence of the filtered
-// mass flux, its column sum pit (from k = 0) and suffix sum sd (from the
-// top, sd[0] = 0); p_n = p - pit*dt.  Writes a.sd and a.p_n.
+// mass flux conv[k] into col[k * stride], then in place from the top the
+// sigma-dot sd[k] = acc - pit*sigb[k], sd[0] = 0, where pit sums conv from
+// k = 0 and acc from k = L-1 down, the plain version's orders.  Returns
+// p_n = p - pit*dt.  col is a column of the rest tile's shared planes
+// (stencil_tile.cuh), so no per-layer array lives in local memory.
 template <typename T>
-__device__ __forceinline__ void aflux_column(const Params<T>& a, int j, int i) {
+__device__ __forceinline__ T aflux_column(const Params<T>& a, int j, int i, T* col,
+                                          int stride) {
   const int L = a.L, H = a.H, W = a.W;
   const size_t HW = (size_t)H * W;
   const int jp = j + 1 == H ? 0 : j + 1;
@@ -99,58 +105,72 @@ __device__ __forceinline__ void aflux_column(const Params<T>& a, int j, int i) {
   const T jph_sp = (sp_c + a.sp[(size_t)jp * W + i]) * half;
   const T jph_sp_m = (a.sp[c_jm] + sp_c) * half;
 
-  T conv[kMaxLayers];
   for (int k = 0; k < L; ++k) {
     const size_t o = k * HW;
     const T spv_c = a.sv[o + c] * jph_sp;
     const T spv_m = a.sv[o + c_jm] * jph_sp_m;
-    conv[k] = ((a.spu[o + c] - a.spu[o + c_im]) * rdx_j + (spv_c - spv_m) * rdy) * a.dsig[k];
+    col[k * stride] =
+        ((a.spu[o + c] - a.spu[o + c_im]) * rdx_j + (spv_c - spv_m) * rdy) * a.dsig[k];
   }
-  T pit = conv[0];
-  for (int k = 1; k < L; ++k) pit = pit + conv[k];
-  T acc = conv[L - 1];
+  T pit = col[0];
+  for (int k = 1; k < L; ++k) pit = pit + col[k * stride];
+  T acc = col[(L - 1) * stride];
   for (int k = L - 1; k >= 0; --k) {
-    if (k < L - 1) acc = acc + conv[k];
-    a.sd[k * HW + c] = k == 0 ? T(0) : acc - pit * a.sigb[k];
+    if (k < L - 1) acc = acc + col[k * stride];
+    col[k * stride] = k == 0 ? T(0) : acc - pit * a.sigb[k];
   }
-  a.p_n[c] = a.p[c] - pit * a.dt;
+  return a.p[c] - pit * a.dt;
 }
 
-// The pgf column (core25d.pgf) on column (j,i): p^kappa, rho and the
-// geopotential ladder phi, for K1's column pass (the pgf tile of K3-K7
-// forms the same values layer by layer, pgf_tile.cuh).  Writes a.rho and
-// a.phi.
-template <typename T>
-__device__ __forceinline__ void pgf_column(const Params<T>& a, int j, int i) {
+// The pgf column (core25d.pgf) on the column at (H,W) offset off, one pass
+// over k with no per-layer array: layer k's rho goes to rho(k) and stp[k-1]
+// to phi(k) (k >= 1) as they are formed, p^kappa of layers k-1 and 0 (for
+// the periodic stp[L-1], the plain version's kp) stay in registers, and
+// base = sum over k of (s1[k] - sigt[k]*stp[k]) is carried in k order.  A
+// second pass turns phi(k) in place into the geopotential ladder, phi[0] =
+// base + heightmap*G, phi[k] = phi[k-1] + stp[k-1].  rho and phi map k to a
+// T&: the pgf tile's shared planes (pgf_tile.cuh) or K1's scratch planes in
+// device memory (fused_parts.cu); sig, sigt, dsig: the geometry's layer
+// rows, in shared or device memory.
+template <typename T, class Rho, class Phi>
+__device__ __forceinline__ void pgf_column(const Params<T>& a, const T* sig, const T* sigt,
+                                           const T* dsig, T sp, size_t off, Rho&& rho,
+                                           Phi&& phi) {
   const int L = a.L;
   const size_t HW = (size_t)a.H * a.W;
-  const size_t c = (size_t)j * a.W + i;
   const T half = T(0.5);
-  const T sp_c = a.sp[c];
   const T ptop = a.ptop[0];
-  T pk[kMaxLayers], s1[kMaxLayers];
+  const T st0 = a.st[off];
+  T st_k = st0, pk0 = T(0), pk_prev = T(0), st_prev = T(0), s1_prev = T(0), base = T(0);
   for (int k = 0; k < L; ++k) {
-    const T tp = sp_c * a.sig[k] + ptop;
-    pk[k] = power(tp * a.inv_p0, a.kappa);
-    const T tt = a.st[k * HW + c] * pk[k];
-    const T rho = tp / (a.rd * tt);
-    a.rho[k * HW + c] = rho;
-    s1[k] = ((a.sig[k] * sp_c) / rho) * a.dsig[k];
+    const T st_next = k + 1 < L ? a.st[(k + 1) * HW + off] : T(0);
+    const T tp = sp * sig[k] + ptop;
+    const T pk = power(tp * a.inv_p0, a.kappa);
+    const T tt = st_k * pk;
+    const T rk = tp / (a.rd * tt);
+    rho(k) = rk;
+    const T s1 = ((sig[k] * sp) / rk) * dsig[k];
+    if (k == 0) {
+      pk0 = pk;
+    } else {
+      const T stp = (a.cp * ((st_prev + st_k) * half)) * (pk_prev - pk);
+      phi(k) = stp;
+      const T term = s1_prev - sigt[k - 1] * stp;
+      base = k == 1 ? term : base + term;
+    }
+    s1_prev = s1;
+    pk_prev = pk;
+    st_prev = st_k;
+    st_k = st_next;
   }
-  T stp[kMaxLayers];
-  for (int k = 0; k < L; ++k) {
-    const int kn = k + 1 == L ? 0 : k + 1;
-    const T kph_t = (a.st[k * HW + c] + a.st[kn * HW + c]) * half;
-    stp[k] = (a.cp * kph_t) * (pk[k] - pk[kn]);
-  }
-  T base = s1[0] - a.sigt[0] * stp[0];
-  for (int k = 1; k < L; ++k) base = base + (s1[k] - a.sigt[k] * stp[k]);
-  base = base + a.heightmap[c] * a.g;
-  T ph = base;
-  a.phi[c] = ph;
+  const T stp = (a.cp * ((st_prev + st0) * half)) * (pk_prev - pk0);
+  const T term = s1_prev - sigt[L - 1] * stp;
+  base = L == 1 ? term : base + term;
+  T ph = base + a.heightmap[off] * a.g;
+  phi(0) = ph;
   for (int k = 1; k < L; ++k) {
-    ph = ph + stp[k - 1];
-    a.phi[k * HW + c] = ph;
+    ph = ph + phi(k);
+    phi(k) = ph;
   }
 }
 

@@ -6,7 +6,8 @@
 // pl.pallas_call at :849): pgf_forces, the filter in correction form
 // Y = X + ((X@C)(m-1))@Cw + ((X@S)(m-1))@Sw on the stacked [spu_raw; pg_phi],
 // half_timestep_rest and the momentum epilogue.  It runs K6's stages of
-// one half, four launches (mega_stages.cuh); the polar wall is the keep of the filter
+// one half, three launches (mega_stages.cuh: the pgf tile, the filter and
+// the rest tile); the polar wall is the keep of the filter
 // constants, inside the kernel (the JAX kernel leaves it to its caller).
 //
 // The TPU kernel sums every row over all W/2 damped wavenumbers in its DFT
@@ -40,10 +41,9 @@ int launch(void* const* base, void* const* seval, void* const* geo, void* const*
 // dx_j, dx_h, lat, heightmap, sig, sigt, sigb, dsig, dy, ptop.  filt: the
 // filter's mask (H, W/2+1) and twiddles (W, 2), both double, and keep (H).
 // lats: int32 (R) listed latitudes; plan: the nstages radices of W.  out:
-// p,u,v,t,q, aliasing no input.  scratch: X (2L,H,W), pg_phiv, sd
-// (L,H,W).  consts: dt, 1/dt, kappa, Rd, Cp, G, 1/P0, 2*omega.
+// p,u,v,t,q, aliasing no input.  scratch: X (2L,H,W), pg_phiv (L,H,W).  consts: dt, 1/dt, kappa, Rd, Cp, G, 1/P0, 2*omega.
 // *pgf_launches, *filter_launches, *stencil_launches: set to the launches
-// made of the pgf tile, the filter kernel and the rest stencil.  Returns 0
+// made of the pgf tile, the filter kernel and the rest tile.  Returns 0
 // or the first CUDA error.
 extern "C" int gcm_mega_half(int is_double, void* const* base, void* const* seval,
                              void* const* geo, void* const* filt, const void* lats, int R,

@@ -27,21 +27,22 @@
 //        fft_filter_kernel at every other W, one block per (damped
 //                          latitude, group of row pairs), ping-pong shared
 //                          buffers
-//     4. aflux_column_pass one thread per column: sd and p_n from the
-//                          filtered spu
-//     5. tile_stencil      the rest stencil (stencil_tile.cuh): one block
-//                          per (8 x 32) tile of columns looping over the
-//                          layers, fields staged in shared memory with
-//                          cp.async; half_timestep_rest and the momentum
-//                          epilogue u = (pu - pgfu dt)/iph(p_n),
+//   4-5. tile_stencil      the rest tile (stencil_tile.cuh): one block per
+//                          (8 x 32) tile of columns; a prologue runs aflux
+//                          on the tile and its i+1/j+1 halo from the
+//                          filtered spu (sd of every layer in shared
+//                          memory only, p_n written), then the layer loop,
+//                          fields staged in shared memory with cp.async:
+//                          half_timestep_rest and the momentum epilogue
+//                          u = (pu - pgfu dt)/iph(p_n),
 //                          v = (pv - pg_phiv dt)/jph(p_n) * keep (the polar
 //                          wall, 0 on row H-1)
 //
-// eight launches per step on the caller's stream, no PyTorch op between
-// them.  Scratch (X, pg_phiv, sd) lives in device memory and the stream
-// order gives the grid-wide dependencies (the corrector's stencils read
-// the starred state of neighbour rows) that the TPU got from recomputing
-// halos.  Stages 1-2, 4 and 5 keep the expressions of K1's device code
+// six launches per step on the caller's stream, no PyTorch op between
+// them.  Scratch (X, pg_phiv) lives in device memory and the stream order
+// gives the grid-wide dependencies (the corrector's stencils read the
+// starred state of neighbour rows) that the TPU got from recomputing
+// halos.  Stages 1-2 and 4-5 keep the expressions of K1's device code
 // (gcm_stencil.cuh, stencil_tile.cuh), so they round as K1 and the plain
 // version do.
 //
@@ -67,41 +68,28 @@
 namespace gcm {
 
 template <typename T>
-__global__ void aflux_column_pass(const Params<T> a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.W) return;
-  gcm::aflux_column(a, blockIdx.y, i);
-}
-
-template <typename T>
 struct Step {
   void* const* geo;
   FftFilter f;
   const T* keep;
-  T *X, *pg_phiv, *sd;
+  T *X, *pg_phiv;
   int L, H, W;
   const double* consts;
   int coriolis, q_limiter;
   cudaStream_t stream;
   int* pgf_launches;      // host count of the pgf tile's launches
   int* filter_launches;   // host count of the filter kernel's launches
-  int* stencil_launches;  // host count of the rest stencil's launches
+  int* stencil_launches;  // host count of the rest tile's launches
 };
-
-#define GCM_CHECK()                                  \
-  do {                                               \
-    cudaError_t err_ = cudaGetLastError();           \
-    if (err_ != cudaSuccess) return (int)err_;       \
-  } while (0)
 
 // The Params of one half step: base (p,u,v,t,q) advanced with the
 // tendencies at seval (sp,su,sv,st,sq), spu the filtered zonal mass flux,
-// p_n the new surface pressure, sd the sigma-dot scratch.  A pointer
-// that the caller's stages do not read may be null.
+// p_n the new surface pressure.  A pointer that the caller's stages do not
+// read may be null.
 template <typename T>
 Params<T> half_params(void* const* base, void* const* seval, const T* spu, void* const* geo,
                       int L, int H, int W, const double* consts, int coriolis, int q_limiter,
-                      T* p_n, T* sd) {
+                      T* p_n) {
   void* in[11];
   for (int n = 0; n < 5; ++n) {
     in[n] = base[n];
@@ -110,22 +98,7 @@ Params<T> half_params(void* const* base, void* const* seval, const T* spu, void*
   in[10] = const_cast<T*>(spu);
   Params<T> a = gcm::make_params<T>(in, geo, L, H, W, consts, coriolis, q_limiter);
   a.p_n = p_n;
-  a.sd = sd;
   return a;
-}
-
-inline dim3 column_grid(int H, int W) { return dim3((W + kBlock - 1) / kBlock, H); }
-
-// Stages 4-5: half_timestep_rest with the filtered a.spu and the momentum
-// epilogue with out's filtered pgfu, pg_phiv and the wall's keep (H; null:
-// no wall).  Writes a.sd, a.p_n and out's fields; each launch of the
-// rest stencil adds one to *stencil_launches.
-template <typename T>
-int rest_stages(const Params<T>& a, const RestOut<T>& out, cudaStream_t stream,
-                int* stencil_launches) {
-  aflux_column_pass<T><<<column_grid(a.H, a.W), kBlock, 0, stream>>>(a);
-  GCM_CHECK();
-  return launch_tile_stencil(a, out, stream, stencil_launches);
 }
 
 // One half step: base (p,u,v,t,q) advanced with the tendencies at seval;
@@ -135,23 +108,24 @@ int half_step(const Step<T>& s, void* const* base, void* const* seval, void* con
   T* const* fo = reinterpret_cast<T* const*>(out);
   // spu: the filtered spu, the first L planes of X after stage 3
   const Params<T> a = half_params<T>(base, seval, s.X, s.geo, s.L, s.H, s.W, s.consts,
-                                     s.coriolis, s.q_limiter, fo[0], s.sd);
+                                     s.coriolis, s.q_limiter, fo[0]);
   // stages 1-2: pgf_forces(sp, su, st) into X = [spu_raw; pg_phi], pg_phiv
   int err = launch_pgf_tile(a, s.X, s.pg_phiv, s.stream, s.pgf_launches);
   if (err) return err;
   err = fft_filter(s.X, s.f, s.stream, s.filter_launches);
   if (err) return err;
   const T* pgfu = s.X + (size_t)s.L * s.H * s.W;
-  return rest_stages(a, RestOut<T>{fo[1], fo[2], fo[3], fo[4], pgfu, s.pg_phiv, s.keep},
-                     s.stream, s.stencil_launches);
+  // stages 4-5: aflux, half_timestep_rest and the momentum epilogue
+  return launch_tile_stencil(a, RestOut<T>{fo[1], fo[2], fo[3], fo[4], pgfu, s.pg_phiv, s.keep},
+                             s.stream, s.stencil_launches);
 }
 
 // The per-step arguments of half_step from the C entry points' tables.
 // filt: the filter's mask (H, W/2+1) and twiddles (W, 2), both double, and
 // keep (H).  lats: int32 (R) listed latitudes; plan: nstages radices.
-// scratch: X (2L,H,W), pg_phiv, sd (L,H,W).  launches: the host counts
-// of the pgf tile's, the filter kernel's and the rest stencil's launches,
-// each set to 0; each launch adds one to its count.
+// scratch: X (2L,H,W), pg_phiv (L,H,W).  launches: the host counts of the
+// pgf tile's, the filter kernel's and the rest tile's launches, each set
+// to 0; each launch adds one to its count.
 template <typename T>
 Step<T> make_step(void* const* geo, void* const* filt, const void* lats, int R, const int* plan,
                   int nstages, void* const* scratch, int L, int H, int W, const double* consts,
@@ -161,7 +135,7 @@ Step<T> make_step(void* const* geo, void* const* filt, const void* lats, int R, 
   s.f = make_fft(filt[0], filt[1], lats, R, 2 * L, H, W, plan, nstages);
   s.keep = static_cast<const T*>(filt[2]);
   T* const* fs = reinterpret_cast<T* const*>(scratch);
-  s.X = fs[0]; s.pg_phiv = fs[1]; s.sd = fs[2];
+  s.X = fs[0]; s.pg_phiv = fs[1];
   s.L = L; s.H = H; s.W = W;
   s.consts = consts;
   s.coriolis = coriolis; s.q_limiter = q_limiter;

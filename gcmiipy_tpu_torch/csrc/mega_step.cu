@@ -3,7 +3,7 @@
 // (gcmiipy_tpu_torch/ops/mega_step.py:mega_step_ref is the plain version).
 //
 // Replaces gcmiipy_tpu/ops/pallas_stencil.py:make_mega_step_kernel (the
-// pl.pallas_call at :1521).  Its stages, their eight launches, the filter
+// pl.pallas_call at :1521).  Its stages, their six launches, the filter
 // (fft_filter.cuh) and the bound are in mega_stages.cuh, which K5 and K7
 // share.
 
@@ -28,10 +28,9 @@ int launch(void* const* in, void* const* geo, void* const* filt, const void* lat
 // sigt, sigb, dsig, dy, ptop.  filt: the filter's mask (H, W/2+1) and
 // twiddles (W, 2), both double, and keep (H).  lats: int32 (R) listed
 // latitudes; plan: the nstages radices of W.  starred, out: p,u,v,t,q of
-// the predictor and of the step.  scratch: X (2L,H,W), pg_phiv, sd
-// (L,H,W).  consts: dt, 1/dt, kappa, Rd, Cp, G, 1/P0, 2*omega.
+// the predictor and of the step.  scratch: X (2L,H,W), pg_phiv (L,H,W).  consts: dt, 1/dt, kappa, Rd, Cp, G, 1/P0, 2*omega.
 // *pgf_launches, *filter_launches, *stencil_launches: set to the launches
-// made of the pgf tile, the filter kernel and the rest stencil.  Returns 0
+// made of the pgf tile, the filter kernel and the rest tile.  Returns 0
 // or the first CUDA error.
 extern "C" int gcm_mega_step(int is_double, void* const* in, void* const* geo,
                              void* const* filt, const void* lats, int R, const int* plan,

@@ -12,24 +12,24 @@
 //   gcm_pgf_parts   one launch of the pgf tile (pgf_tile.cuh): pgf_forces
 //                   into the caller's (2L,H,W) stack [spu_raw; pg_phi] and
 //                   pg_phiv (L,H,W), rho and phi in shared memory only;
-//   gcm_rest_parts  aflux_column_pass -> the tiled rest stencil
-//                   (stencil_tile.cuh): half_timestep_rest with the
-//                   filtered spu (the stack's first L planes) and the
-//                   momentum epilogue with the filtered pgfu (its planes
-//                   L..2L, read in place: no copy) and pg_phiv, with no
-//                   wall (a null keep): v's wall row stays with the
-//                   caller, as in the JAX package.
+//   gcm_rest_parts  one launch of the rest tile (stencil_tile.cuh): aflux
+//                   on the tile and its halo from the filtered spu (the
+//                   stack's first L planes; sd in shared memory only, p_n
+//                   written), half_timestep_rest and the momentum epilogue
+//                   with the filtered pgfu (its planes L..2L, read in
+//                   place: no copy) and pg_phiv, with no wall (a null
+//                   keep): v's wall row stays with the caller, as in the
+//                   JAX package.  It is also stages 4-5 of K5, K6 and K7.
 //
 // Bound: bytes.  At 9x512x1024 float32 K3 reads sp, su, st and writes the
 // stack and pg_phiv (about 98 MB with the geometry, 0.03 ms at 3.35 TB/s);
-// K4 reads 10 fields, the stack and pg_phiv and writes 5 fields (about 290
-// MB, 0.087 ms).  K3's tile keeps its recurrences (rho, phi) in shared
-// memory and reads st a second time, mostly from L2 (pgf_tile.cuh).  K4's
-// column launch writes sd and p_n, and its tiled stencil reads each plane
-// of its inputs from device memory about once (stencil_tile.cuh), so the
-// sd round trip (about 38 MB) is what it moves beyond its bound: the TPU
-// kernel's halo recompute becomes a second launch.  chip_smoke.py works
-// the bounds out from its run's tensors.
+// K4 reads 10 fields, the stack and pg_phiv and writes 5 fields (about
+// 291.5 MB, 0.087 ms).  K3's tile keeps its recurrences (rho, phi) in
+// shared memory and reads st a second time, mostly from L2 (pgf_tile.cuh).
+// K4's tile reads each plane of its inputs from device memory about once,
+// spu and sv a second time for its aflux prologue, mostly from L2, and
+// writes no sd (stencil_tile.cuh).  chip_smoke.py works the bounds out
+// from its run's tensors.
 
 #include "mega_stages.cuh"
 
@@ -44,28 +44,27 @@ int pgf(void* const* in, void* const* geo, void* X, void* pg_phiv, int L, int H,
   if (gcm::bad_shape(L, H, W)) return (int)cudaErrorInvalidValue;
   void* const seval[5] = {in[0], in[1], nullptr, in[2], nullptr};  // sp, su, st
   const gcm::Params<T> a = gcm::half_params<T>(kNone, seval, nullptr, geo, L, H, W, consts, 0, 0,
-                                               nullptr, nullptr);
+                                               nullptr);
   return gcm::launch_pgf_tile(a, static_cast<T*>(X), static_cast<T*>(pg_phiv), stream,
                              pgf_launches);
 }
 
-// K4's stages 4-5 (stencil_only: stage 5 alone, on the caller's p_n and
-// sd).  out: p_n, u_n, v_n, t_n, q_n; v not walled.
+// K4: one launch of the rest tile.  out: p_n, u_n, v_n, t_n, q_n; v not
+// walled.
 template <typename T>
 int rest(void* const* in, const void* filt_stack, const void* pg_phiv, void* const* geo,
-         void* const* out, void* sd, int L, int H, int W, const double* consts, int coriolis,
-         int q_limiter, bool stencil_only, int* stencil_launches, cudaStream_t stream) {
+         void* const* out, int L, int H, int W, const double* consts, int coriolis,
+         int q_limiter, int* stencil_launches, cudaStream_t stream) {
   *stencil_launches = 0;
   if (gcm::bad_shape(L, H, W)) return (int)cudaErrorInvalidValue;
   const T* stack = static_cast<const T*>(filt_stack);
   T* const* fo = reinterpret_cast<T* const*>(out);
   const gcm::Params<T> a = gcm::half_params<T>(in, in + 5, stack, geo, L, H, W, consts,
-                                               coriolis, q_limiter, fo[0], static_cast<T*>(sd));
+                                               coriolis, q_limiter, fo[0]);
   const T* const no_wall = nullptr;
   const gcm::RestOut<T> o{fo[1], fo[2], fo[3], fo[4], stack + (size_t)L * H * W,
                           static_cast<const T*>(pg_phiv), no_wall};
-  return stencil_only ? gcm::launch_tile_stencil(a, o, stream, stencil_launches)
-                      : gcm::rest_stages(a, o, stream, stencil_launches);
+  return gcm::launch_tile_stencil(a, o, stream, stencil_launches);
 }
 
 }  // namespace
@@ -84,36 +83,18 @@ extern "C" int gcm_pgf_parts(int is_double, void* const* in, void* const* geo, v
                    : pgf<float>(in, geo, X, pg_phiv, L, H, W, consts, pgf_launches, s);
 }
 
-// K4: half_timestep_rest and the momentum epilogue.  in: p,u,v,t,q,
+// K4: aflux, half_timestep_rest and the momentum epilogue.  in: p,u,v,t,q,
 // sp,su,sv,st,sq.  filt_stack: the filtered (2L,H,W) stack [spu; pgfu].
 // pg_phiv (L,H,W).  out: p_n (H,W), u_n, v_n (not walled), t_n, q_n
-// (L,H,W), none of them aliasing an input.  sd: (L,H,W) scratch.
-// *stencil_launches: set to the rest stencil's launches made.  Returns 0
-// or the first CUDA error.
+// (L,H,W), none of them aliasing an input.  *stencil_launches: set to the
+// rest tile's launches made.  Returns 0 or the CUDA error.
 extern "C" int gcm_rest_parts(int is_double, void* const* in, const void* filt_stack,
-                              const void* pg_phiv, void* const* geo, void* const* out, void* sd,
-                              int L, int H, int W, const double* consts, int coriolis,
-                              int q_limiter, int* stencil_launches, void* stream) {
+                              const void* pg_phiv, void* const* geo, void* const* out, int L,
+                              int H, int W, const double* consts, int coriolis, int q_limiter,
+                              int* stencil_launches, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? rest<double>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
-                                  coriolis, q_limiter, false, stencil_launches, s)
-                   : rest<float>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
-                                 coriolis, q_limiter, false, stencil_launches, s);
-}
-
-// The rest stencil stage alone (stage 5 of K4-K7): K4's arguments, with
-// out[0] the new surface pressure p_n (H,W) and sd (L,H,W) as stage 4
-// wrote them, both read; out[1..4]: u_n, v_n (not walled), t_n, q_n
-// written.  *stencil_launches: set to the launches made.  Returns 0 or the
-// CUDA error.
-extern "C" int gcm_rest_stencil(int is_double, void* const* in, const void* filt_stack,
-                                const void* pg_phiv, void* const* geo, void* const* out,
-                                void* sd, int L, int H, int W, const double* consts,
-                                int coriolis, int q_limiter, int* stencil_launches,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? rest<double>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
-                                  coriolis, q_limiter, true, stencil_launches, s)
-                   : rest<float>(in, filt_stack, pg_phiv, geo, out, sd, L, H, W, consts,
-                                 coriolis, q_limiter, true, stencil_launches, s);
+  return is_double ? rest<double>(in, filt_stack, pg_phiv, geo, out, L, H, W, consts, coriolis,
+                                  q_limiter, stencil_launches, s)
+                   : rest<float>(in, filt_stack, pg_phiv, geo, out, L, H, W, consts, coriolis,
+                                 q_limiter, stencil_launches, s);
 }

@@ -16,21 +16,22 @@
 // grid off the tiles are the wrapped ones the plain version's torch.roll
 // reads.
 //
-// The recurrence runs once per column, k = 0 .. L-1, and keeps no
-// per-layer array in registers or local memory: layer k's rho and
-// stp[k-1] go into layer k's planes of rho and phi in shared memory, and
-// the column's base, the sum over k of s1[k] - sigt[k]*stp[k] plus
-// heightmap*G, is carried in k order (stp[L-1] from layer 0's p^kappa: the
-// periodic kp of the plain version).  A second loop over the column's
-// phi plane turns it into the geopotential ladder, phi[0] = base, phi[k] =
-// phi[k-1] + stp[k-1].  After one barrier the tile's threads compute the
-// stencil layer by layer from the planes and from sp, staged once, with su
-// read one layer ahead.  All L layers of both planes fit: 2 * 32 * 297
-// values of 8 bytes at float64 (152 KB; the tile has 8 rows at both types
-// for that, where the rest stencil's float64 tile has 16).
+// The recurrence (gcm_stencil.cuh's pgf_column, which K1's column pass
+// shares) runs once per column, k = 0 .. L-1, and keeps no per-layer array
+// in registers or local memory: layer k's rho and stp[k-1] go into layer
+// k's planes of rho and phi in shared memory, and the column's base, the
+// sum over k of s1[k] - sigt[k]*stp[k] plus heightmap*G, is carried in k
+// order (stp[L-1] from layer 0's p^kappa: the periodic kp of the plain
+// version).  A second loop over the column's phi plane turns it into the
+// geopotential ladder, phi[0] = base, phi[k] = phi[k-1] + stp[k-1].  After
+// one barrier the tile's threads compute the stencil layer by layer from
+// the planes and from sp, staged once, with su read one layer ahead.  All
+// L layers of both planes fit: 2 * 32 * 297 values of 8 bytes at float64
+// (152 KB; the tile has 8 rows at both types for that).
 //
-// Every expression keeps the operand order of the plain version and of
-// gcm_stencil.cuh's pgf_column and pgf_terms (built with -fmad=false), so
+// Every expression keeps the operand order of the plain version (the
+// column's and the stencil's, pgf_column and pgf_terms of gcm_stencil.cuh;
+// built with -fmad=false), so
 // the launch equals pgf_parts_ref bit for bit wherever the card's pow
 // rounds as PyTorch's does.
 //
@@ -109,48 +110,16 @@ __global__ void __launch_bounds__(PgfTile<T>::kThreads, PgfTile<T>::kMinBlocks)
     sigt[k] = a.sigt[k];
     dsig[k] = a.dsig[k];
   }
-  const T ptop = a.ptop[0];
   __syncthreads();
 
-  // The column recurrence: layer k's rho into rho[k], stp[k-1] into
-  // phi[k], base = sum over k of (s1[k] - sigt[k]*stp[k]) in k order plus
-  // heightmap*G; then phi[0] = base, phi[k] = phi[k-1] + stp[k-1]
+  // the column recurrence (gcm_stencil.cuh's pgf_column): layer k's rho
+  // into rho[k], stp[k-1] into phi[k], then the ladder in place
   if (has_col) {
     T* const rho_c = rho + at;
     T* const phi_c = phi + at;
-    const T sp = sm[at];
-    const T st0 = a.st[off];
-    T st_k = st0, pk0 = T(0), pk_prev = T(0), st_prev = T(0), s1_prev = T(0), base = T(0);
-    for (int k = 0; k < L; ++k) {
-      const T st_next = k + 1 < L ? a.st[(k + 1) * HW + off] : T(0);
-      const T tp = sp * sig[k] + ptop;
-      const T pk = power(tp * a.inv_p0, a.kappa);
-      const T tt = st_k * pk;
-      const T rk = tp / (a.rd * tt);
-      rho_c[k * P] = rk;
-      const T s1 = ((sig[k] * sp) / rk) * dsig[k];
-      if (k == 0) {
-        pk0 = pk;
-      } else {
-        const T stp = (a.cp * ((st_prev + st_k) * half)) * (pk_prev - pk);
-        phi_c[k * P] = stp;
-        const T term = s1_prev - sigt[k - 1] * stp;
-        base = k == 1 ? term : base + term;
-      }
-      s1_prev = s1;
-      pk_prev = pk;
-      st_prev = st_k;
-      st_k = st_next;
-    }
-    const T stp = (a.cp * ((st_prev + st0) * half)) * (pk_prev - pk0);
-    const T term = s1_prev - sigt[L - 1] * stp;
-    base = L == 1 ? term : base + term;
-    T ph = base + a.heightmap[off] * a.g;
-    phi_c[0] = ph;
-    for (int k = 1; k < L; ++k) {
-      ph = ph + phi_c[k * P];
-      phi_c[k * P] = ph;
-    }
+    pgf_column(a, sig, sigt, dsig, sm[at], (size_t)off,
+               [&](int k) -> T& { return rho_c[k * P]; },
+               [&](int k) -> T& { return phi_c[k * P]; });
   }
   __syncthreads();  // every column's planes are whole
   if (tid >= S::kTile || i >= W || j >= H) return;

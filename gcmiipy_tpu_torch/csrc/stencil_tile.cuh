@@ -1,44 +1,61 @@
-// The point stencils of a half step as one tiled launch: the rest stencil
-// (stage 5 of K4, K5, K6 and K7: half_timestep_rest and the momentum
-// epilogue) and K1's stencil launch (momentum, pgf, sigma and tracers).
+// The point stencils of a half step as one tiled launch: the rest tile
+// (stages 4-5 of K4, K5, K6 and K7: aflux, half_timestep_rest and the
+// momentum epilogue) and K1's stencil launch (aflux, momentum, pgf, sigma
+// and tracers).
 //
-// One block owns a (TJ x 32) tile of (j,i) columns and loops over the
-// layers k.  Every field a stencil reads at a neighbour lives in shared
-// memory with a halo of rows j-1 .. j+TJ and columns i-1 .. i+32, the reach
-// of momentum, adv_h and the q limiter (sp one row more, for spv at row
-// j+1):
+// One block owns an (8 x 32) tile of (j,i) columns (8 rows at both types)
+// and loops over the layers k.  Before the layer loop a prologue runs
+// aflux (gcm_stencil.cuh's aflux_column) on the tile's columns and its
+// i+1/j+1 halo, (8+1) x (32+1) columns, all threads taking columns in
+// turn: each column's convergence of every layer, read from device memory
+// (L2), goes into per-layer shared planes, which the column then turns in
+// place into the sigma-dot sd (pit summed from k = 0, the suffix from
+// k = L-1 down, sd[0] = 0: the plain version's orders), and p_n = p -
+// pit*dt into the tile's p_n plane; the tile's own columns also write p_n
+// to device memory, an output of K1 and K4-K7.  sd never reaches device
+// memory: the stencil reads it at (0,0), (0,1) and (1,0) of layers k and
+// k+1 from the planes (layer L wraps to layer 0, whose sd is 0).
 //
-//   ring   su, sv, st, sq, sd: four layer slots, k-1, k and k+1 read by
+// Every other field a stencil reads at a neighbour lives in shared memory
+// with a halo of rows j-1 .. j+8 and columns i-1 .. i+32, the reach of
+// momentum, adv_h and the q limiter (sp one row more, for spv at row j+1):
+//
+//   ring   su, sv, st, sq: four layer slots, k-1, k and k+1 read by
 //          layer k (advec_sig's vertical fluxes) and k+2 in flight;
 //   local  spu, q (K1 also rho, phi), and without a halo the fields read
 //          only at the point itself, u, v, t (K4-K7 also pgfu, pg_phiv),
 //          each thread its own: two slots, k read and k+1 in flight;
 //   spv    sv * jph(sp) of layer k, computed once a point into shared
-//          memory (the one-thread-per-point pass evaluated it 14 times);
-//   2D     sp, p, p_n, filled once per block.
+//          memory;
+//   2D     sp, p (copied once per block) and p_n (the prologue's);
+//   sd     L planes of (8+1) x (32+1), sized from L at launch.
 //
 // Each layer is copied with cp.async while the layer before it is
-// computed, so each plane is read from device memory once per block (its
-// halo rows and columns once more by the neighbouring block), and layers
-// L-1 and 0 once more for the periodic vertical wrap (kn, kkm of the
-// plain version).  The halo's j and i are wrapped once per thread, when
-// its copy offsets are formed; every stencil access is then a constant
-// offset from the thread's centre in the tile.  The values that do not
-// depend on k (the geometry rows' reciprocals, the Coriolis parameters,
-// p's and p_n's face averages and reciprocals) are formed once per
-// thread.
+// computed (the first layers' copies are in flight during the prologue),
+// so each plane is read from device memory once per block (its halo rows
+// and columns once more by the neighbouring block, spu and sv once more
+// by the prologue, mostly from L2), and layers L-1 and 0 once more for
+// the periodic vertical wrap (kn, kkm of the plain version).  The halo's
+// j and i are wrapped once per thread, when its copy offsets are formed;
+// every stencil access is then a constant offset from the thread's centre
+// in the tile.  The values that do not depend on k (the geometry rows'
+// reciprocals, the Coriolis parameters, p's and p_n's face averages and
+// reciprocals) are formed once per thread.
 //
-// Every expression keeps the operand order of the plain version (and of
-// the one-thread-per-point pass this replaces), built with -fmad=false, so
-// the kernels equal their plain versions bit for bit: staging a value in
-// shared memory or forming it once changes no rounding.
+// Shared memory: 4*4 ring planes, two local slots, spv, sp, p, p_n, then
+// the sd planes: 43 KB + L * 1.2 KB at float32 (53.7 KB at L = 9, 81 KB
+// at L = 32) and twice that at float64 (162 KB at L = 32).
 //
-// Bound: bytes.  At 9x512x1024 float32 the rest stencil reads 12 (L,H,W)
-// fields (p, u, v, t, q, su, sv, st, sq, the filtered spu and pgfu,
-// pg_phiv and sd) and sp, p, p_n, and writes u, v, t, q: about 308 MB,
-// 0.092 ms at 3.35 TB/s.  K1's stencil launch reads 11 (L,H,W) fields and
-// p, sp, p_n and writes 5 fields: about 309 MB, 0.092 ms.  chip_smoke.py
-// works both out from its run's tensors.
+// Every expression keeps the operand order of the plain version, built
+// with -fmad=false, so the kernels equal their plain versions bit for bit:
+// staging a value in shared memory or forming it once changes no rounding.
+//
+// Bound: bytes.  At 9x512x1024 float32 the rest tile reads p, sp and 8
+// (L,H,W) fields (u, v, t, q, su, sv, st, sq), the filtered stack [spu;
+// pgfu] and pg_phiv, and writes p_n, u, v, t, q: about 291.5 MB with the
+// geometry, 0.087 ms at 3.35 TB/s.  K1's stencil launch reads p, sp, 11
+// (L,H,W) fields (u, v, t, q, su, sv, st, sq, spu, rho, phi) and writes p_n
+// and 5 fields.  chip_smoke.py works both out from its run's tensors.
 
 #pragma once
 
@@ -49,15 +66,15 @@
 namespace gcm {
 
 // Tile rows (a tile row is one warp) and the blocks an SM must be able to
-// hold (__launch_bounds__), per type, chosen on the H100 at 9x512x1024
-// (PERF.md §6).  Float32: 8 rows, 3 blocks (at most 85 registers).
-// Float64: 16 rows, 1 block.
+// hold (__launch_bounds__), per type: 8 rows at both types, so that the sd
+// planes of 32 layers fit beside a float64 tile.  Float32: 3 blocks (at
+// most 85 registers).  Float64: 2 blocks (at most 128 registers).
 template <typename T> struct TileShape;
 template <> struct TileShape<float> {
   static constexpr int rows = 8, min_blocks = 3;
 };
 template <> struct TileShape<double> {
-  static constexpr int rows = 16, min_blocks = 1;
+  static constexpr int rows = 8, min_blocks = 2;
 };
 
 constexpr int kMaxSharedBytes = 232448;  // a block's shared memory on Hopper
@@ -86,7 +103,7 @@ struct Tile {
   static constexpr int R = TJ + 2, C = TI + 2;  // rows j0-1 .. j0+TJ, columns i0-1 .. i0+TI
   static constexpr int kPlane = R * C;
   static constexpr int kSpPlane = (R + 1) * C;
-  static constexpr int kRingFields = 5, kRingSlots = 4;  // su, sv, st, sq, sd
+  static constexpr int kRingFields = 4, kRingSlots = 4;  // su, sv, st, sq
   static constexpr int kLocalFields = kParts ? 4 : 2;    // spu, q (, rho, phi)
   static constexpr int kPointFields = kParts ? 3 : 5;    // u, v, t (, pgfu, pg_phiv)
   static constexpr int kLocalSlot = kLocalFields * kPlane + kPointFields * kThreads;
@@ -97,23 +114,32 @@ struct Tile {
   static constexpr int kSpAt = kSpvAt + kPlane;
   static constexpr int kPAt = kSpAt + kSpPlane;
   static constexpr int kPnAt = kPAt + kPlane;
-  static constexpr size_t kBytes = (size_t)(kPnAt + kPlane) * sizeof(T);
-  static_assert(kBytes <= kMaxSharedBytes, "tile exceeds a block's shared memory");
+  // the sd planes: rows j0 .. j0+TJ, columns i0 .. i0+TI, one per layer
+  static constexpr int CS = TI + 1;
+  static constexpr int kSdPlane = (TJ + 1) * CS;
+  static constexpr int kSdAt = kPnAt + kPlane;
+  static constexpr size_t bytes(int L) { return (size_t)(kSdAt + L * kSdPlane) * sizeof(T); }
+  static_assert((size_t)(kSdAt + kMaxLayers * kSdPlane) * sizeof(T) <= kMaxSharedBytes,
+                "tile exceeds a block's shared memory");
 };
 
 // The stencils at one point of a tile: (dj, di) are offsets from the
-// point, every plane is a tile plane of row length C.
-template <typename T, int C>
+// point, every plane is a tile plane of row length C but sd's, of row
+// length CS.
+template <typename T, int C, int CS>
 struct TilePoint {
-  int c;  // the point's index in a tile plane
-  // ring planes at layers k-1 (_m), k and k+1 (_p)
-  const T *su, *sv, *st, *sq, *sd, *su_m, *sv_m, *st_m, *sq_m, *su_p, *sv_p, *st_p, *sq_p, *sd_p;
+  int c, c_sd;  // the point's index in a tile plane and in an sd plane
+  // ring planes at layers k-1 (_m), k and k+1 (_p); sd at k and k+1
+  const T *su, *sv, *st, *sq, *su_m, *sv_m, *st_m, *sq_m, *su_p, *sv_p, *st_p, *sq_p, *sd, *sd_p;
   const T *spu, *q, *spv, *p;
   T half, rdx_j, rdx_h, rdy, rdsig, cp_at_u, cp_at_v, dt, inv_dt;
   int coriolis, q_limiter;
 
   __device__ __forceinline__ T at(const T* x, int dj, int di) const { return x[c + dj * C + di]; }
   __device__ __forceinline__ T spv_at(int dj, int di) const { return at(spv, dj, di); }
+  __device__ __forceinline__ T sd_at(const T* s, int dj, int di) const {
+    return s[c_sd + dj * CS + di];
+  }
 
   // advec_m_pu(sp, su, sv, spu, spv), with the optional Coriolis term
   __device__ __forceinline__ void momentum(T& dut, T& dvt) const {
@@ -153,8 +179,8 @@ struct TilePoint {
 
   // advec_sig(iph(sd), su) and advec_sig(jph(sd), sv)
   __device__ __forceinline__ void sigma(T& dus, T& dvs) const {
-    auto sd_iph = [&](const T* s) { return (at(s, 0, 0) + at(s, 0, 1)) * half; };
-    auto sd_jph = [&](const T* s) { return (at(s, 0, 0) + at(s, 1, 0)) * half; };
+    auto sd_iph = [&](const T* s) { return (sd_at(s, 0, 0) + sd_at(s, 0, 1)) * half; };
+    auto sd_jph = [&](const T* s) { return (sd_at(s, 0, 0) + sd_at(s, 1, 0)) * half; };
     dus = -((vflux(at(su, 0, 0), at(su_m, 0, 0), sd_iph(sd)) -
              vflux(at(su_p, 0, 0), at(su, 0, 0), sd_iph(sd_p))) * rdsig);
     dvs = -((vflux(at(sv, 0, 0), at(sv_m, 0, 0), sd_jph(sd)) -
@@ -169,8 +195,8 @@ struct TilePoint {
   }
 
   __device__ __forceinline__ T adv_sig(const T* x, const T* x_m, const T* x_p) const {
-    return -((vflux(at(x, 0, 0), at(x_m, 0, 0), at(sd, 0, 0)) -
-              vflux(at(x_p, 0, 0), at(x, 0, 0), at(sd_p, 0, 0))) * rdsig);
+    return -((vflux(at(x, 0, 0), at(x_m, 0, 0), sd_at(sd, 0, 0)) -
+              vflux(at(x_p, 0, 0), at(x, 0, 0), sd_at(sd_p, 0, 0))) * rdsig);
   }
 
   // The new potential temperature and humidity: advec_t / advec_q_limited
@@ -204,9 +230,27 @@ struct TilePoint {
   }
 };
 
+// aflux on the tile's (TJ+1) x (TI+1) columns, the tile's and its i+1/j+1
+// halo, the block's threads taking them in turn: column (r, cc), at (H,W)
+// row j0+r and column i0+cc (wrapped), gets the sd of every layer in its
+// place of the sd planes (gcm_stencil.cuh's aflux_column) and p_n in the
+// p_n plane; a column of the tile inside the grid also writes p_n to
+// device memory.  No barrier: the caller's next one publishes the planes.
+template <class S, typename T>
+__device__ __forceinline__ void aflux_prologue(const Params<T>& a, T* sd, T* pn, int j0, int i0) {
+  for (int e = threadIdx.x; e < S::kSdPlane; e += S::kThreads) {
+    const int r = e / S::CS, cc = e - r * S::CS;
+    const int j = (j0 + r) % a.H, i = (i0 + cc) % a.W;
+    const T p_n = aflux_column(a, j, i, sd + e, S::kSdPlane);
+    pn[(r + 1) * S::C + cc + 1] = p_n;
+    if (r < S::TJ && cc < S::TI && j0 + r < a.H && i0 + cc < a.W)
+      a.p_n[(size_t)j * a.W + i] = p_n;
+  }
+}
+
 // The tiled stencil launch: grid (ceil(W/32), ceil(H/TJ)), TJ*32 threads,
-// Tile<T, Out::kParts>::kBytes of dynamic shared memory.  Out is RestOut
-// (the rest stencil) or PartsOut (K1).
+// Tile<T, Out::kParts>::bytes(L) of dynamic shared memory.  Out is RestOut
+// (the rest tile) or PartsOut (K1).
 template <typename T, class Out>
 __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::min_blocks)
     tile_stencil(const Params<T> a, const Out out) {
@@ -246,7 +290,6 @@ __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::
     copy(slot + P, a.sv + off, P);
     copy(slot + 2 * P, a.st + off, P);
     copy(slot + 3 * P, a.sq + off, P);
-    copy(slot + 4 * P, a.sd + off, P);
   };
   // layer k's local planes into slot k mod 2; the fields read only at the
   // point itself, each thread its own
@@ -275,23 +318,27 @@ __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::
   T* const spv = sm + S::kSpvAt;
   const T* const sp = sm + S::kSpAt;
   const T* const p = sm + S::kPAt;
-  const T* const pn = sm + S::kPnAt;
+  T* const pn = sm + S::kPnAt;
+  T* const sd = sm + S::kSdAt;  // layer k at sd[k * kSdPlane]
 
   copy(sm + S::kSpAt, a.sp, S::kSpPlane);
   copy(sm + S::kPAt, a.p, P);
-  copy(sm + S::kPnAt, a.p_n, P);
   load_ring(-1);
   load_ring(0);
   load_ring(1);
   load_local(0);
   __pipeline_commit();
 
+  // the prologue, while the first layers' copies are in flight
+  aflux_prologue<S>(a, sd, pn, j0, i0);
+
   // what does not depend on k
   const T half = T(0.5), one = T(1), dt = a.dt;
   const int jr = j < H ? j : H - 1;  // a row to read for an idle thread
   const int jp = jr + 1 == H ? 0 : jr + 1;
-  TilePoint<T, C> x;
+  TilePoint<T, C, S::CS> x;
   x.c = (tj + 1) * C + ti + 1;
+  x.c_sd = tj * S::CS + ti;
   x.p = p;
   x.half = half;
   x.rdx_j = one / a.dx_j[jr];
@@ -343,10 +390,11 @@ __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::
 
     const T* above = ring(k - 1);
     const T* below = ring(k + 1);
-    x.su = cur; x.sv = cur + P; x.st = cur + 2 * P; x.sq = cur + 3 * P; x.sd = cur + 4 * P;
+    x.su = cur; x.sv = cur + P; x.st = cur + 2 * P; x.sq = cur + 3 * P;
     x.su_m = above; x.sv_m = above + P; x.st_m = above + 2 * P; x.sq_m = above + 3 * P;
     x.su_p = below; x.sv_p = below + P; x.st_p = below + 2 * P; x.sq_p = below + 3 * P;
-    x.sd_p = below + 4 * P;
+    x.sd = sd + k * S::kSdPlane;
+    x.sd_p = sd + (k + 1 == L ? 0 : k + 1) * S::kSdPlane;
     x.spu = lo;
     x.q = lo + P;
     x.spv = spv;
@@ -387,18 +435,20 @@ __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::
 }
 
 // Launch the tiled stencil on the caller's stream; returns 0 or the CUDA
-// error of the attribute call or the launch.  A launch that was accepted
-// adds one to *launches (when not null).  A plane's offsets are 32-bit.
+// error of the attribute call or the launch.  It reads a.spu, a.sv and a.sp
+// for aflux and writes a.p_n.  A launch that was accepted adds one to
+// *launches (when not null).  A plane's offsets are 32-bit.
 template <typename T, class Out>
 int launch_tile_stencil(const Params<T>& a, const Out& out, cudaStream_t stream,
                         int* launches) {
   using S = Tile<T, Out::kParts>;
   if ((size_t)a.H * a.W > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const size_t bytes = S::bytes(a.L);
   const cudaError_t err = cudaFuncSetAttribute(
-      tile_stencil<T, Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kBytes);
+      tile_stencil<T, Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.W + S::TI - 1) / S::TI, (a.H + S::TJ - 1) / S::TJ);
-  tile_stencil<T, Out><<<grid, S::kThreads, S::kBytes, stream>>>(a, out);
+  tile_stencil<T, Out><<<grid, S::kThreads, bytes, stream>>>(a, out);
   const cudaError_t launched = cudaGetLastError();
   if (launched == cudaSuccess && launches) ++*launches;
   return (int)launched;

@@ -9,7 +9,7 @@
 // kernel streams latitude blocks through VMEM with double-buffered copies
 // and runs K6's block body on each; a step's blocks need every
 // neighbouring row of the step before, which the TPU's one core gets from
-// running its grid in order.  Here each step is K6's eight stage
+// running its grid in order.  Here each step is K6's six stage
 // launches (mega_stages.cuh) and the epilogue's one launch
 // (column_physics.cuh), enqueued on the caller's stream from one C call:
 // the stream order is the grid-wide barrier between stages and between
@@ -109,12 +109,11 @@ int physics(void* const* fields, const void* lat, const void* lon, const void* u
 
 // k whole steps on S (2, planes, H, W), in place.  utc: 0-dim clock at the
 // start of the call.  geo, filt, lats, plan, consts: as gcm_mega_step.
-// scratch: the predictor's p,u,v,t,q, then X (2L,H,W), pg_phiv, sd
-// (L,H,W).  phys: the physics table (column_physics.cuh, kPhysTableSize
-// doubles in device memory), or null for the dynamics alone; lat (H), lon
-// (W).  *pgf_launches, *filter_launches, *stencil_launches,
+// scratch: the predictor's p,u,v,t,q, then X (2L,H,W), pg_phiv (L,H,W).
+// phys: the physics table (column_physics.cuh, kPhysTableSize doubles in
+// device memory), or null for the dynamics alone; lat (H), lon (W).  *pgf_launches, *filter_launches, *stencil_launches,
 // *physics_launches: set to the launches made of the pgf tile, the filter
-// kernel, the rest stencil and the epilogue.  Returns 0 or the first CUDA
+// kernel, the rest tile and the epilogue.  Returns 0 or the first CUDA
 // error.
 extern "C" int gcm_stream_steps(int is_double, void* S, int planes, int k, const void* utc,
                                 void* const* geo, void* const* filt, const void* lats, int R,

@@ -178,16 +178,14 @@ def compute_geopotential_hydrostatic(p, t, geom):
     return phi * constants.G
 
 
-def pgf(p, t, geom):
-    """Pressure-gradient force terms (pgfu, pgfv, phiu, phiv)
-    (reference dynamics.py:147-171), with the geopotential ladder inlined so
-    tp, p^kappa, tt and rho are computed once, as the JAX core does."""
+def pgf_column(p, t, geom):
+    """The column part of :func:`pgf`: the density ``rho`` and the
+    geopotential ``phi`` of each layer, with the ladder inlined so tp,
+    p^kappa, tt and rho are computed once, as the JAX core does."""
     dt_ = t.dtype
     sig, dsig = geom.sig.to(dt_), geom.dsig.to(dt_)
     sigt, ptop = geom.sigt.to(dt_), geom.ptop.to(dt_)
     heightmap = geom.heightmap.to(dt_)
-    rdx_j = 1.0 / geom.dx_j.to(dt_)
-    rdy = 1.0 / geom.dy.to(dt_)
 
     tp = p * sig + ptop
     pk = (tp * (1.0 / constants.P0)) ** constants.kappa
@@ -202,7 +200,19 @@ def pgf(p, t, geom):
     s2 = sigt * stp
     base = _sum_k(s1 - s2) + heightmap * constants.G
     stp_n = torch.cat([base[None], km(stp)[1:]], dim=0)
-    phi = _prefix_sum_k(stp_n)
+    return rho, _prefix_sum_k(stp_n)
+
+
+def pgf(p, t, geom):
+    """Pressure-gradient force terms (pgfu, pgfv, phiu, phiv)
+    (reference dynamics.py:147-171) from :func:`pgf_column`'s rho and
+    phi."""
+    dt_ = t.dtype
+    sig = geom.sig.to(dt_)
+    rdx_j = 1.0 / geom.dx_j.to(dt_)
+    rdy = 1.0 / geom.dy.to(dt_)
+    rho, phi = pgf_column(p, t, geom)
+    sp = sig * p
 
     phiu = iph(p) * ((ipj(phi) - phi) * rdx_j)
     phiv = jph(p) * ((ijp(phi) - phi) * rdy)

@@ -31,10 +31,22 @@ from gcmiipy_tpu_torch.model.state import (
 from gcmiipy_tpu_torch.ops import polar_filter, stream_steps
 from gcmiipy_tpu_torch.physics import convection, radiation
 
-# widest grid on which the JAX package runs the per-step physics inside its
-# stream kernel (pallas_stream.STREAM_RESIDENT_MAX_WIDTH, a TPU VMEM limit);
-# kept so that one config chooses the same cadence in both packages
+# The JAX package's streaming envelope (pallas_stream.py:73-99, TPU VMEM
+# limits), kept so that one config chooses the same path and cadence in
+# both packages: the widest grid with the per-step physics inside the
+# stream kernel, and the widest grid the kernel streams at all.
 STREAM_RESIDENT_MAX_WIDTH = 2048
+STREAM_MAX_WIDTH = 4096
+
+
+def stream_grid_supported(geom):
+    """The JAX package's streaming-kernel envelope
+    (``pallas_stream.stream_grid_supported``): 8 | H, H >= 16, 128 | W and
+    W <= :data:`STREAM_MAX_WIDTH`."""
+    H, W = geom.height, geom.width
+    if H % 8 or W % 128 or H < 16:
+        return False
+    return W <= STREAM_MAX_WIDTH
 
 
 class StepStats(NamedTuple):
@@ -155,10 +167,12 @@ def apply_cadenced_extras(prog, g, utc, step_next, geom, config,
     """Run :func:`physics_extras` iff a ``physics_every`` cadence point falls
     in the step window ``(step_next - granularity, step_next]``; ``utc``
     is the clock at the start of the completed step.  ``granularity`` is 1
-    on the per-step paths and the chunk length on the stream path.  The
-    choice is a ``torch.where`` on the device keyed on the step counter
-    tensor ``step_next`` (the JAX package's ``lax.cond``), so there is no
-    host read."""
+    on the per-step paths and the chunk length on the stream path.  With a
+    Python int ``step_next`` (a loop that counts its steps on the host) the
+    extras run only on a cadence step, as the JAX package's ``lax.cond``
+    skips them.  With the step counter tensor the choice is a
+    ``torch.where`` on the device, so there is no host read, and the
+    extras are computed on every call."""
     if not (config.drag_tau > 0 or config.physics):
         return prog, g
     pe = config.physics_every
@@ -166,21 +180,29 @@ def apply_cadenced_extras(prog, g, utc, step_next, geom, config,
     if pe <= granularity:
         return physics_extras(prog, g, utc, geom, config, dt_eff)
     due = step_next % pe < granularity
+    if isinstance(step_next, int):
+        # the step is known on the host: off cadence nothing is computed
+        if due:
+            return physics_extras(prog, g, utc, geom, config, dt_eff)
+        return prog, g
     new_prog, new_g = physics_extras(prog, g, utc, geom, config, dt_eff)
     return _pick(due, new_prog, prog), _pick(due, new_g, g)
 
 
 def full_timestep(state: ModelState, geom, config, filter_fn,
-                  dynamics_step=None) -> ModelState:
+                  dynamics_step=None, host_step=None) -> ModelState:
     """One dynamics step and the cadenced physics extras (reference
     no_limits_2_5d.py:79-104); the extras key off the state's integer step
-    counter.  The Shapiro filter is not ported; :func:`check_ported`
-    refuses a config that asks for it."""
+    counter, or off ``host_step``, the same count held on the host (a
+    Python int), which lets them skip the work off cadence.  The Shapiro
+    filter is not ported; :func:`check_ported` refuses a config that asks
+    for it."""
     if dynamics_step is None:
         dynamics_step = make_dynamics_step(geom, config, filter_fn)
     prog, g, utc, step = state
     prog = PrognosticVars(*dynamics_step(*prog))
-    prog, g = apply_cadenced_extras(prog, g, utc, step + 1, geom, config)
+    step_next = step + 1 if host_step is None else host_step + 1
+    prog, g = apply_cadenced_extras(prog, g, utc, step_next, geom, config)
     return ModelState(prog, g, utc + config.dt, step + 1)
 
 
@@ -248,9 +270,16 @@ def make_run_fn(geom, config, timesteps):
         if config.guard:
             ok = torch.ones((), dtype=torch.bool, device=geom.device)
             blown = torch.full((), -1, dtype=torch.int32, device=geom.device)
+        # with extras at a cadence, the step counter on the host, read once:
+        # a state frozen by the guard stops its counter, but its new state
+        # is then discarded
+        cadenced = ((config.drag_tau > 0 or config.physics)
+                    and config.physics_every > 1)
+        step0 = int(state.step) if cadenced else None
         for step_idx in range(timesteps):
-            new_state = full_timestep(state, geom, config, filter_fn,
-                                      dynamics_step)
+            new_state = full_timestep(
+                state, geom, config, filter_fn, dynamics_step,
+                None if step0 is None else step0 + step_idx)
             if config.guard:
                 bad = state_bad(new_state, config)
                 advance = ok & ~bad
@@ -325,14 +354,39 @@ def _make_stream_run_fn(geom, config, timesteps):
     the fixed 4-sweep form).  Otherwise the extras run between calls at
     their cadence, which K divides.  An even remainder runs as one shorter
     call, an odd last step on the per-step 'mega4' path (K6 and the
-    per-step extras).  Fewer than 2 steps run on 'mega4' alone, as the JAX
-    package's fall-back computes.
+    per-step extras).
+
+    Where the JAX package falls back to its per-step 'mega4' path (JAX
+    ``_make_stream_run_fn``, with its warnings), a run with extras does
+    too, so that they run at the configured ``physics_every`` with the
+    adaptive convection, as there: fewer than 2 steps, a grid outside
+    :func:`stream_grid_supported`, or W > 2048 with H > 64.  Without
+    extras K7 runs on every grid but below 2 steps: there 'stream' equals
+    'mega4' to the bit, and the kernels' own TPU fall-backs are not carried
+    over.
 
     Guard and stats act once per call: ``GuardInfo.blown_step`` names the
     first step of the call that went bad, which :func:`run_model` narrows
     to the exact step (:func:`localize_blown_step`), and the stats hold one
     entry per call."""
-    if timesteps < 2:
+    extras = config.physics or config.drag_tau > 0
+    wide_tall = geom.width > STREAM_RESIDENT_MAX_WIDTH and geom.height > 64
+    off_envelope = (not stream_grid_supported(geom)
+                    or (wide_tall and not config.stream_wide_native))
+    if timesteps < 2 or (extras and off_envelope):
+        H, W = geom.height, geom.width
+        if wide_tall and stream_grid_supported(geom) and timesteps >= 2:
+            warnings.warn(
+                f"grid {H}x{W}: running the per-step 'mega4' path, as the "
+                "JAX package leaves its native tall-wide streaming kernel "
+                "for its v1 fused pipeline at this width; the extras run "
+                "at the configured physics_every", stacklevel=3)
+        else:
+            warnings.warn(
+                f"backend 'stream' needs >= 2 steps and a grid inside the "
+                f"streaming envelope (8 | H >= 16, 128 | W <= 4096 at any "
+                f"height); {timesteps} steps on {H}x{W} falls back to "
+                "'mega4'", stacklevel=3)
         return make_run_fn(geom, dataclasses.replace(config, backend="mega4"),
                            timesteps)
     inkernel = _inkernel_physics(config, geom)
@@ -368,18 +422,20 @@ def _make_stream_run_fn(geom, config, timesteps):
         return ModelState(
             PrognosticVars(*stream_steps.unpack_state(S[0], L)), g, utc, step)
 
-    def chunk_extras(carry, k):
+    def chunk_extras(carry, k, host_step):
         """The between-call extras on the packed buffer, when a cadence
         point falls in the just-completed k-step call; writes back the
-        planes they change."""
+        planes they change.  ``host_step``: the step counter on the host
+        (a Python int), or None to key off the carry's tensor."""
         if not has_extras:
             return carry
         S, g, utc, step = carry
         prog = PrognosticVars(*stream_steps.unpack_state(S[0], L))
         # utc at the start of the cadence-triggering step, as the per-step
         # path passes it
-        prog, g = apply_cadenced_extras(prog, g, utc - config.dt, step,
-                                        geom, config, granularity=k)
+        prog, g = apply_cadenced_extras(
+            prog, g, utc - config.dt, step if host_step is None else host_step,
+            geom, config, granularity=k)
         if config.drag_tau > 0:
             S[0, 1].copy_(prog.u[0])
             S[0, 1 + L].copy_(prog.v[0])
@@ -387,14 +443,15 @@ def _make_stream_run_fn(geom, config, timesteps):
             S[0, 1 + 2 * L:1 + 3 * L].copy_(prog.t)
         return S, g, utc, step
 
-    def advance_chunk(carry, k):
+    def advance_chunk(carry, k, host_step):
         S, g, utc, step = carry
         multi(S, utc, k)
-        return chunk_extras((S, g, utc + k * config.dt, step + k), k)
+        return chunk_extras((S, g, utc + k * config.dt, step + k), k,
+                            None if host_step is None else host_step + k)
 
-    def advance_tail_odd(carry):
+    def advance_tail_odd(carry, host_step):
         state = full_timestep(to_model_state(carry), geom, config, None,
-                              tail_step)
+                              tail_step, host_step)
         S = carry[0]
         S[0].copy_(stream_steps.pack_state(
             *state.prog, gt=state.ground.gt if inkernel else None))
@@ -410,17 +467,25 @@ def _make_stream_run_fn(geom, config, timesteps):
     def stats_of(carry):
         return collect_stats(to_model_state(carry), geom)
 
+    def host_steps(state):
+        """``at(n)``: the step counter after n steps of the run, on the
+        host, when the extras key off it (read once a run), else None.  A
+        call the guard discards may run off it: its state is not kept."""
+        step0 = int(state.step) if has_extras else None
+        return lambda n: None if step0 is None else step0 + n
+
     def run(state):
         carry = pack_initial(state)
+        at = host_steps(state)
         stats = []
-        for _ in range(n_chunks):
-            carry = advance_chunk(carry, K)
+        for idx in range(n_chunks):
+            carry = advance_chunk(carry, K, at(idx * K))
             if config.stats:
                 stats.append(stats_of(carry))
         if rem_even:
-            carry = advance_chunk(carry, rem_even)
+            carry = advance_chunk(carry, rem_even, at(n_chunks * K))
         if tail_odd:
-            carry = advance_tail_odd(carry)
+            carry = advance_tail_odd(carry, at(timesteps - 1))
         if config.stats and (rem_even or tail_odd):
             stats.append(stats_of(carry))
         return to_model_state(carry), _stack_stats(stats)
@@ -446,19 +511,23 @@ def _make_stream_run_fn(geom, config, timesteps):
         carry = (pack_initial(state),
                  torch.ones((), dtype=torch.bool, device=geom.device),
                  torch.full((), -1, dtype=torch.int32, device=geom.device))
+        at = host_steps(state)
         stats = []
         for idx in range(n_chunks):
-            carry = guarded_chunk(carry, idx * K,
-                                  lambda c: advance_chunk(c, K))
+            carry = guarded_chunk(
+                carry, idx * K, lambda c: advance_chunk(c, K, at(idx * K)))
             if config.stats:
                 stats.append(stats_of(carry[0]))
         if rem_even:
-            carry = guarded_chunk(carry, n_chunks * K,
-                                  lambda c: advance_chunk(c, rem_even))
+            carry = guarded_chunk(
+                carry, n_chunks * K,
+                lambda c: advance_chunk(c, rem_even, at(n_chunks * K)))
             if config.stats:
                 stats.append(stats_of(carry[0]))
         if tail_odd:
-            carry = guarded_chunk(carry, timesteps - 1, advance_tail_odd)
+            carry = guarded_chunk(
+                carry, timesteps - 1,
+                lambda c: advance_tail_odd(c, at(timesteps - 1)))
             if config.stats:
                 stats.append(stats_of(carry[0]))
         inner, ok, blown = carry
@@ -578,9 +647,10 @@ def run_model(height, width, layers, dt, timesteps, callback=None,
         filter_fn = make_filter_fn(config, geom)
         dynamics_step = make_dynamics_step(geom, config, filter_fn)
         stats_list = []
-        for _ in range(timesteps):
+        step0 = int(state.step)
+        for step_idx in range(timesteps):
             state = full_timestep(state, geom, config, filter_fn,
-                                  dynamics_step)
+                                  dynamics_step, step0 + step_idx)
             if config.stats:
                 stats_list.append(collect_stats(state, geom))
             callback(*state.prog)

@@ -9,12 +9,20 @@ unpadded contiguous tensors:
 * on CUDA tensors it launches ``csrc/fused_parts.cu`` (built at first use,
   see :mod:`gcmiipy_tpu_torch.ops.cuda_lib`) or raises; it never falls back.
 
-``fused_parts.launches`` counts the kernel launches.  The kernel is bound by
+:func:`pgf_column` is K1's first stage alone, the pgf column pass (rho and
+phi), with its plain version :func:`gcmiipy_tpu_torch.dynamics.core25d.
+pgf_column`.
+
+``fused_parts.launches`` counts the calls that launched the kernel;
+``column_pass.launches`` and ``parts_stencil.launches`` count the launches
+of its two stages, the pgf column pass and the tiled stencil (with its
+aflux prologue), where the C entries make them.  The kernel is bound by
 bytes: about 0.081 ms per call at 9x512x1024 float32 on an H100's 3.35 TB/s
 (the source's header works the number out).
 """
 
 import ctypes
+import types
 
 import torch
 
@@ -35,15 +43,22 @@ def fused_parts_ref(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
                                        q_limiter=q_limiter)
 
 
-def _library(double):
-    lib = cuda_lib.load(cuda_lib.library_name("fused_parts", double))
-    fn = lib.gcm_fused_parts
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+_I, _VP = ctypes.c_int, ctypes.c_void_p
+_CONSTS, _COUNT = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int)
+_ARGTYPES = {
+    "gcm_fused_parts": [_I, _PTRS, _PTRS, _PTRS, _PTRS, _I, _I, _I, _CONSTS,
+                        _I, _I, _COUNT, _COUNT, _VP],
+    "gcm_pgf_column": [_I, _VP, _VP, _PTRS, _VP, _VP, _I, _I, _I, _CONSTS,
+                       _COUNT, _VP],
+}
+
+
+def _function(name, double):
+    fn = getattr(cuda_lib.load(cuda_lib.library_name("fused_parts", double)),
+                 name)
     if fn.argtypes is None:
-        ptrs = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [ctypes.c_int, ptrs, ptrs, ptrs, ptrs, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -119,19 +134,24 @@ def fused_parts(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
                                q_limiter=q_limiter)
     _check(fields, geom)
     device = p.device
-    fn = _library(p.dtype == torch.float64)
+    fn = _function("gcm_fused_parts", p.dtype == torch.float64)
     L, H, W = geom.layers, geom.height, geom.width
     outs = [torch.empty((H, W), dtype=p.dtype, device=device)] + [
         torch.empty((L, H, W), dtype=p.dtype, device=device) for _ in range(5)]
+    # the column pass's phi and rho, which the tiled launch reads
     scratch = [torch.empty((L, H, W), dtype=p.dtype, device=device)
-               for _ in range(3)]
+               for _ in range(2)]
+    counts = [ctypes.c_int(0) for _ in range(2)]
     with torch.cuda.device(device):
         err = fn(int(p.dtype == torch.float64), pointer_array(fields),
                  pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
                  pointer_array(outs), pointer_array(scratch), L, H, W,
                  kernel_consts(dt),
                  int(bool(coriolis)), int(bool(q_limiter)),
+                 *map(ctypes.byref, counts),
                  torch.cuda.current_stream(device).cuda_stream)
+    column_pass.launches += counts[0].value
+    parts_stencil.launches += counts[1].value
     if err != 0:
         raise RuntimeError(f"fused_parts kernel launch failed: CUDA error {err}")
     fused_parts.launches += 1
@@ -139,3 +159,31 @@ def fused_parts(p, u, v, t, q, sp, su, sv, st, sq, spu, dt, geom,
 
 
 fused_parts.launches = 0
+# the launches of K1's two stages, counted where the C entry makes them
+column_pass = types.SimpleNamespace(launches=0)
+parts_stencil = types.SimpleNamespace(launches=0)
+
+
+def pgf_column(sp, st, geom):
+    """K1's column pass alone: ``(rho, phi)`` exactly as
+    ``core25d.pgf_column(sp, st, geom)``.  ``sp`` is (H,W), ``st``
+    (L,H,W); the outputs are new tensors."""
+    if on_cpu("pgf_column", (sp, st)):
+        return core25d.pgf_column(sp, st, geom)
+    L, H, W = geom.layers, geom.height, geom.width
+    check_args("pgf_column", (sp, st), [(H, W), (L, H, W)], geom)
+    rho, phi = (torch.empty((L, H, W), dtype=sp.dtype, device=sp.device)
+                for _ in range(2))
+    count = ctypes.c_int(0)
+    with torch.cuda.device(sp.device):
+        double = sp.dtype == torch.float64
+        err = _function("gcm_pgf_column", double)(
+            int(double), sp.data_ptr(), st.data_ptr(),
+            pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
+            rho.data_ptr(), phi.data_ptr(), L, H, W, kernel_consts(1.0),
+            ctypes.byref(count),
+            torch.cuda.current_stream(sp.device).cuda_stream)
+    column_pass.launches += count.value
+    if err != 0:
+        raise RuntimeError(f"pgf_column kernel launch failed: CUDA error {err}")
+    return rho, phi

@@ -26,7 +26,7 @@ FFT over the latitudes with some damping
 ``mega_half.launches`` counts the calls that launched the kernel; each adds
 to ``pgf_rest.pgf_tile.launches``, ``fft_filter.launches`` and
 ``pgf_rest.rest_stencil.launches`` the launches of the pgf tile, the
-filter and the rest stencil that its C entry counted (one each).  The
+filter and the rest tile that its C entry counted (one each).  The
 polar wall is applied inside (the constants' ``keep``), where the JAX
 kernel leaves it to its caller; the result is the same.  The filter sums
 in float64 for float32 fields too, as K6's does (``mega_step``'s
@@ -87,7 +87,7 @@ def mega_half(base, seval, dt, geom, fc, coriolis=False, q_limiter=False):
         return torch.empty(shape, dtype=dtype, device=device)
 
     outs = [new(H, W)] + [new(L, H, W) for _ in range(4)]
-    scratch = [new(2 * L, H, W), new(L, H, W), new(L, H, W)]
+    scratch = [new(2 * L, H, W), new(L, H, W)]  # X, pg_phiv
     counts = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(device):
         err = fn(int(dtype == torch.float64), pointer_array(fields[:5]),

@@ -19,7 +19,8 @@ corrector repeats it on (base, starred).
 ``mega_step.launches`` counts the calls that launched the kernel; each adds
 to ``pgf_rest.pgf_tile.launches``, ``fft_filter.launches`` and
 ``pgf_rest.rest_stencil.launches`` the launches of the pgf tile, the
-filter and the rest stencil that its C entry counted (two each).  The
+filter and the rest tile that its C entry counted (two each: six a
+step).  The
 kernel's filter stage is the float64 FFT of
 :mod:`gcmiipy_tpu_torch.ops.fft_filter`, which computes the banded DFT's
 function, so the kernel agrees with its plain version to rounding.
@@ -196,7 +197,7 @@ def _check(fields, geom, fc, kernel="mega_step"):
 
 def add_stage_launches(counts):
     """Adds the launches a C entry of K5, K6 or K7 counted (``counts``: the
-    ``ctypes.c_int`` of the pgf tile, the filter and the rest stencil) to
+    ``ctypes.c_int`` of the pgf tile, the filter and the rest tile) to
     ``pgf_rest.pgf_tile``'s, ``fft_filter``'s and ``pgf_rest.rest_stencil``'s
     counts."""
     pgf, filt, stencil = counts
@@ -232,7 +233,7 @@ def mega_step(p, u, v, t, q, dt, geom, fc, coriolis=False, q_limiter=False):
 
     starred = [new(H, W)] + [new(L, H, W) for _ in range(4)]
     outs = [new(H, W)] + [new(L, H, W) for _ in range(4)]
-    scratch = [new(2 * L, H, W), new(L, H, W), new(L, H, W)]
+    scratch = [new(2 * L, H, W), new(L, H, W)]  # X, pg_phiv
     counts = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(device):
         err = fn(int(p.dtype == torch.float64), pointer_array(fields),

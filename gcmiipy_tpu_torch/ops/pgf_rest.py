@@ -11,21 +11,19 @@ returns, :func:`rest_parts` (K4), and the polar wall.
 * :func:`pgf_parts` and :func:`rest_parts` run them on CPU tensors and
   launch ``csrc/pgf_rest.cu`` on CUDA tensors, or raise; they never fall
   back.
-* :func:`rest_stencil` is K4's second stage alone, the tiled rest stencil
-  (``csrc/stencil_tile.cuh``) that K4, K5, K6 and K7 share, on the p_n and
-  sd of the first (:func:`rest_column_ref`); :func:`rest_stencil_ref` is
-  its plain version.
 
 K3 is one launch of the pgf tile (``csrc/pgf_tile.cuh``), which is also
-the pgf stage of K5, K6 and K7.
+the pgf stage of K5, K6 and K7.  K4 is one launch of the rest tile
+(``csrc/stencil_tile.cuh``: aflux in a prologue, then the rest stencil),
+which is also stages 4-5 of K5, K6 and K7.
 
 ``pgf_parts.launches`` and ``rest_parts.launches`` count the calls that
 launched a kernel.  ``pgf_tile.launches`` and ``rest_stencil.launches``
-count every launch of the pgf tile and of the rest stencil where the C
-entries make it: K3's or :func:`rest_stencil`'s own and those inside K4,
-K5, K6 and K7, which their wrappers add after the call
-(:func:`add_pgf_launches`, :func:`add_stencil_launches`).  The kernels are
-bound by bytes (the sources' headers work the numbers out).
+count every launch of the pgf tile and of the rest tile where the C
+entries make it: K3's and K4's own and those inside K5, K6 and K7, which
+their wrappers add after the call (:func:`add_pgf_launches`,
+:func:`add_stencil_launches`).  The kernels are bound by bytes (the
+sources' headers work the numbers out).
 """
 
 import ctypes
@@ -48,44 +46,26 @@ def pgf_parts_ref(sp, su, st, geom):
     return torch.cat([spu_raw, pg_phi], dim=0), pg_phiv
 
 
-def rest_column_ref(p, sp, sv, filt_stack, dt, geom):
-    """Plain version of K4's first stage: ``(p_n, sd)``, the new surface
-    pressure and the sigma-dot of ``core25d.aflux`` with the filtered spu
-    (the stack's first L planes)."""
-    spv = core25d.calc_pv(sp, sv)
-    pit, sd = core25d.aflux(filt_stack[:geom.layers], spv, geom)
-    return p - pit * dt, sd
-
-
-def rest_stencil_ref(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv,
-                     p_n, sd, dt, geom, coriolis=False, q_limiter=False):
-    """Plain version of the rest stencil: ``core25d.rest_tendencies`` with
-    the filtered spu (the stack's first L planes) on ``p_n`` and ``sd``
-    (spv formed anew, as the kernel forms it), and the momentum epilogue
-    ``u = (pu - pgfu dt) / iph(p_n)``, ``v = (pv - pg_phiv dt) /
-    jph(p_n)`` with the filtered pgfu (its planes L..2L), as 2D reciprocals
-    and 3D multiplies like the JAX kernel's.  Returns ``(u_n, v_n, t_n,
-    q_n)``; v's wall row is the caller's."""
-    L = geom.layers
-    spu, pgfu = filt_stack[:L], filt_stack[L:]
-    pup, pvp, t_n, q_n = core25d.rest_tendencies(
-        p, u, v, t, q, sp, su, sv, st, sq, spu, core25d.calc_pv(sp, sv), sd,
-        p_n, dt, geom, coriolis=coriolis, q_limiter=q_limiter)
-    u_n = (pup - pgfu * dt) * (1.0 / iph(p_n))
-    v_n = (pvp - pg_phiv * dt) * (1.0 / jph(p_n))
-    return u_n, v_n, t_n, q_n
-
-
 def rest_parts_ref(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv,
                    dt, geom, coriolis=False, q_limiter=False):
     """Plain PyTorch version of K4: ``core25d.half_timestep_rest`` with the
-    filtered stack and the momentum epilogue, i.e. :func:`rest_column_ref`
-    then :func:`rest_stencil_ref`.  Returns ``(p_n, u_n, v_n, t_n, q_n)``;
-    v's wall row is the caller's."""
-    p_n, sd = rest_column_ref(p, sp, sv, filt_stack, dt, geom)
-    return (p_n,) + rest_stencil_ref(
-        p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv, p_n, sd, dt,
-        geom, coriolis=coriolis, q_limiter=q_limiter)
+    filtered spu (the stack's first L planes): ``core25d.aflux`` gives
+    ``p_n = p - pit dt`` and sd, then ``core25d.rest_tendencies`` and the
+    momentum epilogue ``u = (pu - pgfu dt) / iph(p_n)``, ``v = (pv -
+    pg_phiv dt) / jph(p_n)`` with the filtered pgfu (its planes L..2L), as
+    2D reciprocals and 3D multiplies like the JAX kernel's.  Returns
+    ``(p_n, u_n, v_n, t_n, q_n)``; v's wall row is the caller's."""
+    L = geom.layers
+    spu, pgfu = filt_stack[:L], filt_stack[L:]
+    spv = core25d.calc_pv(sp, sv)
+    pit, sd = core25d.aflux(spu, spv, geom)
+    p_n = p - pit * dt
+    pup, pvp, t_n, q_n = core25d.rest_tendencies(
+        p, u, v, t, q, sp, su, sv, st, sq, spu, spv, sd, p_n, dt, geom,
+        coriolis=coriolis, q_limiter=q_limiter)
+    u_n = (pup - pgfu * dt) * (1.0 / iph(p_n))
+    v_n = (pvp - pg_phiv * dt) * (1.0 / jph(p_n))
+    return p_n, u_n, v_n, t_n, q_n
 
 
 def _function(name, argtypes, double):
@@ -102,8 +82,8 @@ _CONSTS = ctypes.POINTER(ctypes.c_double)
 _I, _VP = ctypes.c_int, ctypes.c_void_p
 PGF_ARGTYPES = [_I, _PTRS, _PTRS, _VP, _VP, _I, _I, _I, _CONSTS,
                 ctypes.POINTER(_I), _VP]
-REST_ARGTYPES = [_I, _PTRS, _VP, _VP, _PTRS, _PTRS, _VP, _I, _I, _I, _CONSTS,
-                 _I, _I, ctypes.POINTER(_I), _VP]
+REST_ARGTYPES = [_I, _PTRS, _VP, _VP, _PTRS, _PTRS, _I, _I, _I, _CONSTS, _I,
+                 _I, ctypes.POINTER(_I), _VP]
 
 
 def _check_pgf(fields, geom):
@@ -111,12 +91,11 @@ def _check_pgf(fields, geom):
     check_args("pgf_parts", fields, [(H, W), (L, H, W), (L, H, W)], geom)
 
 
-def _check_rest(fields, geom, kernel="rest_parts"):
-    """K4's fields, and the rest stencil's p_n and sd after them."""
+def _check_rest(fields, geom):
     L, H, W = geom.layers, geom.height, geom.width
-    check_args(kernel, fields,
+    check_args("rest_parts", fields,
                [(H, W)] + [(L, H, W)] * 4 + [(H, W)] + [(L, H, W)] * 4
-               + [(2 * L, H, W), (L, H, W), (H, W), (L, H, W)], geom)
+               + [(2 * L, H, W), (L, H, W)], geom)
 
 
 def pgf_parts(sp, su, st, geom):
@@ -163,9 +142,17 @@ def rest_parts(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv, dt,
     device = p.device
     outs = [torch.empty((H, W), dtype=p.dtype, device=device)] + [
         torch.empty((L, H, W), dtype=p.dtype, device=device) for _ in range(4)]
-    sd = torch.empty((L, H, W), dtype=p.dtype, device=device)
-    err = _rest_call("gcm_rest_parts", fields, outs, sd, dt, geom, coriolis,
-                     q_limiter)
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        double = p.dtype == torch.float64
+        err = _function("gcm_rest_parts", REST_ARGTYPES, double)(
+            int(double), pointer_array(fields[:10]),
+            filt_stack.data_ptr(), pg_phiv.data_ptr(),
+            pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
+            pointer_array(outs), L, H, W, kernel_consts(dt),
+            int(bool(coriolis)), int(bool(q_limiter)), ctypes.byref(count),
+            torch.cuda.current_stream(device).cuda_stream)
+    add_stencil_launches(count)
     if err != 0:
         raise RuntimeError(f"rest_parts kernel launch failed: CUDA error {err}")
     rest_parts.launches += 1
@@ -174,8 +161,10 @@ def rest_parts(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv, dt,
 
 rest_parts.launches = 0
 
-# the pgf tile's launches, counted where the C entries make them
+# the launches of the pgf tile and of the rest tile, counted where the C
+# entries make them
 pgf_tile = types.SimpleNamespace(launches=0)
+rest_stencil = types.SimpleNamespace(launches=0)
 
 
 def add_pgf_launches(count):
@@ -185,51 +174,6 @@ def add_pgf_launches(count):
 
 
 def add_stencil_launches(count):
-    """Adds to ``rest_stencil.launches`` the rest stencil's launches a C
-    entry reports in ``count`` (a ``ctypes.c_int`` it set)."""
+    """Adds to ``rest_stencil.launches`` the rest tile's launches a C entry
+    reports in ``count`` (a ``ctypes.c_int`` it set)."""
     rest_stencil.launches += count.value
-
-
-def _rest_call(name, fields, outs, sd, dt, geom, coriolis, q_limiter):
-    """Calls the C entry ``name`` (K4's or the rest stencil's) on the
-    checked fields; adds the rest stencil's launches; returns its error."""
-    L, H, W = geom.layers, geom.height, geom.width
-    p, filt_stack, pg_phiv = fields[0], fields[10], fields[11]
-    device = p.device
-    count = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        double = p.dtype == torch.float64
-        err = _function(name, REST_ARGTYPES, double)(
-            int(double), pointer_array(fields[:10]),
-            filt_stack.data_ptr(), pg_phiv.data_ptr(),
-            pointer_array([getattr(geom, n) for n in GEOM_FIELDS]),
-            pointer_array(outs), sd.data_ptr(), L, H, W, kernel_consts(dt),
-            int(bool(coriolis)), int(bool(q_limiter)), ctypes.byref(count),
-            torch.cuda.current_stream(device).cuda_stream)
-    add_stencil_launches(count)
-    return err
-
-
-def rest_stencil(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv,
-                 p_n, sd, dt, geom, coriolis=False, q_limiter=False):
-    """The rest stencil alone: ``(u_n, v_n, t_n, q_n)`` exactly as
-    :func:`rest_stencil_ref`, v not walled.  K4's arguments, with ``p_n``
-    (H,W) and ``sd`` (L,H,W) of its first stage; the outputs are new
-    tensors."""
-    fields = (p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv)
-    if on_cpu("rest_stencil", fields + (p_n, sd)):
-        return rest_stencil_ref(*fields, p_n, sd, dt, geom,
-                                coriolis=coriolis, q_limiter=q_limiter)
-    _check_rest(fields + (p_n, sd), geom, "rest_stencil")
-    L, H, W = geom.layers, geom.height, geom.width
-    outs = [torch.empty((L, H, W), dtype=p.dtype, device=p.device)
-            for _ in range(4)]
-    err = _rest_call("gcm_rest_stencil", fields, [p_n] + outs, sd, dt, geom,
-                     coriolis, q_limiter)
-    if err != 0:
-        raise RuntimeError(
-            f"rest_stencil kernel launch failed: CUDA error {err}")
-    return tuple(outs)
-
-
-rest_stencil.launches = 0

@@ -17,7 +17,7 @@ at the clock ``utc0 + s*dt``.  k is even, so the state ends in buffer 0.
   tensors, or raises; ``stream_steps.launches`` counts the launching calls,
   each of which adds to ``pgf_rest.pgf_tile.launches``,
   ``fft_filter.launches`` and ``pgf_rest.rest_stencil.launches`` the
-  launches of the pgf tile, the filter and the rest stencil that its C
+  launches of the pgf tile, the filter and the rest tile that its C
   entry counted (2k each), and to ``column_physics.launches`` the
   epilogue's (k with the physics).
 * :func:`column_physics` is the epilogue alone (C entry
@@ -219,15 +219,15 @@ def _function(name, double):
 
 
 def new_scratch(geom, dtype, device):
-    """The kernel's scratch: the predictor's p, u, v, t, q, then X (2L,H,W),
-    pg_phiv, sd (L,H,W)."""
+    """The kernel's scratch: the predictor's p, u, v, t, q, then X (2L,H,W)
+    and pg_phiv (L,H,W)."""
     L, H, W = geom.layers, geom.height, geom.width
 
     def new(*shape):
         return torch.empty(shape, dtype=dtype, device=device)
 
     return ([new(H, W)] + [new(L, H, W) for _ in range(4)]
-            + [new(2 * L, H, W), new(L, H, W), new(L, H, W)])
+            + [new(2 * L, H, W), new(L, H, W)])
 
 
 def _check_table(kernel, table, device):

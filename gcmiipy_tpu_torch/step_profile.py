@@ -17,13 +17,15 @@ per-step grey radiation, convection and surface drag (two days): inside
 K7's steps for 'stream', as plain PyTorch after each step for the others.  With
 ``--trace-dir`` it also writes a Chrome trace per backend there.
 
-In the breakdown a half step of 'mega4', 'mega' and 'stream' shows four
+In the breakdown a half step of 'mega4', 'mega' and 'stream' shows three
 launches: the pgf tile (``gcm::pgf_tile<float>``, also K3's one launch in
-'v2'), the filter (``gcm::fft_filter_pow2<float, 1024>``), the aflux
-column (``gcm::aflux_column_pass<float>``) and the rest stencil
-(``gcm::tile_stencil<float, gcm::RestOut<float>>``), eight a step;
+'v2'), the filter (``gcm::fft_filter_pow2<float, 1024>``) and the rest
+tile with its aflux prologue (``gcm::tile_stencil<float,
+gcm::RestOut<float>>``, also K4's one launch in 'v2'), six a step;
 'stream' with ``--physics`` adds K7's epilogue
-(``gcm::column_physics<float>``), nine a step.
+(``gcm::column_physics<float>``), seven a step.  A half step of 'fused'
+shows K1's column pass (``column_pass<float>``) and its tiled launch
+(``gcm::tile_stencil<float, gcm::PartsOut<float>>``).
 """
 
 import argparse

@@ -27,7 +27,8 @@ from gcmiipy_tpu_torch.model.state import random_prognostics
 from gcmiipy_tpu_torch.ops import cuda_lib
 from gcmiipy_tpu_torch.ops import polar_filter as tpolar
 from gcmiipy_tpu_torch.ops.fused_parts import (
-    MAX_LAYERS, _check, fused_parts, fused_parts_ref)
+    MAX_LAYERS, _check, column_pass, fused_parts, fused_parts_ref,
+    parts_stencil, pgf_column)
 
 from torch_port_helpers import (
     FIELDS, as_jax, as_torch, assert_close, port_geom, random_state)
@@ -320,13 +321,14 @@ def test_fused_step_on_gpu_launches_k1_on_an_off_tile_grid(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(9, 24, 36), (3, 20, 100), (1, 2, 36),
-                                   (32, 16, 128)])
+@pytest.mark.parametrize("shape", [(9, 512, 1024), (9, 24, 36), (3, 20, 100),
+                                   (1, 2, 36), (32, 16, 128)])
 def test_kernel_tiles_equal_plain_version_on_gpu(cuda_device, dtype, shape):
-    """K1's tiled stencil launch equals its plain version bit for bit on
-    grids off every tile multiple (32 columns, 8 rows a tile at float32 and
-    16 at float64), smaller than one tile and at kMaxLayers, with Coriolis,
-    the q limiter and a hill."""
+    """K1 (its pgf column pass and its tiled launch with the aflux
+    prologue) equals its plain version bit for bit on the main path's grid
+    and on grids off every tile multiple (32 columns, 8 rows a tile),
+    smaller than one tile and at kMaxLayers, with Coriolis, the q limiter
+    and a hill, and counts each stage's launch."""
     L, H, W = shape
     hm = np.zeros((H, W))
     hm[H // 4:H // 2 + 1, W // 8:W // 3] = 1500.0
@@ -338,10 +340,51 @@ def test_kernel_tiles_equal_plain_version_on_gpu(cuda_device, dtype, shape):
     args = [x.to(device=cuda_device, dtype=dtype)
             for x in (*base, *seval, spu)]
     geom = geom.to(dtype=dtype, device=cuda_device)
-    before = fused_parts.launches
+    counts = (fused_parts, column_pass, parts_stencil)
+    before = [c.launches for c in counts]
     out = fused_parts(*args, 300.0, geom, coriolis=True, q_limiter=True)
     torch.cuda.synchronize()
-    assert fused_parts.launches == before + 1
+    assert [c.launches - b for c, b in zip(counts, before)] == [1, 1, 1]
     ref = fused_parts_ref(*args, 300.0, geom, coriolis=True, q_limiter=True)
     for name, a, b in zip(OUTS, out, ref):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
+def test_pgf_column_on_cpu_runs_its_plain_version():
+    """K1's column pass alone on CPU tensors is core25d.pgf_column, whose
+    rho and phi give core25d.pgf's forces; nothing is launched."""
+    jg = _geom(hill=True)
+    geom = port_geom(jg)
+    sp, _, _, st, _ = as_torch(random_state(jg, seed=7))
+    before = column_pass.launches
+    rho, phi = pgf_column(sp, st, geom)
+    assert column_pass.launches == before
+    ref = core25d.pgf_column(sp, st, geom)
+    assert torch.equal(rho, ref[0]) and torch.equal(phi, ref[1])
+    assert rho.shape == phi.shape == st.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(9, 512, 1024), (9, 24, 36), (3, 20, 100),
+                                   (1, 2, 36), (32, 16, 128)])
+def test_pgf_column_equals_plain_version_on_gpu(cuda_device, dtype, shape):
+    """K1's column pass alone equals core25d.pgf_column bit for bit (at
+    float64 through the library whose double pow rounds as PyTorch's) and
+    counts its launch."""
+    L, H, W = shape
+    hm = np.zeros((H, W))
+    hm[H // 4:H // 2 + 1, W // 8:W // 3] = 1500.0
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 heightmap=hm, dtype=torch.float64,
+                                 device="cpu")
+    sp, _, _, st, _ = random_prognostics(geom, 49)
+    sp, st = (x.to(device=cuda_device, dtype=dtype) for x in (sp, st))
+    geom = geom.to(dtype=dtype, device=cuda_device)
+    before = column_pass.launches
+    out = pgf_column(sp, st, geom)
+    torch.cuda.synchronize()
+    assert column_pass.launches == before + 1
+    for name, a, b in zip(("rho", "phi"), out,
+                          core25d.pgf_column(sp, st, geom)):
         assert torch.equal(a, b), (name, float((a - b).abs().max()))

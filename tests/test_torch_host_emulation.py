@@ -2,16 +2,19 @@
 
 ``torch_host_emulation`` (beside this file) builds ``csrc/*.cu`` with the host
 compiler (skipped without ``g++``) against an emulation of the CUDA subset
-they use, and the wrappers take CPU tensors down their kernel paths.  K1,
-K4 and the rest stencil alone (the tiled stencil in both of its forms), K5
-(a half step's four launches), K6 (a whole step's eight, the FFT filter
+they use, and the wrappers take CPU tensors down their kernel paths.  K1
+and K4 (the rest tile in both of its forms, each with its aflux prologue),
+K5 (a half step's three launches), K6 (a whole step's six, the FFT filter
 among them) and K7 with its physics are held against their plain versions
-at float64 on grids off the tiles and smaller than one: K4 and the rest
-stencil to the bit where no ``sin`` enters, and otherwise within 1e-12 of
-each field's scale (1e-11 after a K5 half, a K6 step or a K7 call), since
-the host's ``pow`` and ``sin`` round apart from PyTorch's.  K3, the pgf tile, is held to the bit at float32 and
-float64 against its plain version with the host's ``pow`` (``host_pow``),
-its one library function.  The column-physics epilogue alone is held
+at float64 on grids off the tiles and smaller than one: K4 to the bit
+where no ``sin`` enters, and otherwise within 1e-12 of each field's scale
+(1e-11 after a K5 half, a K6 step or a K7 call), since the host's ``pow``
+and ``sin`` round apart from PyTorch's.  Without Coriolis (no ``sin``) K4,
+and K1 and its column pass alone with the plain version's ``pow`` made
+the host's (``host_pow``), are held to the bit at float32 and float64,
+flat and with a hill, on these grids, at kMaxLayers and off the tiles.  K3, the pgf tile, is held
+to the bit at float32 and float64 against its plain version with the
+host's ``pow``, its one library function.  The column-physics epilogue alone is held
 within 1e-14 (float64) and 1e-6 (float32) of each field's scale: its
 ``pow``, ``log``, ``sin`` and ``cos`` are the host's.  The launches of the
 pgf tile, the rest stencil and the epilogue are counted where the C
@@ -39,6 +42,9 @@ torch.set_num_threads(1)
 
 DT = 300.0
 GRIDS = [(3, 20, 36), (1, 2, 36), (4, 13, 70)]
+# and kMaxLayers, and a grid off the tiles (19 rows: 8 does not divide it;
+# 45 columns)
+PGF_GRIDS = GRIDS + [(32, 20, 36), (5, 19, 45)]
 
 
 @pytest.fixture(scope="module")
@@ -98,28 +104,6 @@ def test_rest_parts_source_matches_plain_version(build_dir, shape, coriolis,
 @pytest.mark.parametrize("coriolis,q_limiter,hill", [
     (False, False, False), (True, True, True)])
 @pytest.mark.parametrize("shape", GRIDS)
-def test_rest_stencil_source_matches_plain_version(build_dir, shape, coriolis,
-                                                   q_limiter, hill):
-    geom = _geom(shape, hill)
-    base, seval = random_prognostics(geom, 56), random_prognostics(geom, 57)
-    stack, pg_phiv = pr.pgf_parts_ref(seval[0], seval[1], seval[3], geom)
-    filt = polar_filter.arakawa_1977(stack, geom)
-    p_n, sd = pr.rest_column_ref(base[0], seval[0], seval[2], filt, DT, geom)
-    args = (*base, *seval, filt, pg_phiv, p_n, sd, DT, geom)
-    before = pr.rest_stencil.launches
-    with kernels_on_cpu(build_dir):
-        out = pr.rest_stencil(*args, coriolis=coriolis, q_limiter=q_limiter)
-    assert pr.rest_stencil.launches == before + 1
-    ref = pr.rest_stencil_ref(*args, coriolis=coriolis, q_limiter=q_limiter)
-    if coriolis:
-        assert _scaled_err(out, ref) <= 1e-12
-    else:
-        assert all(torch.equal(a, b) for a, b in zip(out, ref))
-
-
-@pytest.mark.parametrize("coriolis,q_limiter,hill", [
-    (False, False, False), (True, True, True)])
-@pytest.mark.parametrize("shape", GRIDS)
 def test_fused_parts_source_matches_plain_version(build_dir, shape, coriolis,
                                                   q_limiter, hill):
     geom = _geom(shape, hill)
@@ -133,6 +117,81 @@ def test_fused_parts_source_matches_plain_version(build_dir, shape, coriolis,
     assert fp.fused_parts.launches == before + 1
     ref = fp.fused_parts_ref(*args, coriolis=coriolis, q_limiter=q_limiter)
     assert _scaled_err(out, ref) <= 1e-12
+
+
+def _k4_args(shape, hill, dtype):
+    """K4's arguments in ``dtype``: random base and evaluated states, the
+    evaluated state's filtered stack and pg_phiv, made at float64."""
+    geom = _geom(shape, hill)
+    base, seval = random_prognostics(geom, 63), random_prognostics(geom, 64)
+    stack, pg_phiv = pr.pgf_parts_ref(seval[0], seval[1], seval[3], geom)
+    fields = (*base, *seval, polar_filter.arakawa_1977(stack, geom), pg_phiv)
+    return (*(x.to(dtype) for x in fields), DT, _geom(shape, hill, dtype))
+
+
+@pytest.mark.parametrize("hill", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", PGF_GRIDS)
+def test_rest_parts_source_equals_plain_version_to_the_bit(build_dir, shape,
+                                                          dtype, hill):
+    """K4, one launch of the rest tile (aflux in its prologue, sd in shared
+    memory only), equals rest_parts_ref bit for bit with the q limiter, at
+    both types, and counts its launch."""
+    args = _k4_args(shape, hill, dtype)
+    before = pr.rest_parts.launches, pr.rest_stencil.launches
+    with kernels_on_cpu(build_dir):
+        out = pr.rest_parts(*args, q_limiter=True)
+    assert (pr.rest_parts.launches, pr.rest_stencil.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = pr.rest_parts_ref(*args, q_limiter=True)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b), float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("hill", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", PGF_GRIDS)
+def test_fused_parts_source_equals_plain_version_to_the_bit(build_dir, shape,
+                                                           dtype, hill):
+    """K1 (the pgf column pass, then the tiled launch with the aflux
+    prologue) equals fused_parts_ref bit for bit with the q limiter when
+    both take the host's pow, at both types, and counts each launch."""
+    geom = _geom(shape, hill)
+    base, seval = random_prognostics(geom, 65), random_prognostics(geom, 66)
+    spu = polar_filter.arakawa_1977(core25d.calc_pu(seval[0], seval[1]),
+                                    geom)
+    args = (*(x.to(dtype) for x in (*base, *seval, spu)), DT,
+            _geom(shape, hill, dtype))
+    counts = (fp.fused_parts, fp.column_pass, fp.parts_stencil)
+    before = [c.launches for c in counts]
+    with kernels_on_cpu(build_dir):
+        out = fp.fused_parts(*args, q_limiter=True)
+    assert [c.launches - b for c, b in zip(counts, before)] == [1, 1, 1]
+    with host_pow():
+        ref = fp.fused_parts_ref(*args, q_limiter=True)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b), float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("hill", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", PGF_GRIDS)
+def test_pgf_column_source_equals_plain_version_to_the_bit(build_dir, shape,
+                                                          dtype, hill):
+    """K1's column pass alone (C entry gcm_pgf_column: one pass over k
+    and the ladder in place, no per-layer array) equals core25d.pgf_column
+    bit for bit with the host's pow, and counts its launch."""
+    geom = _geom(shape, hill, dtype)
+    sp, _, _, st, _ = (x.to(dtype) for x in
+                       random_prognostics(_geom(shape, hill), 67))
+    before = fp.column_pass.launches
+    with kernels_on_cpu(build_dir):
+        out = fp.pgf_column(sp, st, geom)
+    assert fp.column_pass.launches == before + 1
+    with host_pow():
+        ref = core25d.pgf_column(sp, st, geom)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b), float((a - b).abs().max() / b.abs().max())
 
 
 def test_mega_step_source_matches_plain_version(build_dir):
@@ -155,9 +214,8 @@ def test_mega_step_source_matches_plain_version(build_dir):
 
 
 def test_mega_half_source_matches_plain_version(build_dir):
-    """K5, a corrector half (the pgf tile, the filter, the aflux column and
-    the rest stencil once each), against mega_half_ref with the kernel's
-    FFT plan."""
+    """K5, a corrector half (the pgf tile, the filter and the rest tile once
+    each), against mega_half_ref with the kernel's FFT plan."""
     from gcmiipy_tpu_torch.ops import mega_half as mh
     geom = _geom((3, 20, 36), True)
     base, seval = random_prognostics(geom, 61), random_prognostics(geom, 62)
@@ -175,11 +233,6 @@ def test_mega_half_source_matches_plain_version(build_dir):
                            filter_ref=lambda X: fft_filter_ref(X, fc))
     assert _scaled_err(out, ref) <= 1e-11
     assert bool((out[2][:, -1] == 0).all())
-
-
-# kMaxLayers, and a grid off the tiles at both types (19 rows: neither 8
-# nor 16 divides it; 45 columns)
-PGF_GRIDS = GRIDS + [(32, 20, 36), (5, 19, 45)]
 
 
 @pytest.mark.parametrize("hill", [False, True])
@@ -248,8 +301,8 @@ def test_column_physics_source_matches_plain_version(build_dir, shape, kw,
 
 def test_stream_steps_source_matches_plain_version(build_dir):
     """K7 with the physics (4 steps: the pgf tile, the filter and the rest
-    stencil twice a step, the epilogue once) against stream_steps_ref with
-    the kernel's FFT plan."""
+    tile twice a step, the epilogue once) against stream_steps_ref with the
+    kernel's FFT plan."""
     L, H, W = 3, 20, 36
     geom = _geom((L, H, W), True)
     gt = torch.as_tensor(290.0 + 20.0 * np.random.default_rng(60).random(

@@ -440,16 +440,17 @@ def test_kernel_matches_plain_version_on_gpu(cuda_device, dtype, physics, k):
 
 @pytest.mark.gpu
 def test_run_model_stream_on_gpu_launches_k7_once_per_call(cuda_device):
+    """On a grid inside the JAX package's streaming envelope (with the
+    physics on, 'stream' runs per-step 'mega4' outside it)."""
     cfg = ModelConfig(backend="stream", stream_steps=4, dtype="float64",
                       physics=True, drag_tau=86400.0)
     before = (ss.stream_steps.launches, ms.mega_step.launches)
-    out = driver.run_model(24, 36, 3, 300.0, 7, device=cuda_device,
-                           config=cfg)
+    out = driver.run_model(*ARGS, 7, device=cuda_device, config=cfg)
     torch.cuda.synchronize()
     # one call of 4, the remainder of 2, the odd tail on K6
     assert ss.stream_steps.launches == before[0] + 2
     assert ms.mega_step.launches == before[1] + 1
-    ref = driver.run_model(24, 36, 3, 300.0, 7, device="cpu", config=cfg)
+    ref = driver.run_model(*ARGS, 7, device="cpu", config=cfg)
     assert_close(out[:5], [x.numpy() for x in ref[:5]], 1e-11, 1e-11, FIELDS)
     assert_close((out[5].gt,), (ref[5].gt.numpy(),), 1e-11, 1e-11, ("gt",))
 

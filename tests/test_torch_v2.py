@@ -212,41 +212,6 @@ def test_pgf_rest_on_cpu_run_the_plain_versions():
     assert (pr.pgf_parts.launches, pr.rest_parts.launches) == before
 
 
-def test_rest_stencil_on_cpu_runs_its_plain_version():
-    """The rest stencil on CPU tensors is its plain version, which with
-    K4's first stage gives K4's plain version; nothing is launched."""
-    jg = _jgeom(hill=True)
-    tg = port_geom(jg)
-    base, seval, filt, pg_phiv = (as_torch(x) if isinstance(x, tuple)
-                                  else as_torch([x])[0]
-                                  for x in _k4_inputs(jg, seed=31))
-    p_n, sd = pr.rest_column_ref(base[0], seval[0], seval[2], filt, DT, tg)
-    before = pr.rest_stencil.launches
-    out = pr.rest_stencil(*base, *seval, filt, pg_phiv, p_n, sd, DT, tg,
-                          coriolis=True, q_limiter=True)
-    assert pr.rest_stencil.launches == before
-    ref = pr.rest_parts_ref(*base, *seval, filt, pg_phiv, DT, tg,
-                            coriolis=True, q_limiter=True)
-    assert torch.equal(p_n, ref[0])
-    for a, b in zip(out, ref[1:]):
-        assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("fault", ["p_n", "sd"])
-def test_rest_stencil_checks_its_stage_inputs(fault):
-    jg = _jgeom()
-    geom = port_geom(jg)
-    args = _rest_args(jg)
-    p_n, sd = torch.zeros_like(args[0]), torch.zeros_like(args[1])
-    pr._check_rest(args + [p_n, sd], geom, "rest_stencil")
-    if fault == "p_n":
-        p_n = args[1]
-    else:
-        sd = sd[:, :8]
-    with pytest.raises(ValueError, match="rest_stencil argument 1[23]"):
-        pr._check_rest(args + [p_n, sd], geom, "rest_stencil")
-
-
 def test_pgf_rest_refuse_other_devices():
     jg = _jgeom()
     tg = port_geom(jg)
@@ -359,9 +324,8 @@ def test_v2_step_on_gpu_launches_k3_k4_twice(cuda_device, shape):
     assert_close(out, [x.numpy() for x in ref], 1e-12, 1e-12, FIELDS)
 
 
-# Grids off every tile multiple of the tiled rest stencil (32 columns, 8
-# rows a tile at float32 and 16 at float64), smaller than one tile, and
-# kMaxLayers at float64
+# Grids off every tile multiple of the rest tile (32 columns, 8 rows a
+# tile), smaller than one tile, and kMaxLayers
 EDGE_GRIDS = [(9, 24, 36), (3, 20, 100), (1, 2, 36), (32, 16, 128)]
 
 
@@ -377,11 +341,12 @@ def edge_geom(shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", EDGE_GRIDS)
+@pytest.mark.parametrize("shape", [(9, 512, 1024)] + EDGE_GRIDS)
 def test_rest_parts_tiles_equal_plain_version_on_gpu(cuda_device, dtype,
                                                      shape):
-    """K4's tiled rest stencil equals its plain version bit for bit, with
-    Coriolis, the q limiter and terrain on."""
+    """K4, one launch of the rest tile (aflux in its prologue), equals its
+    plain version bit for bit on the main path's grid and the edge grids,
+    with Coriolis, the q limiter and terrain on."""
     geom = edge_geom(shape)
     base, seval = random_prognostics(geom, 41), random_prognostics(geom, 42)
     stack, pg_phiv = pr.pgf_parts_ref(seval[0], seval[1], seval[3], geom)
@@ -422,30 +387,6 @@ def test_mega4_step_on_an_edge_grid_matches_plain_version_on_gpu(
     for name, a, b in zip(FIELDS, out, ref):
         err = float((a - b).abs().max() / b.abs().max())
         assert err <= bound, (name, err)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", EDGE_GRIDS)
-def test_rest_stencil_alone_equals_plain_version_on_gpu(cuda_device, dtype,
-                                                        shape):
-    """The rest stencil alone, on the p_n and sd of K4's first stage,
-    equals its plain version bit for bit and counts its one launch."""
-    geom = edge_geom(shape)
-    base, seval = random_prognostics(geom, 46), random_prognostics(geom, 47)
-    stack, pg_phiv = pr.pgf_parts_ref(seval[0], seval[1], seval[3], geom)
-    filt = tpolar.arakawa_1977(stack, geom)
-    p_n, sd = pr.rest_column_ref(base[0], seval[0], seval[2], filt, DT, geom)
-    args = [x.to(device=cuda_device, dtype=dtype) for x in (
-        *base, *seval, filt, pg_phiv, p_n, sd)]
-    geom = geom.to(dtype=dtype, device=cuda_device)
-    before = pr.rest_stencil.launches
-    out = pr.rest_stencil(*args, DT, geom, coriolis=True, q_limiter=True)
-    torch.cuda.synchronize()
-    assert pr.rest_stencil.launches == before + 1
-    ref = pr.rest_stencil_ref(*args, DT, geom, coriolis=True, q_limiter=True)
-    for name, a, b in zip(FIELDS[1:], out, ref):
-        assert torch.equal(a, b), (name, float((a - b).abs().max()))
 
 
 def _pgf_on_gpu(device, dtype, shape, hill):
