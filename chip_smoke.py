@@ -48,8 +48,20 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            filter, the rest tile, the epilogue and K1's two stages are
 #            counted where the C entries make them: six kernel launches a
 #            mega4 step, seven a stream step with the physics;
+#   surface  the Hansen terrain, land cover, water cycle, Shapiro filter and
+#            four-band radiation (Config S) through make_run_fn, 20 steps
+#            from a cooled start whose lowest layer is supersaturated: on
+#            'stream' (K7 calls of 2 steps, the extras and the filter
+#            between calls) and 'mega4' (K6), held against each other, the
+#            plain core (xla with the DFT filter) and 'mega' (K5), with the
+#            launches counted and rain required; Config T, the grey
+#            per-step physics over the terrain in K7's epilogue, against
+#            mega4 with the plain physics after 4 and 20 steps; Config W,
+#            Config S without the land cover on mega4, whose global water
+#            (atmosphere and ground) must change by less than 1e-5;
 #   timing   ms/step of the backends, mega4 and stream also with the
-#            physics, mega4 also with the physics every 4th step (windows
+#            physics and with Config S (over the terrain from phase
+#            surface's start), mega4 also with the physics every 4th step (windows
 #            of 20 steps between CUDA events, each twice), the v2 step
 #            beside the fused step (dynamics alone), each kernel's ms
 #            beside its bound, its plain version's and, for the filter
@@ -124,6 +136,20 @@ STEP_WINDOW = 20  # steps per timing window
 # (the reference's cadence), convection, a one-day surface drag
 PHYSICS = dict(physics=True, physics_every=1, convection=True,
                drag_tau=86400.0)
+# Config S of phase surface: the Hansen terrain and land cover, four-band
+# radiation, convection, the water cycle, a one-day drag and the Shapiro
+# filter of p and t (sea-level reduction on over the terrain), with the
+# physics every 2nd step
+SURFACE = dict(topography="hansen", land_cover="hansen", physics=True,
+               convection=True, radiation="4band", evaporation=True,
+               gw0=0.05, precipitation=True, rh_crit=0.8, drag_tau=86400.0,
+               shapiro_every=4, shapiro_fields="pt", physics_every=2)
+# Config T: the grey per-step physics over the Hansen terrain, which 'stream'
+# runs in K7's epilogue
+TERRAIN = dict(topography="hansen", physics=True, convection=True,
+               drag_tau=86400.0, physics_every=1)
+# Config W's global water (atmosphere and ground, float64 sums) over the run
+WATER_REL = 1e-5
 
 
 def log(phase, msg):
@@ -931,20 +957,22 @@ def _run_from(backend, geom, state, steps, polar_filter="fft", **extra):
 
 
 def _held(tag, one, run, one_ref, run_ref, moved=None, short=1,
-          short_rel=STEP1_REL):
+          short_rel=STEP1_REL, phase="main"):
     """The tpu_parity.py bounds: rel after ``short`` steps (1 unless
-    given), rel after the run, p drift."""
+    given; logged only where ``short_rel`` is None), rel after the run, p
+    drift."""
     rel1 = rel_err(one, one_ref) if one is not None else None
     rel_n = rel_err(run, run_ref)
     drift = float((run[0] - run_ref[0]).abs().max())
-    msg = (f"{tag}: " + (f"{short}-step rel {rel1:.3e} (< {short_rel:g}), "
+    bound = "logged" if short_rel is None else f"< {short_rel:g}"
+    msg = (f"{tag}: " + (f"{short}-step rel {rel1:.3e} ({bound}), "
                          if rel1 is not None else "")
            + f"{MAIN['steps']}-step rel {rel_n:.3e} (< {RUN_REL:g}), "
            f"p drift {drift:.3e} Pa (< {DRIFT_PA:g})")
-    log("main", msg + (f"; {moved}" if moved else ""))
-    if not ((rel1 is None or rel1 < short_rel) and rel_n < RUN_REL
-            and drift < DRIFT_PA):
-        fail("main", tag + " outside the tpu_parity.py bounds")
+    log(phase, msg + (f"; {moved}" if moved else ""))
+    if not ((rel1 is None or short_rel is None or rel1 < short_rel)
+            and rel_n < RUN_REL and drift < DRIFT_PA):
+        fail(phase, tag + " outside the tpu_parity.py bounds")
 
 
 def _counted(kernels, fn):
@@ -1216,6 +1244,193 @@ def phase_main_mega_v2(device, geom, start, runs):
     return launches
 
 
+def per_field(out, ref, names=("p", "u", "v", "t", "q", "gt", "gw")):
+    """Each field's max error over its scale, and the cells off by more
+    than 1e-4 of it."""
+    parts = []
+    for name, a, b in zip(names, out, ref):
+        scale = max(float(b.abs().max()), 1e-30)
+        err = (a - b).abs() / scale
+        parts.append(f"{name} {float(err.max()):.3e} "
+                     f"({int((err > 1e-4).sum())} cells > 1e-4)")
+    return ", ".join(parts)
+
+
+def moist_start(geom, config):
+    """The reference's start over the config's terrain (the surface pressure
+    in barometric balance, gw at gw0), cooled with a supersaturated lowest
+    layer (``state.moist_start``), so that rain falls from the first
+    physics step: the 360 K start is a steam bath that blows up over the
+    terrain with the evaporation on."""
+    from gcmiipy_tpu_torch.model import state
+    from gcmiipy_tpu_torch.model.driver import gen_model_state
+    return state.moist_start(gen_model_state(geom, config), geom)
+
+
+def _surface_run(tag, backend, geom, state, steps, polar_filter="fft",
+                 **extra):
+    """``make_run_fn`` from ``state``: (p, u, v, t, q, gt, gw), guard clean
+    and finite."""
+    from gcmiipy_tpu_torch.model.driver import make_run_fn
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state, stats, guard = make_run_fn(
+            geom, _config(backend, polar_filter, **extra), steps)(state)
+        torch.cuda.synchronize()
+    for w in caught:
+        log("surface", f"{tag} {backend} warned: {w.message}")
+    out = tuple(state.prog) + (state.ground.gt, state.ground.gw)
+    if not bool(guard.ok):
+        fail("surface", f"{tag} {backend}: guard tripped at step "
+                        f"{int(guard.blown_step)}")
+    for name, x in zip(("p", "u", "v", "t", "q", "gt", "gw"), out):
+        if not torch.isfinite(x).all():
+            fail("surface", f"{tag} {backend}: field {name} not finite")
+    if not all(torch.isfinite(x).all() for x in stats):
+        fail("surface", f"{tag} {backend}: stats not finite")
+    return out
+
+
+def phase_surface(device):
+    """The Hansen terrain, land cover, water cycle, Shapiro filter and
+    four-band radiation through make_run_fn (SURFACE, Config S) from the
+    moist start, 20 steps: on 'stream' (K7 calls of K = 2, the gcd of the
+    cadences, with the extras and the filter between calls) and on 'mega4'
+    (K6), each with its launches counted, held against each other (and
+    logged as equal to the bit or not), against the plain core (xla with
+    the DFT filter) and once against 'mega' (K5); rain must fall.  Config T
+    (TERRAIN): grey physics at physics_every=1 over the terrain on 'stream',
+    where K7's epilogue runs the physics, against mega4 with the per-step
+    physics in plain PyTorch.  Config W: Config S without the land cover on
+    mega4, its global water at steps 0 and 20.  Returns the geometry and
+    start of Config S, for phase timing."""
+    from gcmiipy_tpu_torch.diagnostics import global_water
+    from gcmiipy_tpu_torch.model.driver import gen_model_geometry
+    from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
+    from gcmiipy_tpu_torch.ops.mega_half import mega_half
+    from gcmiipy_tpu_torch.ops.mega_step import mega_step
+    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_tile, rest_stencil
+    from gcmiipy_tpu_torch.ops.stream_steps import column_physics, stream_steps
+    kernels = (stream_steps, mega_step, mega_half, fft_filter, rest_stencil,
+               pgf_tile, column_physics)
+    names = ("stream_steps", "mega_step", "mega_half", "fft_filter",
+             "rest_stencil", "pgf_tile", "column_physics")
+    n = MAIN["steps"]
+    config = _config("stream", **SURFACE)
+    geom = gen_model_geometry(config, device)
+    start = moist_start(geom, config)
+    log("surface", f"Hansen terrain {float(geom.heightmap.min()):.1f}.."
+                   f"{float(geom.heightmap.max()):.1f} m, land fraction "
+                   f"mean {float(geom.land_fraction.mean()):.4f}, surface "
+                   f"pressure {float(start.prog.p.min()):.1f}.."
+                   f"{float(start.prog.p.max()):.1f} Pa")
+
+    def counted(tag, backend, steps, want, polar_filter="fft", cfg=SURFACE,
+                state=start, g=geom):
+        t = time.perf_counter()
+        out, counts = _counted(kernels, lambda: _surface_run(
+            tag, backend, g, state, steps, polar_filter, **cfg))
+        got = dict(zip(names, counts))
+        log("surface", f"{tag} {backend} {steps} steps in "
+                       f"{time.perf_counter() - t:.2f}s, launches " + " ".join(
+                           f"{k} {v}" for k, v in got.items()))
+        if got != dict(dict.fromkeys(names, 0), **want):
+            fail("surface", f"{tag} {backend} {steps} steps launched {got}, "
+                            f"expected {want}")
+        return out
+
+    runs = {}
+    for steps in (2, n):
+        # K = 2: one K7 call a 2 steps, the extras and the filter between
+        runs["stream", steps] = counted("S", "stream", steps, dict(
+            stream_steps=steps // 2, fft_filter=2 * steps,
+            rest_stencil=2 * steps, pgf_tile=2 * steps))
+        runs["mega4", steps] = counted("S", "mega4", steps, dict(
+            mega_step=steps, fft_filter=2 * steps, rest_stencil=2 * steps,
+            pgf_tile=2 * steps))
+        runs["xla", steps] = counted("S", "xla", steps, {}, "dft")
+    mega_n = counted("S", "mega", n, dict(
+        mega_half=2 * n, fft_filter=2 * n, rest_stencil=2 * n,
+        pgf_tile=2 * n))
+    gw0 = start.ground.gw
+    rained = int((runs["mega4", n][6] > gw0).sum())
+    dried = int((runs["mega4", n][6] < gw0).sum())
+    moved = (f"gw rose (rain) in {rained} of {gw0.numel()} cells, fell "
+             f"(evaporation) in {dried}; q moved by rel "
+             f"{rel_err(runs['mega4', n][4:5], start.prog.q[None]):.3e}")
+    log("surface", f"S stream vs mega4, {n} steps: equal to the bit: "
+                   f"{bit_equal(runs['stream', n], runs['mega4', n])}")
+    for steps in (2, n):
+        log("surface", f"S mega4 vs plain core (dft) after {steps} steps, "
+                       "rel per field: " + per_field(
+                           runs["mega4", steps], runs["xla", steps]))
+    _held("S stream vs mega4 (p,u,v,t,q,gt,gw)", runs["stream", 2],
+          runs["stream", n], runs["mega4", 2], runs["mega4", n], short=2,
+          phase="surface")
+    # the 2-step difference is logged, not held to the dynamics' step-1
+    # limit: over the terrain the pressure-gradient force is the small
+    # difference of two large terms, and u and v start at rest, so the
+    # float32 rounding of the kernel's FFT filter against the plain core's
+    # DFT is 6.1e-4 of u's scale after 2 steps and stays there (6.3e-4
+    # after 20; p, t, q, gt and gw within 1.3e-5, NVIDIA H100 80GB HBM3)
+    _held("S mega4 vs plain core (dft) (p,u,v,t,q,gt,gw)",
+          runs["mega4", 2], runs["mega4", n], runs["xla", 2],
+          runs["xla", n], moved, short=2, short_rel=None, phase="surface")
+    log("surface", f"S mega vs mega4, {n} steps: equal to the bit: "
+                   f"{bit_equal(mega_n, runs['mega4', n])}")
+    _held("S mega vs mega4 (p,u,v,t,q,gt,gw)", None, mega_n, None,
+          runs["mega4", n], phase="surface")
+    if not rained:
+        fail("surface", "no rain fell: gw rose nowhere")
+
+    # Config T: K7's epilogue over the terrain, one call of 20 steps
+    t_cfg = _config("stream", **TERRAIN)
+    t_geom = gen_model_geometry(t_cfg, device)
+    from gcmiipy_tpu_torch.model.driver import gen_model_state
+    t_start = gen_model_state(t_geom, t_cfg)
+    for steps in (4, n):
+        runs["T stream", steps] = counted(
+            "T", "stream", steps, dict(
+                stream_steps=1, fft_filter=2 * steps, rest_stencil=2 * steps,
+                pgf_tile=2 * steps, column_physics=steps),
+            cfg=TERRAIN, state=t_start, g=t_geom)
+        runs["T mega4", steps] = counted(
+            "T", "mega4", steps, dict(
+                mega_step=steps, fft_filter=2 * steps, rest_stencil=2 * steps,
+                pgf_tile=2 * steps), cfg=TERRAIN, state=t_start, g=t_geom)
+    moved = (f"the run moved p by "
+             f"{float((runs['T mega4', n][0] - t_start.prog.p).abs().max()):.3e}"
+             f" Pa, the ground temperature by "
+             f"{float((runs['T mega4', n][5] - t_start.ground.gt).abs().max()):.3e} K")
+    _held("T stream (K7 epilogue) vs mega4+physics over the terrain",
+          runs["T stream", 4][:6], runs["T stream", n][:6],
+          runs["T mega4", 4][:6], runs["T mega4", n][:6], moved, short=4,
+          short_rel=PHYSICS_REL, phase="surface")
+
+    # Config W: no land cover, so that every cell's evaporation draws on gw
+    w_cfg = dict(SURFACE, land_cover="none")
+    w_geom = gen_model_geometry(_config("mega4", **w_cfg), device)
+    w_start = moist_start(w_geom, _config("mega4", **w_cfg))
+    from gcmiipy_tpu_torch.model.state import (
+        GroundVars, ModelState, PrognosticVars)
+    w_out = counted("W", "mega4", n, dict(
+        mega_step=n, fft_filter=2 * n, rest_stencil=2 * n, pgf_tile=2 * n),
+        cfg=w_cfg, state=w_start, g=w_geom)
+    w_end = ModelState(PrognosticVars(*w_out[:5]), GroundVars(
+        w_out[5], w_out[6], w_start.ground.snow, w_start.ground.ice),
+        w_start.utc, w_start.step)
+    before = float(global_water(w_start, w_geom))
+    after = float(global_water(w_end, w_geom))
+    change = after / before - 1
+    log("surface", f"W global water, atmosphere and ground (float64 sums): "
+                   f"{before:.10e} kg at step 0, {after:.10e} kg at step {n}"
+                   f": relative change {change:.3e} (< {WATER_REL:g}); gw "
+                   f"moved by {float((w_out[6] - w_start.ground.gw).abs().max()):.3e} m")
+    if not abs(change) < WATER_REL:
+        fail("surface", "Config W does not conserve its water")
+    return geom, start
+
+
 def _bytes(tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
@@ -1261,7 +1476,7 @@ def _row(name, source, replaces, launches, max_abs, ms, plain_ms, nbytes,
     return row
 
 
-def phase_timing(device, launches, max_abs, geom, start):
+def phase_timing(device, launches, max_abs, geom, start, surface):
     from gcmiipy_tpu_torch.dynamics import core25d, fused
     from gcmiipy_tpu_torch.model.driver import make_run_fn
     from gcmiipy_tpu_torch.ops import polar_filter
@@ -1274,23 +1489,30 @@ def phase_timing(device, launches, max_abs, geom, start):
 
     # ms/step of the whole loop (make_run_fn with the guard and the stats):
     # windows of STEP_WINDOW steps between CUDA events, no host sync inside
-    # a window, each backend twice, in the order x f m m4 s m4+p m4+p/4 s+p,
-    # then back.  mega4+physics/4 runs the per-step physics every 4th step
-    # (the extras skipped off cadence, a host count of the steps).
+    # a window, each backend twice, in the order x f m m4 s m4+p m4+p/4 s+p
+    # s+surface m4+surface, then back.  mega4+physics/4 runs the per-step
+    # physics every 4th step (the extras skipped off cadence, a host count
+    # of the steps); the +surface runs are Config S of phase surface, over
+    # the Hansen terrain from its moist start.
     configs = {"xla": _config("xla"), "fused": _config("fused"),
                "mega": _config("mega"),
                "mega4": _config("mega4"), "stream": _config("stream"),
                "mega4+physics": _config("mega4", **PHYSICS),
                "mega4+physics/4": _config("mega4", **dict(PHYSICS,
                                                           physics_every=4)),
-               "stream+physics": _config("stream", **PHYSICS)}
+               "stream+physics": _config("stream", **PHYSICS),
+               "stream+surface": _config("stream", **SURFACE),
+               "mega4+surface": _config("mega4", **SURFACE)}
     backends = tuple(configs)
-    runs = {b: make_run_fn(geom, c, STEP_WINDOW) for b, c in configs.items()}
-    for run in runs.values():
-        run(start)
+    starts = {b: surface if b.endswith("+surface") else (geom, start)
+              for b in backends}
+    runs = {b: make_run_fn(starts[b][0], c, STEP_WINDOW)
+            for b, c in configs.items()}
+    for b, run in runs.items():
+        run(starts[b][1])
     windows = {b: [] for b in backends}
     for backend in backends + backends[::-1]:
-        ms = cuda_ms(lambda: runs[backend](start), 1, warmup=0)
+        ms = cuda_ms(lambda: runs[backend](starts[backend][1]), 1, warmup=0)
         windows[backend].append(ms / STEP_WINDOW)
     step_ms = {b: statistics.mean(v) for b, v in windows.items()}
     log("timing", f"ms/step over 2 windows of {STEP_WINDOW} steps: " + ", ".join(
@@ -1611,7 +1833,8 @@ def main():
     launches, geom, start, max_abs["k2"], runs = phase_main(device)
     launches.update(phase_main_stream(device, geom, start))
     launches.update(phase_main_mega_v2(device, geom, start, runs))
-    rows = phase_timing(device, launches, max_abs, geom, start)
+    surface = phase_surface(device)
+    rows = phase_timing(device, launches, max_abs, geom, start, surface)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

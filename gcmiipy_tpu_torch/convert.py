@@ -15,7 +15,7 @@ from gcmiipy_tpu_torch.model.state import (
 
 
 def _tensor(x, device, dtype=None):
-    t = torch.as_tensor(np.array(x)).to(device)
+    t = torch.as_tensor(np.array(x, order="C")).to(device)
     return t if dtype is None else t.to(dtype)
 
 

@@ -170,7 +170,48 @@ def gen_geometry(height, width, layers, sig_func=equal_sig,
         land_fraction=np.asarray(land_fraction, dtype=np.float64),
         polar_mask=_polar_mask(width, dy, dx_j_row),
     )
+    return _geom(height, width, layers, arrays, dtype, device)
+
+
+def _geom(height, width, layers, arrays, dtype, device):
+    """:class:`Geom` from float64 numpy arrays, as contiguous tensors of
+    ``dtype`` on ``device`` (the kernels take contiguous tensors only;
+    a resampled map comes in Fortran order)."""
     return Geom(height=height, width=width, layers=layers, **{
-        k: torch.as_tensor(np.asarray(v, np.float64)).to(dtype=dtype,
-                                                         device=device)
+        k: torch.as_tensor(np.array(v, np.float64, order="C")).to(
+            dtype=dtype, device=device)
         for k, v in arrays.items()})
+
+
+def gen_square_geometry(height, width, layers, dx, dy, sig_func=equal_sig,
+                        ptop=0.0, dtype=torch.float64, device="cuda"):
+    """Cartesian doubly-periodic geometry (reference geometry.py:154-182):
+    uniform ``dx``/``dy`` spacing, zero latitudes and longitudes, flat
+    ground, as tensors of ``dtype`` on ``device``."""
+    device = resolve_device(device)
+    sige, sigt, sigb, dsig, sig, dsigv = _sigma_ladder(layers, sig_func)
+    dx_j = np.full((1, height, 1), float(dx), dtype=np.float64)
+    arrays = dict(
+        sige=sige, sigt=sigt, sigb=sigb, dsig=dsig, sig=sig, dsigv=dsigv,
+        lat=np.zeros((height, 1)),
+        lat_h=np.zeros((height, 1)),
+        long=np.zeros((width,)),
+        dx_j=dx_j,
+        dx_h=dx_j.copy(),
+        dy=np.float64(dy),
+        area=np.full((height, 1), float(dx) * float(dy), dtype=np.float64),
+        ptop=np.float64(ptop),
+        heightmap=np.zeros((height, width), dtype=np.float64),
+        land_fraction=np.zeros((height, width), dtype=np.float64),
+        polar_mask=_polar_mask(width, float(dy), dx_j[0, :, 0]),
+    )
+    return _geom(height, width, layers, arrays, dtype, device)
+
+
+def pressure_from_heightmap(height, sea_level_pressure, sea_level_temp):
+    """Barometric surface pressure [Pa] over the elevation ``height`` [m], a
+    tensor (reference geometry.py:185-233): the isothermal barometric
+    formula, the variant the reference returns (``geometry.py:228,233``)."""
+    return sea_level_pressure * torch.exp(
+        (-constants.G * constants.Md * height)
+        / (constants.R * sea_level_temp))

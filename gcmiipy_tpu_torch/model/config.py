@@ -65,6 +65,9 @@ class ModelConfig:
     # stream_steps whole steps a call with the per-step column physics
     # inside)
     backend: str = "xla"
+    # The JAX kernel's paired-block schedule.  K7 runs unchanged (its
+    # stages are separate launches already); as in the JAX package the
+    # flag keeps the physics out of the kernel, between its calls
     stream_pipeline: bool = False
     stream_steps: int = 20
     stream_wide_native: bool = False
@@ -102,10 +105,12 @@ PORTED = frozenset((
     "filter_precision", "filter_split_tau",
     "physics", "physics_every", "seasonal", "obliquity", "year_days",
     "convection", "drag_tau", "t_lw", "t_sw", "albedo", "radiation",
-    "stream_steps",
+    "stream_steps", "stream_pipeline",
+    "topography", "sea_level_temp", "land_cover", "albedo_land",
+    "evaporation", "gw0", "precipitation", "rh_crit",
+    "shapiro_every", "shapiro_order", "shapiro_fields", "shapiro_slp",
 ))
 BACKENDS = ("xla", "fused", "mega", "mega4", "stream")
-RADIATIONS = ("grey",)
 POLAR_FILTERS = ("fft", "matmul", "dft")
 FILTER_PRECISIONS = ("high", "highest")
 
@@ -134,16 +139,6 @@ def check_ported(config):
     if config.filter_precision not in FILTER_PRECISIONS:
         raise ValueError(
             f"bad filter_precision {config.filter_precision!r}")
-    if config.radiation == "4band":
-        raise NotImplementedError(
-            "ModelConfig.radiation='4band': not ported to gcmiipy_tpu_torch "
-            f"yet; the port runs {RADIATIONS}")
-    if config.radiation not in RADIATIONS:
-        raise ValueError(f"radiation must be 'grey' or '4band', got "
-                         f"{config.radiation!r}")
-    if config.physics_every < 1:
-        raise ValueError(
-            f"physics_every must be >= 1, got {config.physics_every}")
     if config.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be 'float32' or 'float64', got "
                          f"{config.dtype!r}")

@@ -1,9 +1,11 @@
 """Top-level 2.5D model driver.
 
-Port of ``gcmiipy_tpu/model/driver.py``: builds geometry and initial
-conditions, then advances the Matsuno core for N steps, with the cadenced
-grey-radiation physics, convection and surface drag, the per-step
-``StepStats`` and the blow-up guard.  The 'stream' backend advances
+Port of ``gcmiipy_tpu/model/driver.py``: builds geometry (optionally over
+the Hansen terrain and land cover) and initial conditions, then advances
+the Matsuno core for N steps, with the zonal Shapiro filter and the
+cadenced physics (grey or four-band radiation, convection, surface drag,
+evaporation and precipitation), the per-step ``StepStats`` and the blow-up
+guard.  The 'stream' backend advances
 ``stream_steps`` steps a call through K7 (:func:`_make_stream_run_fn`).
 
 Where the JAX driver compiles the run as one ``lax.scan``, this one is an
@@ -14,6 +16,7 @@ flag once, at the end of the run.
 """
 
 import dataclasses
+import math
 import warnings
 from typing import NamedTuple
 
@@ -24,12 +27,13 @@ from gcmiipy_tpu_torch import constants
 from gcmiipy_tpu_torch.device import resolve_device, torch_dtype
 from gcmiipy_tpu_torch.diagnostics import any_nan
 from gcmiipy_tpu_torch.dynamics import core25d, energy, fused
-from gcmiipy_tpu_torch.grid import geometry
+from gcmiipy_tpu_torch.grid import geometry, topography
 from gcmiipy_tpu_torch.model.config import ModelConfig, check_ported
 from gcmiipy_tpu_torch.model.state import (
     GroundVars, ModelState, PrognosticVars, gen_initial_conditions)
-from gcmiipy_tpu_torch.ops import polar_filter, stream_steps
-from gcmiipy_tpu_torch.physics import convection, radiation
+from gcmiipy_tpu_torch.ops import polar_filter, shapiro, stream_steps
+from gcmiipy_tpu_torch.physics import (
+    condensation, convection, evaporation, radiation, thermo)
 
 # The JAX package's streaming envelope (pallas_stream.py:73-99, TPU VMEM
 # limits), kept so that one config chooses the same path and cadence in
@@ -66,6 +70,46 @@ class GuardInfo(NamedTuple):
     the run stayed healthy)."""
     ok: torch.Tensor
     blown_step: torch.Tensor
+
+
+def validate_config(config):
+    """Cross-field checks that would otherwise be silent no-ops (JAX
+    ``validate_config``)."""
+    if config.evaporation and not config.physics:
+        raise ValueError(
+            "ModelConfig(evaporation=True) requires physics=True — the "
+            "evaporation step runs inside the physics step (it needs the "
+            "radiatively updated ground state)")
+    if config.physics_every < 1:
+        raise ValueError(
+            f"physics_every must be >= 1, got {config.physics_every}")
+    if config.radiation not in ("grey", "4band"):
+        raise ValueError(
+            f"radiation must be 'grey' or '4band', got "
+            f"{config.radiation!r} (a typo would silently run grey)")
+    if config.precipitation and not config.physics:
+        raise ValueError(
+            "ModelConfig(precipitation=True) requires physics=True — "
+            "condensation runs inside the physics step")
+    if config.topography not in ("flat", "hansen"):
+        raise ValueError(f"topography must be 'flat' or 'hansen', got "
+                         f"{config.topography!r}")
+    if config.land_cover not in ("none", "hansen"):
+        raise ValueError(f"land_cover must be 'none' or 'hansen', got "
+                         f"{config.land_cover!r}")
+
+
+def normalize_config(config):
+    """Validate and resolve the automatic fields (JAX ``normalize_config``):
+    ``shapiro_slp=None`` becomes True over terrain (the sea-level-pressure
+    filter keeps the orographic signal out of the smoothing) and False on
+    flat ground."""
+    check_ported(config)
+    validate_config(config)
+    if config.shapiro_slp is None:
+        config = dataclasses.replace(config,
+                                     shapiro_slp=config.topography != "flat")
+    return config
 
 
 def make_filter_fn(config, geom):
@@ -116,12 +160,14 @@ def make_dynamics_step(geom, config, filter_fn, warn_degrade=True):
         q_limiter=config.q_limiter)
 
 
-def solar_timestep(t, p, g, dt, utc, geom, config):
+def solar_timestep(t, p, g, dt, utc, geom, config, q=None):
     """Radiative heating step (reference no_limits_2_5d.py:66-75), plus the
     optional Manabe-Strickler convective adjustment; ``dt`` is the cadence
     interval.  With ``config.seasonal`` the declination follows the clock
-    ``utc``.  Returns (t, GroundVars) with the ground temperature
-    advanced."""
+    ``utc``; with ``land_cover`` the albedo blends the ocean's and the
+    land's by the land fraction; ``radiation='4band'`` runs the four-band
+    longwave scheme, which needs the humidity ``q``.  Returns (t,
+    GroundVars) with the ground temperature advanced."""
     sig = geom.sig.to(t.dtype)
     ptop = geom.ptop.to(t.dtype)
     tp = p * sig + ptop
@@ -132,9 +178,21 @@ def solar_timestep(t, p, g, dt, utc, geom, config):
     declination = (radiation.solar_declination(utc, config.obliquity,
                                                config.year_days)
                    if config.seasonal else 0.0)
-    dt_air, dt_ground = radiation.basic_grey_radiation(
-        p, tp, tt, g.gt, config.t_lw, config.t_sw, config.albedo, utc,
-        geom, declination=declination)
+    albedo = config.albedo
+    if config.land_cover != "none":
+        f_land = geom.land_fraction.to(t.dtype)
+        albedo = config.albedo * (1.0 - f_land) + config.albedo_land * f_land
+    if config.radiation == "4band":
+        if q is None:
+            raise ValueError("radiation='4band' needs the humidity field "
+                             "q (pass it to solar_timestep)")
+        dt_air, dt_ground = radiation.four_band_radiation(
+            p, tp, tt, q, g.gt, config.t_sw, albedo, utc, geom,
+            declination=declination)
+    else:
+        dt_air, dt_ground = radiation.basic_grey_radiation(
+            p, tp, tt, g.gt, config.t_lw, config.t_sw, albedo, utc,
+            geom, declination=declination)
     gt_n = g.gt + dt_ground * dt
     tt_n = tt + dt_air * dt
     if config.convection:
@@ -147,8 +205,10 @@ def solar_timestep(t, p, g, dt, utc, geom, config):
 def physics_extras(prog: PrognosticVars, g: GroundVars, utc, geom, config,
                    dt_eff):
     """The per-cadence extras: Rayleigh drag on the surface layer's u and v
-    (implicit, stable at any ``dt_eff``) and the grey-radiation step with
-    the optional convection.  ``dt_eff = physics_every * dt``: the extras
+    (implicit, stable at any ``dt_eff``), the radiation step with the
+    optional convection, then the bulk evaporation (on the true temperature
+    after the radiation; with the land fraction under ``land_cover``) and
+    the large-scale condensation.  ``dt_eff = physics_every * dt``: the extras
     integrate over the whole cadence interval.  ``utc`` is the clock at the
     start of the triggering dynamics step (the reference's call order,
     no_limits_2_5d.py:97 / :231-232)."""
@@ -158,7 +218,20 @@ def physics_extras(prog: PrognosticVars, g: GroundVars, utc, geom, config,
         u = torch.cat([u[:1] * f, u[1:]], dim=0)
         v = torch.cat([v[:1] * f, v[1:]], dim=0)
     if config.physics:
-        t, g = solar_timestep(t, p, g, dt_eff, utc, geom, config)
+        t, g = solar_timestep(t, p, g, dt_eff, utc, geom, config, q=q)
+        if config.evaporation:
+            tt = thermo.to_true_temp(
+                t, p * geom.sig.to(t.dtype) + geom.ptop.to(t.dtype))
+            land = (geom.land_fraction if config.land_cover != "none"
+                    else None)
+            q, gt_n, gw_n = evaporation.evaporation_step(
+                p, q, u, v, tt, g.gt, g.gw, dt_eff, geom,
+                land_fraction=land)
+            g = g._replace(gt=gt_n, gw=gw_n)
+        if config.precipitation:
+            t, q, gw_n = condensation.condensation_step(
+                p, t, q, g.gw, geom, rh_crit=config.rh_crit)
+            g = g._replace(gw=gw_n)
     return PrognosticVars(p, u, v, t, q), g
 
 
@@ -189,19 +262,38 @@ def apply_cadenced_extras(prog, g, utc, step_next, geom, config,
     return _pick(due, new_prog, prog), _pick(due, new_g, g)
 
 
+def apply_cadenced_shapiro(prog, step_next, geom, config, granularity=1):
+    """The zonal Shapiro filter of p and/or t (:func:`shapiro.filter_prognostics`)
+    iff a ``shapiro_every`` cadence point falls in the step window
+    ``(step_next - granularity, step_next]``; a Python int ``step_next``
+    skips the work off cadence, the step counter tensor chooses on the
+    device, as :func:`apply_cadenced_extras` does."""
+    if config.shapiro_every <= 0:
+        return prog
+    due = step_next % config.shapiro_every < granularity
+    if isinstance(step_next, int) and not due:
+        return prog
+    p, t = shapiro.filter_prognostics(
+        prog.p, prog.t, order=config.shapiro_order,
+        fields=config.shapiro_fields, slp=config.shapiro_slp, geom=geom)
+    if not isinstance(step_next, int):
+        p, t = torch.where(due, p, prog.p), torch.where(due, t, prog.t)
+    return prog._replace(p=p, t=t)
+
+
 def full_timestep(state: ModelState, geom, config, filter_fn,
                   dynamics_step=None, host_step=None) -> ModelState:
-    """One dynamics step and the cadenced physics extras (reference
-    no_limits_2_5d.py:79-104); the extras key off the state's integer step
+    """One dynamics step, the Shapiro filter at ``(step + 1) %
+    shapiro_every == 0`` and the cadenced physics extras (reference
+    no_limits_2_5d.py:79-104).  Both key off the state's integer step
     counter, or off ``host_step``, the same count held on the host (a
-    Python int), which lets them skip the work off cadence.  The Shapiro
-    filter is not ported; :func:`check_ported` refuses a config that asks
-    for it."""
+    Python int), which lets them skip the work off cadence."""
     if dynamics_step is None:
         dynamics_step = make_dynamics_step(geom, config, filter_fn)
     prog, g, utc, step = state
     prog = PrognosticVars(*dynamics_step(*prog))
     step_next = step + 1 if host_step is None else host_step + 1
+    prog = apply_cadenced_shapiro(prog, step_next, geom, config)
     prog, g = apply_cadenced_extras(prog, g, utc, step_next, geom, config)
     return ModelState(prog, g, utc + config.dt, step + 1)
 
@@ -259,7 +351,7 @@ def make_run_fn(geom, config, timesteps):
     ``config.stats`` off.  The 'stream' backend advances ``stream_steps``
     steps a call; see :func:`_make_stream_run_fn` for its guard and stats
     granularity."""
-    check_ported(config)
+    config = normalize_config(config)
     if config.backend == "stream":
         return _make_stream_run_fn(geom, config, timesteps)
     filter_fn = make_filter_fn(config, geom)
@@ -270,11 +362,12 @@ def make_run_fn(geom, config, timesteps):
         if config.guard:
             ok = torch.ones((), dtype=torch.bool, device=geom.device)
             blown = torch.full((), -1, dtype=torch.int32, device=geom.device)
-        # with extras at a cadence, the step counter on the host, read once:
-        # a state frozen by the guard stops its counter, but its new state
-        # is then discarded
-        cadenced = ((config.drag_tau > 0 or config.physics)
-                    and config.physics_every > 1)
+        # with extras or the Shapiro filter at a cadence, the step counter
+        # on the host, read once: a state frozen by the guard stops its
+        # counter, but its new state is then discarded
+        cadenced = (((config.drag_tau > 0 or config.physics)
+                     and config.physics_every > 1)
+                    or config.shapiro_every > 1)
         step0 = int(state.step) if cadenced else None
         for step_idx in range(timesteps):
             new_state = full_timestep(
@@ -299,12 +392,13 @@ def make_run_fn(geom, config, timesteps):
 
 
 def _resolve_stream_cadence(config, timesteps):
-    """Resolve the 'stream' launch size K against the physics cadence (JAX
+    """Resolve the 'stream' launch size K against the active cadences (JAX
     ``_resolve_stream_cadence``).  Extras that do not run inside the
-    kernel run between launches, so ``physics_every`` must be a multiple of
-    K, and launches are even (buffer ping-pong).  ``physics_every=1`` with
-    extras promotes to 2 with a warning; odd cadences raise.  Returns
-    ``(config, K)``."""
+    kernel (physics and drag at ``physics_every``, the Shapiro filter at
+    ``shapiro_every``) run between launches, so K must divide every active
+    cadence (their gcd), and launches are even (buffer ping-pong).
+    ``physics_every=1`` with extras promotes to 2 with a warning; odd
+    cadences raise.  Returns ``(config, K)``."""
     extras = config.physics or config.drag_tau > 0
     if extras and config.physics_every == 1:
         warnings.warn(
@@ -314,6 +408,8 @@ def _resolve_stream_cadence(config, timesteps):
             "the cadence", stacklevel=4)
         config = dataclasses.replace(config, physics_every=2)
     cadences = [config.physics_every] if extras else []
+    if config.shapiro_every > 0:
+        cadences.append(config.shapiro_every)
     for c in cadences:
         if c % 2:
             raise ValueError(
@@ -324,7 +420,7 @@ def _resolve_stream_cadence(config, timesteps):
     K = max(2, config.stream_steps - config.stream_steps % 2)
     K = min(K, timesteps - timesteps % 2)
     if cadences:
-        g = cadences[0]
+        g = math.gcd(*cadences)
         if g % K:
             # the largest even divisor of g that fits in K
             K = max(d for d in range(2, min(K, g) + 1, 2) if g % d == 0)
@@ -351,8 +447,8 @@ def _make_stream_run_fn(geom, config, timesteps):
 
     With grey physics at ``physics_every=1`` the physics runs inside each
     step (the ground temperature rides as the extra plane; convection in
-    the fixed 4-sweep form).  Otherwise the extras run between calls at
-    their cadence, which K divides.  An even remainder runs as one shorter
+    the fixed 4-sweep form).  Otherwise the extras and the Shapiro filter
+    run between calls at their cadences, which K divides.  An even remainder runs as one shorter
     call, an odd last step on the per-step 'mega4' path (K6 and the
     per-step extras).
 
@@ -369,7 +465,8 @@ def _make_stream_run_fn(geom, config, timesteps):
     first step of the call that went bad, which :func:`run_model` narrows
     to the exact step (:func:`localize_blown_step`), and the stats hold one
     entry per call."""
-    extras = config.physics or config.drag_tau > 0
+    extras = (config.physics or config.drag_tau > 0
+              or config.shapiro_every > 0)
     wide_tall = geom.width > STREAM_RESIDENT_MAX_WIDTH and geom.height > 64
     off_envelope = (not stream_grid_supported(geom)
                     or (wide_tall and not config.stream_wide_native))
@@ -414,6 +511,14 @@ def _make_stream_run_fn(geom, config, timesteps):
     tail_step = (make_dynamics_step(geom, config, None, warn_degrade=False)
                  if tail_odd else None)
     has_extras = (config.physics or config.drag_tau > 0) and not inkernel
+    has_shapiro = config.shapiro_every > 0
+    # the planes the between-call work can change (p is plane 0, u and v
+    # of layer 0 planes 1 and 1+L, t planes 1+2L.., q planes 1+3L..)
+    p_changed = has_shapiro and "p" in config.shapiro_fields
+    t_changed = config.physics or (has_shapiro
+                                   and "t" in config.shapiro_fields)
+    q_changed = config.physics and (config.evaporation
+                                    or config.precipitation)
 
     def to_model_state(carry):
         S, g, utc, step = carry
@@ -423,24 +528,37 @@ def _make_stream_run_fn(geom, config, timesteps):
             PrognosticVars(*stream_steps.unpack_state(S[0], L)), g, utc, step)
 
     def chunk_extras(carry, k, host_step):
-        """The between-call extras on the packed buffer, when a cadence
-        point falls in the just-completed k-step call; writes back the
-        planes they change.  ``host_step``: the step counter on the host
-        (a Python int), or None to key off the carry's tensor."""
-        if not has_extras:
+        """The between-call Shapiro filter, then the extras, on the packed
+        buffer, each when its cadence point falls in the just-completed
+        k-step call; writes back the planes they change.  ``host_step``:
+        the step counter on the host (a Python int; a call with nothing
+        due costs nothing), or None to key off the carry's tensor."""
+        if not (has_extras or has_shapiro):
             return carry
         S, g, utc, step = carry
+        step_now = step if host_step is None else host_step
+        if host_step is not None and not (
+                (has_shapiro and host_step % config.shapiro_every < k)
+                or (has_extras and host_step % config.physics_every < k)):
+            return carry
         prog = PrognosticVars(*stream_steps.unpack_state(S[0], L))
-        # utc at the start of the cadence-triggering step, as the per-step
-        # path passes it
-        prog, g = apply_cadenced_extras(
-            prog, g, utc - config.dt, step if host_step is None else host_step,
-            geom, config, granularity=k)
+        prog = apply_cadenced_shapiro(prog, step_now, geom, config,
+                                      granularity=k)
+        if has_extras:
+            # utc at the start of the cadence-triggering step, as the
+            # per-step path passes it
+            prog, g = apply_cadenced_extras(
+                prog, g, utc - config.dt, step_now, geom, config,
+                granularity=k)
+        if p_changed:
+            S[0, 0].copy_(prog.p)
         if config.drag_tau > 0:
             S[0, 1].copy_(prog.u[0])
             S[0, 1 + L].copy_(prog.v[0])
-        if config.physics:
+        if t_changed:
             S[0, 1 + 2 * L:1 + 3 * L].copy_(prog.t)
+        if q_changed:
+            S[0, 1 + 3 * L:1 + 4 * L].copy_(prog.q)
         return S, g, utc, step
 
     def advance_chunk(carry, k, host_step):
@@ -471,7 +589,7 @@ def _make_stream_run_fn(geom, config, timesteps):
         """``at(n)``: the step counter after n steps of the run, on the
         host, when the extras key off it (read once a run), else None.  A
         call the guard discards may run off it: its state is not kept."""
-        step0 = int(state.step) if has_extras else None
+        step0 = int(state.step) if has_extras or has_shapiro else None
         return lambda n: None if step0 is None else step0 + n
 
     def run(state):
@@ -565,16 +683,50 @@ def localize_blown_step(state, geom, config, max_steps):
 def gen_model_state(geom, config) -> ModelState:
     """Initial state incl. the reference's driver-level tweaks
     (``run_model`` sets u = 0 and seeds v[0,0,0] = 0.1,
-    reference no_limits_2_5d.py:224-226)."""
+    reference no_limits_2_5d.py:224-226).  Over terrain the surface
+    pressure starts in barometric balance with the heightmap
+    (:func:`geometry.pressure_from_heightmap` at ``sea_level_temp``), and
+    the ground water starts at ``gw0``."""
     check_ported(config)
     dtype = torch_dtype(config.dtype)
-    prog, ground = gen_initial_conditions(geom, dtype=dtype)
+    ps = None
+    if config.topography != "flat":
+        ps = geometry.pressure_from_heightmap(
+            geom.heightmap.to(torch.float64), 1.0e5, config.sea_level_temp)
+    prog, ground = gen_initial_conditions(geom, dtype=dtype,
+                                          surface_pressure=ps)
     v = prog.v.clone()
     v[0, 0, 0] = 0.1
     prog = prog._replace(u=torch.zeros_like(prog.u), v=v)
+    if config.gw0 > 0:
+        ground = ground._replace(gw=torch.full_like(ground.gw, config.gw0))
     return ModelState(prog, ground,
                       torch.zeros((), dtype=dtype, device=geom.device),
                       torch.zeros((), dtype=torch.int32, device=geom.device))
+
+
+def gen_model_geometry(config, device="cuda"):
+    """The geometry :func:`run_model` builds for ``config``: its grid and
+    sigma ladder (the GISS table with ``giss_sige``), with the Hansen maps
+    resampled to the grid (:func:`topography.resample_map`) under
+    ``topography='hansen'`` / ``land_cover='hansen'``, in the config's
+    dtype on ``device``."""
+    height, width = config.height, config.width
+    dtype = torch_dtype(config.dtype)
+    maps = dict(
+        heightmap=(topography.resample_map(topography.TOPOGRAPHY_M, height,
+                                           width)
+                   if config.topography == "hansen" else None),
+        land_fraction=(topography.resample_map(topography.LAND_COVER, height,
+                                               width)
+                       if config.land_cover == "hansen" else None))
+    if config.giss_sige:
+        return geometry.gen_geometry(
+            height, width, config.layers, sige_table=geometry.GISS_SIGE,
+            ptop=config.ptop or 1000.0, dtype=dtype, device=device, **maps)
+    return geometry.gen_geometry(height, width, config.layers,
+                                 sig_func=config.sig_func, ptop=config.ptop,
+                                 dtype=dtype, device=device, **maps)
 
 
 def _warn_blown(guard_info, config, geom, state, chunk_steps, n_steps):
@@ -611,7 +763,9 @@ def run_model(height, width, layers, dt, timesteps, callback=None,
               config: ModelConfig = None, device="cuda"):
     """Reference-compatible entry point (reference no_limits_2_5d.py:220-236).
 
-    Returns (p, u, v, t, q, ground, geom, stats), tensors on ``device``.
+    Returns (p, u, v, t, q, ground, geom, stats), tensors on ``device``;
+    the geometry is :func:`gen_model_geometry`'s, over the Hansen terrain
+    and land cover when the config asks for them.
     With ``callback`` (called with (p,u,v,t,q) after every step) the loop
     runs without the guard, as in the JAX driver.  With ``config.guard`` a
     run that blows up stops advancing and a RuntimeWarning names the first
@@ -623,17 +777,8 @@ def run_model(height, width, layers, dt, timesteps, callback=None,
     else:
         config = dataclasses.replace(config, height=height, width=width,
                                      layers=layers, dt=dt)
-    check_ported(config)
-    dtype = torch_dtype(config.dtype)
-    if config.giss_sige:
-        geom = geometry.gen_geometry(
-            height, width, layers, sige_table=geometry.GISS_SIGE,
-            ptop=config.ptop or 1000.0, dtype=dtype, device=device)
-    else:
-        geom = geometry.gen_geometry(height, width, layers,
-                                     sig_func=config.sig_func,
-                                     ptop=config.ptop, dtype=dtype,
-                                     device=device)
+    config = normalize_config(config)
+    geom = gen_model_geometry(config, device)
     state = gen_model_state(geom, config)
 
     if callback is None:

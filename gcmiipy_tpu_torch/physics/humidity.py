@@ -26,6 +26,11 @@ def w_s_at(tp, tt):
     return _EPS * e_s / (tp - e_s)
 
 
+def vmr_from_mmr(mmr, mmg, mma):
+    """Volumetric from mass mixing ratio (reference humidity.py:23-24)."""
+    return mma / mmg * mmr
+
+
 def rh_to_mmr(rh, tp, tt):
     """Relative humidity -> mass mixing ratio (reference humidity.py:27-37)."""
     e_s = saturation_vapor_pressure(tt)

@@ -7,15 +7,84 @@ atmosphere of Atmospheric Dynamics section 2.7 (reference
 (per-layer tensors, the vertical scans written as loops over the L layers)
 and :func:`basic_grey_radiation_ladder` (the same math with every layer's
 transmittances as Python floats, the form K7's column-physics epilogue,
-``csrc/column_physics.cuh``, computes).  The four-band scheme is not
-ported.  SI units throughout.
+``csrc/column_physics.cuh``, computes); and the four-band longwave
+scheme with the grey shortwave (:func:`four_band_radiation`,
+``ModelConfig.radiation='4band'``).  SI units throughout.
 """
 
 import math
 
+import numpy as np
 import torch
 
 from gcmiipy_tpu_torch import constants
+
+
+def mmr_from_vmr(vmr, mmg, mma):
+    """Mass from volumetric mixing ratio (reference grey_solar.py:21-26)."""
+    return vmr * mmg / mma
+
+
+# Four-band longwave absorptivities per dp = 1e5 Pa, from MITgcm/aim, which
+# the reference records for a multi-band scheme (no_limits_2_5d.py:241-248;
+# the water-vapour terms per dq = 1 g/kg)
+ABLWIN = 0.7   # window band
+ABLCO2 = 4.0   # CO2 band
+ABLWV1 = 0.7   # weak water-vapour band
+ABLWV2 = 50.0  # strong water-vapour band
+
+# Spectral edges of the four bands [cm^-1]: the H2O rotation band (strong),
+# the 15 um CO2 band, the atmospheric window and the H2O vibration-rotation
+# band (weak)
+FOUR_BAND_EDGES_CM = (0.0, 600.0, 800.0, 1200.0)
+_C2_CM_K = 1.438777  # hc/k [cm K]
+_LW_DIFFUSIVITY = 1.66  # Elsasser diffuse-path factor (grey_solar.py:145)
+
+
+def _planck_cumfrac(x, terms=60):
+    """Fraction of blackbody emission at dimensionless frequency < x
+    (x = c2 nu / T): 1 - (15/pi^4) sum_n e^{-nx} (x^3/n + 3x^2/n^2 + 6x/n^3
+    + 6/n^4).  NumPy, host-side (it fits the band polynomials)."""
+    x = np.asarray(x, np.float64)
+    acc = np.zeros_like(x)
+    for n in range(1, terms + 1):
+        acc += np.exp(-n * x) * (x ** 3 / n + 3 * x ** 2 / n ** 2
+                                 + 6 * x / n ** 3 + 6 / n ** 4)
+    return 1.0 - acc * 15.0 / math.pi ** 4
+
+
+def _fit_band_fraction_polys(deg=6, t_lo=150.0, t_hi=350.0):
+    """Degree-``deg`` polynomial fits, in (T - 250) / 100, of the Planck
+    fraction emitted in each of the three bounded bands (the open top band
+    is 1 - their sum), highest power first; the fit's residual stays below
+    2e-4 over [150, 350] K."""
+    T = np.linspace(t_lo, t_hi, 201)
+    fr_below = [_planck_cumfrac(_C2_CM_K * edge / T)
+                for edge in FOUR_BAND_EDGES_CM[1:]]          # 600/800/1200
+    bands = [fr_below[0], fr_below[1] - fr_below[0],
+             fr_below[2] - fr_below[1]]
+    s = (T - 250.0) / 100.0
+    return np.stack([np.polyfit(s, b, deg) for b in bands])  # (3, deg+1)
+
+
+_BAND_POLYS = _fit_band_fraction_polys()
+
+
+def four_band_fractions(tt):
+    """Planck emission fraction per longwave band at the temperature ``tt``
+    [K], stacked (4, ...) as (H2O rotation, CO2, window, H2O vibration);
+    they sum to 1 (the open band is the complement).  The fit variable is
+    clamped to the fits' [150, 350] K, so that out-of-range temperatures
+    cannot extrapolate into negative fractions."""
+    s = torch.clamp((tt - 250.0) / 100.0, -1.0, 1.0)
+    fs = []
+    for coeffs in _BAND_POLYS:   # Horner's rule, highest power first
+        y = torch.zeros_like(s)
+        for c in coeffs:
+            y = y * s + float(c)
+        fs.append(y)
+    f4 = 1.0 - (fs[0] + fs[1] + fs[2])
+    return torch.stack([fs[0], fs[1], fs[2], f4])
 
 
 def _sin(x):
@@ -192,5 +261,92 @@ def basic_grey_radiation(p, tp, tt, gt, t_lw, t_sw, albedo, utc, geom,
     S_n = (1 - sw_t) * cum_sw_top / sw_t * Sc            # eq. 2.31
     B_n = emission                                       # eq. 2.32
     dTdt = (U_n + S_n - 2 * B_n + LWA_a + LWA_b) * (     # eq. 2.34
+        constants.G / (constants.Cp * p * dsig))
+    return dTdt, dt_ground
+
+
+def four_band_transmittances(p, q, geom, dtype=None):
+    """Per-layer longwave transmittance of each of the 4 bands, stacked
+    (4, L, ...): ``exp(-1.66 eps_b)`` with the aim layer absorptivities
+    ``eps = AB * dp / 1e5``, the water-vapour bands also scaled by q in
+    g/kg (no_limits_2_5d.py:241-248)."""
+    dtype = dtype or q.dtype
+    dsig = geom.dsig.to(dtype)
+    dp_norm = p * dsig / 1.0e5          # (L, ...) layer mass per 1e5 Pa
+    q_gkg = q * 1000.0
+    ones = torch.ones_like(q)
+    eps = torch.stack([
+        ABLWV2 * q_gkg * dp_norm,       # H2O rotation (strong)
+        ABLCO2 * ones * dp_norm,        # CO2 15 um (well mixed)
+        ABLWIN * ones * dp_norm,        # window
+        ABLWV1 * q_gkg * dp_norm,       # H2O vibration (weak)
+    ])
+    return torch.exp(-_LW_DIFFUSIVITY * eps)
+
+
+def four_band_radiation(p, tp, tt, q, gt, t_sw, albedo, utc, geom,
+                        declination=0.0):
+    """Four-band longwave and grey shortwave column radiation: the ladders
+    of :func:`basic_grey_radiation` with the grey longwave transmittance
+    ``t_lw ** dsig`` replaced by four bands (:func:`four_band_transmittances`)
+    and the layers' and the ground's emission split across them by the
+    Planck fraction at the emitting temperature (:func:`four_band_fractions`).
+    The shortwave path and the ground's slab budget are the grey scheme's.
+    ``p`` (H,W), ``tp``/``tt``/``q`` (L,H,W), ``gt`` (H,W) ground
+    temperature; ``tp`` is unused.  Returns (dTdt [K/s] per layer,
+    dt_ground [K/s])."""
+    del tp
+    dtype = tt.dtype
+    dsig = geom.dsig.to(dtype)
+    sw_t = t_sw ** dsig                        # (L,1,1)
+    L = tt.shape[0]
+
+    # per-band longwave ladders
+    t_b = four_band_transmittances(p, q, geom, dtype)        # (4, L, ...)
+    f_b = four_band_fractions(tt)                            # (4, L, ...)
+    emission = f_b * (1 - t_b) * constants.sb_constant * tt ** 4
+
+    # transmission from layer k down to the ground in each band: the
+    # exclusive product over the layers below k.  The grey scheme's
+    # cumprod / t is 0/0 in an opaque band, where exp(-1.66 eps) underflows
+    # to 0 at the strong water-vapour band's absorptivity
+    cum_b_bottom = torch.cumprod(t_b, dim=1)
+    c_div = torch.cat([torch.ones_like(t_b[:, :1]), cum_b_bottom[:, :-1]],
+                      dim=1)
+    B = torch.sum(emission * c_div, dim=(0, 1))              # at the ground
+
+    # the grey shortwave sweep (basic_grey_radiation's)
+    cum_sw_top = torch.flip(torch.cumprod(torch.flip(
+        sw_t.expand(tt.shape), (0,)), dim=0), (0,))
+    sza = zenith_angle(geom.long.to(dtype), geom.lat.to(dtype), utc,
+                       declination=declination)
+    Sc = constants.solar_constant * sza
+    S = (1 - albedo) * Sc * cum_sw_top[0]
+    U_s = constants.sb_constant * gt ** 4
+    dt_ground = (B + S - U_s) / constants.Cg / 0.1
+
+    # downwelling absorption per band, top -> bottom
+    LWA_a = [None] * L
+    previous = torch.zeros_like(emission[:, 0])
+    for k in range(L - 1, -1, -1):
+        LWA_a[k] = previous * (1 - t_b[:, k])
+        previous = previous * t_b[:, k] + emission[:, k]
+    # upwelling from the layers' emission only, bottom -> top; the ground
+    # enters through U_n (grey_solar.py:513-518)
+    LWA_b = [None] * L
+    previous = torch.zeros_like(emission[:, 0])
+    for k in range(L):
+        LWA_b[k] = previous * (1 - t_b[:, k])
+        previous = previous * t_b[:, k] + emission[:, k]
+    LWA_a = torch.stack(LWA_a, dim=1).sum(0)                 # (L, ...)
+    LWA_b = torch.stack(LWA_b, dim=1).sum(0)
+
+    # the ground's emission absorbed in layer k, per band: split by the
+    # Planck fraction at the ground temperature
+    fg = four_band_fractions(gt)                             # (4, ...)
+    U_n = (fg[:, None] * U_s * c_div * (1 - t_b)).sum(0)
+    S_n = (1 - sw_t) * cum_sw_top / sw_t * Sc
+    B_n = emission.sum(0)
+    dTdt = (U_n + S_n - 2 * B_n + LWA_a + LWA_b) * (
         constants.G / (constants.Cp * p * dsig))
     return dTdt, dt_ground

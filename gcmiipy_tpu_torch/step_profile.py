@@ -2,7 +2,7 @@
 
     python -m gcmiipy_tpu_torch.step_profile [--height 512 --width 1024
         --layers 9 --dt 30 --steps 10 --backend stream mega4 mega v2 fused
-        xla --physics --trace-dir DIR]
+        xla --physics --surface --trace-dir DIR]
 
 For each backend it runs ``--steps`` warm steps under ``torch.profiler``
 (CPU + CUDA activities) and prints one JSON line: the wall ms per step
@@ -14,7 +14,13 @@ others one step at a time; 'v2' is the v2 pipeline
 (``dynamics.fused.make_fused_matsuno_v2``: K3, the FFT filter, K4), which
 no ``ModelConfig`` backend names.  ``--physics`` adds the reference's
 per-step grey radiation, convection and surface drag (two days): inside
-K7's steps for 'stream', as plain PyTorch after each step for the others.  With
+K7's steps for 'stream', as plain PyTorch after each step for the others.
+``--surface`` runs the surface configuration instead (:data:`SURFACE`: the
+Hansen terrain and land cover, four-band radiation, convection, the water
+cycle and the Shapiro filter, the physics every 2nd step) through
+``make_run_fn`` from a cooled start whose lowest layer is supersaturated
+(``model.state.moist_start``): 'stream' as
+K7 calls of 2 steps with the extras and the filter between them.  With
 ``--trace-dir`` it also writes a Chrome trace per backend there.
 
 In the breakdown a half step of 'mega4', 'mega' and 'stream' shows three
@@ -41,12 +47,18 @@ from gcmiipy_tpu_torch.dynamics import fused
 from gcmiipy_tpu_torch.grid import geometry
 from gcmiipy_tpu_torch.model import driver
 from gcmiipy_tpu_torch.model.config import ModelConfig
+from gcmiipy_tpu_torch.model.state import moist_start
 from gcmiipy_tpu_torch.ops import stream_steps
 
 # the per-step physics of the main path: grey radiation every step,
 # convection and a two-day surface drag
 PHYSICS = dict(physics=True, physics_every=1, convection=True,
                drag_tau=2 * 86400.0)
+# the surface configuration (chip_smoke.py's Config S)
+SURFACE = dict(topography="hansen", land_cover="hansen", physics=True,
+               convection=True, radiation="4band", evaporation=True,
+               gw0=0.05, precipitation=True, rh_crit=0.8, drag_tau=86400.0,
+               shapiro_every=4, shapiro_fields="pt", physics_every=2)
 
 
 def _device_us(event):
@@ -114,16 +126,36 @@ def _stepper(backend, geom, config, steps):
     return advance
 
 
+def _surface_stepper(backend, config, steps, device):
+    """``advance()``: ``steps`` steps of ``make_run_fn`` with the surface
+    configuration over the terrain, from the reference's start cooled
+    with a supersaturated lowest layer (``state.moist_start``)."""
+    config = driver.normalize_config(config)
+    geom = driver.gen_model_geometry(config, device)
+    state = moist_start(driver.gen_model_state(geom, config), geom)
+    run = driver.make_run_fn(geom, config, steps)
+    return lambda: run(state)
+
+
 def profile_backend(backend, height, width, layers, dt, steps, device,
-                    trace_dir=None, top=8, physics=False):
+                    trace_dir=None, top=8, physics=False, surface=False):
     """Profile ``steps`` steps of one backend; returns the summary dict."""
-    # 'v2' takes the 'fused' config: the same FFT filter, outside the kernels
-    config = ModelConfig(backend="fused" if backend == "v2" else backend,
-                         dt=dt, **(PHYSICS if physics else {}))
-    geom = geometry.gen_geometry(height, width, layers,
-                                 sig_func=geometry.manabe_sig,
-                                 dtype=torch.float32, device=device)
-    advance = _stepper(backend, geom, config, steps)
+    if surface:
+        if backend == "v2":
+            raise ValueError("--surface needs a ModelConfig backend, not v2")
+        config = ModelConfig(backend=backend, dt=dt, height=height,
+                             width=width, layers=layers, stats=False,
+                             **SURFACE)
+        advance = _surface_stepper(backend, config, steps, device)
+    else:
+        # 'v2' takes the 'fused' config: the same FFT filter, outside the
+        # kernels
+        config = ModelConfig(backend="fused" if backend == "v2" else backend,
+                             dt=dt, **(PHYSICS if physics else {}))
+        geom = geometry.gen_geometry(height, width, layers,
+                                     sig_func=geometry.manabe_sig,
+                                     dtype=torch.float32, device=device)
+        advance = _stepper(backend, geom, config, steps)
     advance()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -136,8 +168,9 @@ def profile_backend(backend, height, width, layers, dt, steps, device,
         torch.cuda.synchronize()
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
-            trace_dir, f"{backend}{'-physics' if physics else ''}.json"))
+        suffix = "-surface" if surface else "-physics" if physics else ""
+        prof.export_chrome_trace(os.path.join(trace_dir,
+                                              f"{backend}{suffix}.json"))
     # the device-side events themselves (kernels, copies), not the host ops
     # that launched them, so no time is counted twice
     kernels = [(e.key, _device_us(e) / 1e3 / steps, e.count // steps)
@@ -146,7 +179,7 @@ def profile_backend(backend, height, width, layers, dt, steps, device,
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     return {
-        "backend": backend, "physics": physics,
+        "backend": backend, "physics": physics, "surface": surface,
         "grid": [layers, height, width], "dt": dt,
         "steps": steps, "device": torch.cuda.get_device_name(device),
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
@@ -168,6 +201,7 @@ def main():
                     choices=["xla", "fused", "v2", "mega", "mega4",
                              "stream"])
     ap.add_argument("--physics", action="store_true")
+    ap.add_argument("--surface", action="store_true")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
     device = resolve_device("cuda")
@@ -175,7 +209,7 @@ def main():
         print(json.dumps(profile_backend(
             backend, args.height, args.width, args.layers, args.dt,
             args.steps, device, args.trace_dir,
-            physics=args.physics)), flush=True)
+            physics=args.physics, surface=args.surface)), flush=True)
 
 
 if __name__ == "__main__":

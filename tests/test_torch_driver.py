@@ -117,13 +117,28 @@ def test_stats_off_returns_none():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("evaporation", True), ("stream_pipeline", True),
     ("stream_wide_native", True), ("checkpoint_dir", "ck"),
-    ("shapiro_every", 4), ("topography", "hansen"), ("precipitation", True)])
+    ("checkpoint_every", 5), ("metrics_path", "metrics.jsonl")])
 def test_unported_features_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         driver.run_model(8, 8, 3, 1800.0, 1, device="cpu",
                          config=ModelConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value,extra", [
+    ("evaporation", True, dict(physics=True, gw0=0.05)),
+    ("stream_pipeline", True, dict(backend="stream")),
+    ("shapiro_every", 2, dict(shapiro_fields="pt")),
+    ("topography", "hansen", {}),
+    ("precipitation", True, dict(physics=True, rh_crit=0.8))])
+def test_newly_ported_features_run(field, value, extra):
+    """Each feature the port once refused runs through run_model: finite,
+    and equal to JAX's run within 1e-10 (float64, 4 steps)."""
+    args = ((16, 128, 3, 300.0, 4) if field == "stream_pipeline"
+            else (8, 8, 3, 1800.0, 4))
+    port, ref = _both(args, dtype="float64", **{field: value}, **extra)
+    assert all(torch.isfinite(x).all() for x in port[:5] + tuple(port[5]))
+    _compare(port, ref, 1e-10, 1e-10)
 
 
 def test_bad_dtype_raises():

@@ -217,12 +217,23 @@ def test_bf16_filter_precisions_are_not_ported(precision):
 
 
 def test_stream_backend_still_raises():
-    """'stream' runs (tests/test_torch_stream.py); its TPU scheduling
-    switch stays refused."""
-    with pytest.raises(NotImplementedError, match="stream_pipeline"):
-        driver.run_model(8, 8, 3, 900.0, 1, device="cpu",
+    """'stream' with its TPU scheduling switch, stream_pipeline, runs K7
+    unchanged: equal to the bit to the run without it (one step, which
+    takes the per-step 'mega4' path, and 4 steps, one K7 call).  The
+    backend still raises where JAX's does: on an odd Shapiro cadence."""
+    for steps in (1, 4):
+        runs = [driver.run_model(16, 128, 3, 300.0, steps, device="cpu",
+                                 config=ModelConfig(
+                                     backend="stream", dtype="float64",
+                                     stream_pipeline=pipeline))
+                for pipeline in (True, False)]
+        for a, b in zip(runs[0][:5], runs[1][:5]):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="must be even"):
+        driver.run_model(16, 128, 3, 300.0, 4, device="cpu",
                          config=ModelConfig(backend="stream",
-                                            stream_pipeline=True))
+                                            stream_pipeline=True,
+                                            shapiro_every=3))
 
 
 def test_float64_sums_filter_float32_fields_to_their_rounding():

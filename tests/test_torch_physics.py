@@ -296,9 +296,17 @@ def test_physics_run_matches_the_reference_oracle():
 
 
 def test_radiation_4band_is_not_ported():
-    with pytest.raises(NotImplementedError, match="radiation"):
-        driver.run_model(8, 8, 3, 1800.0, 1, device="cpu", config=ModelConfig(
-            physics=True, radiation="4band"))
+    """radiation='4band' runs through run_model (the per-module and
+    whole-run checks against JAX are in tests/test_torch_moist.py): finite,
+    and its ground and air tendencies differ from the grey scheme's.  A
+    cadence below 1 still raises."""
+    runs = [driver.run_model(8, 8, 3, 1800.0, 2, device="cpu",
+                             config=ModelConfig(physics=True, radiation=r,
+                                                dtype="float64"))
+            for r in ("4band", "grey")]
+    assert all(torch.isfinite(x).all() for x in runs[0][:5])
+    assert not torch.equal(runs[0][3], runs[1][3])
+    assert not torch.equal(runs[0][5].gt, runs[1][5].gt)
     with pytest.raises(ValueError, match="physics_every"):
         driver.run_model(8, 8, 3, 1800.0, 1, device="cpu", config=ModelConfig(
             physics=True, physics_every=0))
