@@ -59,6 +59,26 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            mega4 with the plain physics after 4 and 20 steps; Config W,
 #            Config S without the land cover on mega4, whose global water
 #            (atmosphere and ground) must change by less than 1e-5;
+#   services the run services on 'stream' (K7) and 'mega4' (K6): run_model
+#            with checkpoint_every=10 and a metrics path over 20 steps (the
+#            checkpoints named step_{step:010d}.npz, one metrics line a stats
+#            entry), resumed from step 10 with make_run_fn(start_step=10) and
+#            equal to the straight run to the bit; Config S on 'stream' split
+#            at step 7, off its launch size K = 2, resumed behind a one-step
+#            alignment head and equal to its straight run to the bit; python
+#            -m gcmiipy_tpu_torch run as a subprocess (exit code 0);
+#   ring     the latitude ring: 4 ranks spawned on the one card over gloo
+#            (after phase build, so that no rank builds); each holds its K6
+#            shard block (128+16 rows) and K7 shard block (k=4: 128+64 rows)
+#            against their plain versions at both types, runs
+#            run_model(512, 1024, 9, 30.0, 20, mesh=ring) on 'stream' and
+#            'mega4' with its launches counted (6 kernel launches a step, 5
+#            calls of K7's shard form on 'stream') against the single-device
+#            run (to the bit, else held to RING_REL and logged; the stats
+#            within float32 summation order) and times the ring's loop (ranks
+#            sharing one card over gloo: not a scaling figure); a
+#            checkpointed ring run restores into a single-device run with the
+#            same fields; torchrun runs the CLI on 4 ranks once;
 #   timing   ms/step of the backends, mega4 and stream also with the
 #            physics and with Config S (over the terrain from phase
 #            surface's start), mega4 also with the physics every 4th step (windows
@@ -74,7 +94,8 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            the main paths; K3's row is the pgf tile (csrc/pgf_tile.cuh)
 #            with the launches the C entries of K3 and K5-K7 counted, and a
 #            row for the epilogue alone (csrc/column_physics.cuh), launched
-#            in place as K7 does.
+#            in place as K7 does; rows for K6's and K7's shard forms on rank
+#            0's block with the launches rank 0 counted in phase ring.
 # The line before the last is the kernels JSON, the last the result JSON.
 # Imports nothing of JAX: the card's machine needs none.
 
@@ -150,10 +171,20 @@ TERRAIN = dict(topography="hansen", physics=True, convection=True,
                drag_tau=86400.0, physics_every=1)
 # Config W's global water (atmosphere and ground, float64 sums) over the run
 WATER_REL = 1e-5
+# phase ring: ranks spawned on the one card, K7's launch size on the ring
+# (stream_steps 20 clamped to at most 4 by the JAX package's rule), the
+# ranks' deadline; a ring run's fields against the single-device run's
+# where they are not equal to the bit, and its energies (float32 sums over
+# the bands, then across the ranks, in another order than one sum)
+RING, RING_K, RING_DEADLINE_S = 4, 4, 600
+RING_REL, RING_STATS_REL = 1e-6, 1e-5
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(phase, msg):
-    print(f"[{time.perf_counter() - T0:7.2f}s] {phase}: {msg}", flush=True)
+    # one write a line, so that the lines of the ring's ranks do not mix
+    sys.stdout.write(f"[{time.perf_counter() - T0:7.2f}s] {phase}: {msg}\n")
+    sys.stdout.flush()
 
 
 def fail(phase, msg):
@@ -1431,6 +1462,396 @@ def phase_surface(device):
     return geom, start
 
 
+def phase_services(device):
+    """The run services on 'stream' (K7) and 'mega4' (K6): run_model with
+    checkpoint_every=10 and a metrics path over 20 steps, its checkpoints
+    (named as the JAX package names them) and metrics lines (one a stats
+    entry) checked, then a resume from the step-10 checkpoint through
+    make_run_fn(start_step=10), equal to the bit to the straight 20-step
+    run; Config S on 'stream' (K = 2) split at step 7, off the launch size,
+    resumed behind its one-step alignment head on 'mega4', equal to the
+    bit to its straight run; python -m gcmiipy_tpu_torch run with the same
+    flags as a subprocess, exit code 0.  Returns the launches of K6 and K7
+    on these paths."""
+    import shutil
+    import tempfile
+    from gcmiipy_tpu_torch.model import checkpoint
+    from gcmiipy_tpu_torch.model.driver import (
+        gen_model_geometry, make_run_fn, run_model)
+    from gcmiipy_tpu_torch.ops.mega_step import mega_step
+    from gcmiipy_tpu_torch.ops.stream_steps import stream_steps
+    kernels = (stream_steps, mega_step)
+    n = MAIN["steps"]
+    every = n // 2
+    dims = (MAIN["height"], MAIN["width"], MAIN["layers"], MAIN["dt"])
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="gcm_services_")
+    try:
+        for backend, want in (("stream", [2, 0]), ("mega4", [0, n])):
+            ck = os.path.join(tmp, backend)
+            metrics = os.path.join(tmp, backend + ".jsonl")
+            cfg = _config(backend, checkpoint_dir=ck, checkpoint_every=every,
+                          metrics_path=metrics)
+            t = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out, counts = _counted(kernels, lambda: run_model(
+                    *dims, n, config=cfg, device=device))
+            for w in caught:
+                if "blew up" in str(w.message):
+                    fail("services", f"{backend}: {w.message}")
+            launches[f"services {backend}"] = counts
+            names = sorted(os.listdir(ck))
+            with open(metrics) as f:
+                lines = [json.loads(ln) for ln in f]
+            log("services", f"run_model {backend} {n} steps, checkpoint_every"
+                            f" {every}, in {time.perf_counter() - t:.2f}s: "
+                            f"launches stream_steps {counts[0]} mega_step "
+                            f"{counts[1]}; checkpoints {names}; "
+                            f"{len(lines)} metrics lines, steps "
+                            f"{[ln['step'] for ln in lines]}")
+            if counts != want:
+                fail("services", f"{backend} launched {counts}, expected "
+                                 f"{want}")
+            if names != [f"step_{s:010d}.npz" for s in (every, n)]:
+                fail("services", f"{backend}: checkpoints {names}")
+            if len(lines) != len(out[7].total_energy) or not all(
+                    np.isfinite(ln["total_energy"]) for ln in lines):
+                fail("services", f"{backend}: {len(lines)} metrics lines for "
+                                 f"{len(out[7].total_energy)} stats entries")
+            straight = run_model(*dims, n, config=_config(backend),
+                                 device=device)
+            geom = gen_model_geometry(_config(backend), device)
+            state, step = checkpoint.restore_checkpoint(ck, every,
+                                                        device=device)
+            resumed, counts = _counted(kernels, lambda: make_run_fn(
+                geom, _config(backend), n - every, start_step=step)(state))
+            last, _ = checkpoint.restore_checkpoint(ck, device=device)
+            same = (bit_equal(resumed[0].prog, straight[:5]),
+                    bit_equal(out[:5], straight[:5]),
+                    bit_equal(last.prog, out[:5]))
+            log("services", f"{backend}: resumed from step {step} "
+                            f"({counts[0]} stream_steps, {counts[1]} "
+                            f"mega_step launches) equals the straight run to "
+                            f"the bit: {same[0]}; the checkpointed run: "
+                            f"{same[1]}; the step-{n} checkpoint holds the "
+                            f"run's fields: {same[2]}")
+            if not all(same):
+                fail("services", f"{backend}: a resumed or checkpointed run "
+                                 "differs from the straight run")
+
+        # Config S off its launch size: K = 2, split at step 7
+        cfg = _config("stream", **SURFACE)
+        geom = gen_model_geometry(cfg, device)
+        start = moist_start(geom, cfg)
+        split = 7
+        straight = _surface_run("services S straight", "stream", geom, start,
+                                n, **SURFACE)
+        (part, _, _), c1 = _counted(kernels, lambda: make_run_fn(
+            geom, cfg, split)(start))
+        ck = os.path.join(tmp, "S")
+        checkpoint.save_checkpoint(ck, part, split)
+        state, step = checkpoint.restore_checkpoint(ck, device=device)
+        run = make_run_fn(geom, cfg, n - split, start_step=step)
+        (resumed, _, guard), c2 = _counted(kernels, lambda: run(state))
+        counts = [a + b for a, b in zip(c1, c2)]
+        launches["services S"] = counts
+        got = tuple(resumed.prog) + (resumed.ground.gt, resumed.ground.gw)
+        same = bit_equal(got, straight)
+        log("services", f"Config S on stream split at step {split} (K = 2), "
+                        f"resumed behind a {run.head_steps}-step head: "
+                        f"launches stream_steps {counts[0]} mega_step "
+                        f"{counts[1]}; equal to the straight run to the bit "
+                        f"(p,u,v,t,q,gt,gw): {same}; rel "
+                        f"{rel_err(got, straight):.3e}")
+        if not (same and bool(guard.ok) and run.head_steps == 1):
+            fail("services", "Config S resumed off its launch size differs "
+                             "from its straight run")
+        if counts != [9, 2]:
+            fail("services", f"Config S split launched {counts}, expected "
+                             "[9, 2]")
+
+        # the CLI, as a user runs it
+        metrics = os.path.join(tmp, "cli.jsonl")
+        cmd = [sys.executable, "-m", "gcmiipy_tpu_torch", "run", "--height",
+               str(MAIN["height"]), "--width", str(MAIN["width"]),
+               "--layers", str(MAIN["layers"]), "--dt", str(MAIN["dt"]),
+               "--steps", str(n), "--backend", "stream", "--guard",
+               "--checkpoint-dir", os.path.join(tmp, "cli"),
+               "--checkpoint-every", str(every), "--metrics", metrics,
+               "--device", device.type]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO_DIR, capture_output=True,
+                              text=True, timeout=600)
+        log("services", f"python -m gcmiipy_tpu_torch run ({' '.join(cmd[3:])}"
+                        f") exit code {proc.returncode} in "
+                        f"{time.perf_counter() - t:.1f}s: "
+                        + " | ".join(proc.stdout.strip().splitlines()))
+        if proc.returncode != 0:
+            fail("services", "the CLI run failed: " + proc.stderr[-2000:])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ring_rank(rank, world, port, device_type, tmp, out):
+    """One rank of phase ring; puts (rank, traceback or None, results)."""
+    import traceback
+    try:
+        out.put((rank, None, _ring_work(rank, world, port, device_type,
+                                        tmp)))
+    except BaseException:  # a rank's failure (fail() exits) fails the phase
+        out.put((rank, traceback.format_exc(), None))
+        raise
+
+
+def _ring_blocks(mesh):
+    """K6's shard block (Hl + 16 rows) and K7's (K = RING_K: Hl + 2*K*8
+    rows) of this rank against their plain versions, float32 at the main
+    path's shape and float64 at 3 layers of its grid (the same blocks),
+    with the kernels' FFT plan and with the TPU kernels' banded DFT
+    (held_to_plain).  Returns the largest float32 absolute errors."""
+    from gcmiipy_tpu_torch.ops import stream_steps as ss
+    from gcmiipy_tpu_torch.ops.mega_step import MegaStep, mega_step_ref
+    from gcmiipy_tpu_torch.parallel.mesh import block_rows
+    from gcmiipy_tpu_torch.parallel.shard_step import PHJ
+    errs = {}
+    for shape, dtype in (((MAIN["layers"], MAIN["height"], MAIN["width"]),
+                          torch.float32),
+                         ((3, MAIN["height"], MAIN["width"]),
+                          torch.float64)):
+        geom, state = k6_inputs(shape, dtype, True, mesh.device)
+        H, L = shape[1], shape[0]
+        rows = block_rows(H, mesh.ny, mesh.index, PHJ)
+        step = MegaStep(geom, MAIN["dt"], rows=rows)
+        block = [x[..., rows, :].contiguous() for x in state]
+        got = step(*block)
+        torch.cuda.synchronize()
+        plain = {name: mega_step_ref(*block, MAIN["dt"], step.geom,
+                                     step.consts, filter_ref=f)
+                 for name, f in (("FFT plan", fft_plan(step.consts)),
+                                 ("banded DFT", None))}
+        if not bool((got[2][:, torch.as_tensor(rows == H - 1)] == 0).all()):
+            fail("ring", "mega_step_shard: v not 0 on the global wall row")
+        tag = (f"rank {mesh.index} mega_step_shard block {len(rows)}x"
+               f"{shape[2]}x{L} {str(dtype)[6:]}")
+        _, err = held_to_plain(tag, got, plain, MEGA_REL[dtype],
+                               banded_bound(dtype, MEGA_REL[dtype]))
+        if dtype == torch.float32:
+            errs["k6"] = err
+        rows = block_rows(H, mesh.ny, mesh.index, RING_K * PHJ)
+        multi = ss.StreamSteps(geom, MAIN["dt"], rows=rows)
+        packed = ss.pack_state(*[x[..., rows, :].contiguous() for x in state])
+        S = torch.stack([packed, torch.zeros_like(packed)])
+        got = _planes(multi(S.clone(), None, RING_K), L)
+        torch.cuda.synchronize()
+        zero = torch.zeros((), dtype=dtype, device=mesh.device)
+        plain = {name: _planes(ss.stream_steps_ref(
+                     S.clone(), zero, RING_K, MAIN["dt"], multi.geom,
+                     multi.consts, filter_ref=f), L)
+                 for name, f in (("FFT plan", fft_plan(multi.consts)),
+                                 ("banded DFT", None))}
+        tag = (f"rank {mesh.index} stream_steps_shard k={RING_K} block "
+               f"{len(rows)}x{shape[2]}x{L} {str(dtype)[6:]}")
+        _, err = held_to_plain(tag, got, plain, STREAM_REL[dtype],
+                               banded_bound(dtype, STREAM_REL[dtype]))
+        if dtype == torch.float32:
+            errs["k7"] = err
+    return errs
+
+
+def _ring_work(rank, world, port, device_type, tmp):
+    """Phase ring's work on one rank (see phase_ring)."""
+    import torch.distributed as dist
+    from gcmiipy_tpu_torch.model import checkpoint
+    from gcmiipy_tpu_torch.model.driver import (
+        gen_model_geometry, gen_model_state, make_run_fn, run_model)
+    from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
+    from gcmiipy_tpu_torch.ops.mega_step import mega_step_shard
+    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_tile, rest_stencil
+    from gcmiipy_tpu_torch.ops.stream_steps import stream_steps_shard
+    from gcmiipy_tpu_torch.parallel import distributed, mesh as mesh_mod
+    distributed.initialize(f"127.0.0.1:{port}", world, rank,
+                           device=device_type)
+    mesh = mesh_mod.make_mesh(device=device_type)
+    if mesh.device.type != device_type:
+        raise RuntimeError(f"rank {rank} runs on {mesh.device}")
+    res = {"backend": dist.get_backend(), "device": str(mesh.device),
+           "max_abs": _ring_blocks(mesh)}
+    kernels = (mega_step_shard, stream_steps_shard, pgf_tile, fft_filter,
+               rest_stencil)
+    n = MAIN["steps"]
+    dims = (MAIN["height"], MAIN["width"], MAIN["layers"], MAIN["dt"])
+    for backend in ("stream", "mega4"):
+        cfg = _config(backend)
+        dist.barrier()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ring, counts = _counted(kernels, lambda: run_model(
+                *dims, n, config=cfg, mesh=mesh))
+        # one device with the ring's launch size, so that the stats (one
+        # entry a call on 'stream') compare entry by entry
+        one = run_model(*dims, n, device=mesh.device, config=_config(
+            backend, stream_steps=RING_K))
+        torch.cuda.synchronize()
+        # the ring's guarded loop on its bands, timed (second run)
+        geom = gen_model_geometry(cfg, mesh.device)
+        band = mesh_mod.shard_state(gen_model_state(geom, cfg), mesh)
+        run = make_run_fn(geom, cfg, n, mesh=mesh)
+        run(band)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        run(band)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t) / n
+        stats = {k: rel_err([getattr(ring[7], k)], [getattr(one[7], k)])
+                 for k in ("ke", "ate", "geo", "total_energy")}
+        extrema = all(torch.equal(getattr(ring[7], k), getattr(one[7], k))
+                      for k in ("u_max", "u_min", "v_max", "v_min"))
+        res[backend] = dict(
+            counts=dict(zip(("mega_step_shard", "stream_steps_shard",
+                             "pgf_tile", "fft_filter", "rest_stencil"),
+                            counts)),
+            bit_equal=bit_equal(ring[:5], one[:5]),
+            rel=rel_err(ring[:5], one[:5]), stats_rel=stats,
+            extrema_equal=extrema, ms_per_step=ms,
+            warnings=[str(w.message) for w in caught])
+    # a checkpointed ring run, restored into a single-device run
+    ck = os.path.join(tmp, "ring_ck")
+    cfg = _config("stream", checkpoint_dir=ck, checkpoint_every=n // 2)
+    ring = run_model(*dims, n, config=cfg, mesh=mesh)
+    if rank == 0:
+        geom = gen_model_geometry(_config("stream"), mesh.device)
+        state, step = checkpoint.restore_checkpoint(ck, n // 2,
+                                                    device=mesh.device)
+        out = make_run_fn(geom, _config("stream"), n - step,
+                          start_step=step)(state)
+        last, _ = checkpoint.restore_checkpoint(ck, device=mesh.device)
+        res["restored"] = dict(
+            files=sorted(os.listdir(ck)),
+            bit_equal=bit_equal(out[0].prog, ring[:5]),
+            rel=rel_err(out[0].prog, ring[:5]),
+            last_equal=bit_equal(last.prog, ring[:5]))
+    dist.barrier()
+    dist.destroy_process_group()
+    return res
+
+
+def phase_ring(device):
+    """The lat ring: RING ranks spawned on the one card (gloo: NCCL refuses
+    ranks that share a card), after phase build, so that no rank builds.
+    Each rank holds its K6 and K7 shard blocks against their plain
+    versions (both types), runs run_model(512, 1024, 9, 30.0, 20,
+    mesh=ring) on 'stream' and 'mega4' with its launches counted, compares
+    the full fields it receives with the single-device run of the same
+    backend (to the bit expected; else held to RING_REL and logged) and the
+    stats within float32 summation order (RING_STATS_REL; the extrema
+    exactly), and times the ring's guarded loop (ranks sharing one card
+    over gloo: not a scaling figure).  A checkpointed ring run (every 10
+    steps) restores into a single-device run that gives the same fields.
+    Then torchrun runs the CLI on RING ranks.  Returns rank 0's results."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    tmp = tempfile.mkdtemp(prefix="gcm_ring_")
+    procs = [ctx.Process(target=ring_rank, args=(r, RING, port, device.type,
+                                                 tmp, out))
+             for r in range(RING)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, end = {}, time.monotonic() + RING_DEADLINE_S
+    try:
+        while len(results) < RING:
+            try:
+                rank, err, res = out.get(timeout=max(1.0, end - time.monotonic()))
+            except queue.Empty:
+                fail("ring", f"ranks {sorted(set(range(RING)) - set(results))}"
+                             f" missed the {RING_DEADLINE_S} s deadline")
+            if err is not None:
+                fail("ring", f"rank {rank} failed:\n{err}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("ring", f"{RING} ranks in {time.perf_counter() - t:.1f}s, backend "
+                f"{results[0]['backend']} on {results[0]['device']}")
+    n, K = MAIN["steps"], RING_K
+    want = {"stream": dict(mega_step_shard=0, stream_steps_shard=n // K,
+                           pgf_tile=2 * n, fft_filter=2 * n,
+                           rest_stencil=2 * n),
+            "mega4": dict(mega_step_shard=n, stream_steps_shard=0,
+                          pgf_tile=2 * n, fft_filter=2 * n,
+                          rest_stencil=2 * n)}
+    for rank in range(RING):
+        r = results[rank]
+        if r["backend"] != "gloo" or not r["device"].startswith(device.type):
+            fail("ring", f"rank {rank}: {r['backend']} on {r['device']}")
+        for backend in ("stream", "mega4"):
+            b = r[backend]
+            log("ring", f"rank {rank} run_model {backend} {n} steps on the "
+                        f"ring: launches {b['counts']}; fields equal to the "
+                        f"single-device run to the bit: {b['bit_equal']} "
+                        f"(rel {b['rel']:.3e}); stats rel " + ", ".join(
+                            f"{k} {v:.3e}" for k, v in b["stats_rel"].items())
+                        + f", extrema equal: {b['extrema_equal']}; "
+                        f"{b['ms_per_step']:.4f} ms/step ({RING} ranks "
+                        "sharing one card over gloo: not a scaling figure)"
+                        + "".join(f"; warned: {w}" for w in b["warnings"]))
+            if b["counts"] != want[backend]:
+                fail("ring", f"rank {rank} {backend} launched {b['counts']},"
+                             f" expected {want[backend]}")
+            if not (b["bit_equal"] or b["rel"] <= RING_REL):
+                fail("ring", f"rank {rank} {backend}: fields rel "
+                             f"{b['rel']:.3e} from the single-device run")
+            if max(b["stats_rel"].values()) > RING_STATS_REL \
+                    or not b["extrema_equal"]:
+                fail("ring", f"rank {rank} {backend}: stats differ")
+    restored = results[0]["restored"]
+    log("ring", f"checkpointed stream ring run: {restored['files']}; the "
+                f"step-{n // 2} checkpoint restored and run {n // 2} steps on "
+                f"one device equals the ring's fields to the bit: "
+                f"{restored['bit_equal']} (rel {restored['rel']:.3e}); the "
+                f"step-{n} checkpoint holds them: {restored['last_equal']}")
+    if restored["files"] != [f"step_{s:010d}.npz" for s in (n // 2, n)] \
+            or not (restored["bit_equal"] or restored["rel"] <= RING_REL) \
+            or not restored["last_equal"]:
+        fail("ring", "the ring's checkpoints do not restore its run")
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(RING), "-m", "gcmiipy_tpu_torch", "run",
+           "--mesh-shape", str(RING), "--height", str(MAIN["height"]),
+           "--width", str(MAIN["width"]), "--layers", str(MAIN["layers"]),
+           "--dt", str(MAIN["dt"]), "--steps", str(n), "--backend", "stream",
+           "--guard", "--device", device.type]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=RING_DEADLINE_S)
+    log("ring", f"torchrun --standalone --nproc-per-node {RING} -m "
+                f"gcmiipy_tpu_torch run ... exit code {proc.returncode} in "
+                f"{time.perf_counter() - t:.1f}s: "
+                + " | ".join(proc.stdout.strip().splitlines()))
+    if proc.returncode != 0:
+        fail("ring", "torchrun failed: " + proc.stderr[-3000:])
+    return results[0]
+
+
 def _bytes(tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
@@ -1669,6 +2090,89 @@ def phase_timing(device, launches, max_abs, geom, start, surface):
     return rows
 
 
+def timing_shards(device, ring):
+    """The rows of K6's and K7's shard forms: each on rank 0's block of the
+    ring at the main path's shape (K6: Hl + 16 = 144 rows; K7, k = RING_K:
+    Hl + 2*RING_K*8 = 192 rows), timed alone on the card by CUDA events,
+    beside its plain version and its bytes bound on the block; the
+    launches those rank 0 counted on phase ring's main paths (20 steps:
+    K6's shard form once a step on the mega4 ring, K7's once a RING_K
+    steps on the stream ring)."""
+    from gcmiipy_tpu_torch.dynamics import core25d
+    from gcmiipy_tpu_torch.grid import geometry
+    from gcmiipy_tpu_torch.ops import polar_filter
+    from gcmiipy_tpu_torch.ops import stream_steps as ss
+    from gcmiipy_tpu_torch.ops.fused_parts import GEOM_FIELDS
+    from gcmiipy_tpu_torch.ops.mega_step import (
+        MegaStep, banded_round, mega_step_ref)
+    from gcmiipy_tpu_torch.parallel.mesh import block_rows
+    from gcmiipy_tpu_torch.parallel.shard_step import PHJ
+    L, H = MAIN["layers"], MAIN["height"]
+    geom = geometry.gen_geometry(H, MAIN["width"], L,
+                                 sig_func=geometry.manabe_sig,
+                                 dtype=torch.float32, device=device)
+    state = random_state(geom, 5, device, torch.float32)
+    rows = []
+
+    rb = block_rows(H, RING, 0, PHJ)
+    step = MegaStep(geom, MAIN["dt"], rows=rb)
+    bgeom, fc = step.geom, step.consts
+    block = [x[..., rb, :].contiguous() for x in state]
+    banded = banded_round(bgeom)
+    ms = cuda_ms(lambda: step(*block), 20)
+    plain_ms = cuda_ms(lambda: mega_step_ref(*block, MAIN["dt"], bgeom, fc,
+                                             filter_ref=banded), 5)
+    geo = [getattr(bgeom, n) for n in GEOM_FIELDS]
+    nbytes = _bytes((*block, *geo, *_filter_buffers(fc),
+                     *mega_step_ref(*block, MAIN["dt"], bgeom, fc,
+                                    filter_ref=banded)))
+    ops = {torch.float32: count_ops(mega_step_ref, *block, MAIN["dt"], bgeom,
+                                    fc, filter_ref=banded,
+                                    dtypes=(torch.float32,)),
+           torch.float64: _filter_ops(fc, bgeom, 2)}
+    stack = torch.cat(core25d.pgf_forces(block[0], block[1], block[3],
+                                         bgeom)[:2], dim=0)
+    fft_ms = cuda_ms(lambda: [polar_filter.arakawa_1977(stack, bgeom)
+                              for _ in range(2)], 20)
+    rows.append(_row(
+        "mega_step_shard", "gcmiipy_tpu_torch/csrc/mega_step.cu",
+        "gcmiipy_tpu/ops/pallas_stencil.py:1340",
+        ring["mega4"]["counts"]["mega_step_shard"], ring["max_abs"]["k6"],
+        ms, plain_ms, nbytes, ops, fft_ms,
+        f"mega_step_shard (rank 0's block, {len(rb)} rows)"))
+
+    rb = block_rows(H, RING, 0, RING_K * PHJ)
+    multi = ss.StreamSteps(geom, MAIN["dt"], rows=rb)
+    bgeom, fc = multi.geom, multi.consts
+    packed = ss.pack_state(*[x[..., rb, :].contiguous() for x in state])
+    S0 = torch.stack([packed, torch.zeros_like(packed)])
+    S = S0.clone()
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    ms = cuda_ms(lambda: multi(S.copy_(S0), None, RING_K), 20)
+    banded = banded_round(bgeom)
+    plain_ms = cuda_ms(lambda: ss.stream_steps_ref(
+        S.copy_(S0), zero, RING_K, MAIN["dt"], bgeom, fc,
+        filter_ref=banded), 2)
+    geo = [getattr(bgeom, n) for n in GEOM_FIELDS]
+    nbytes = _bytes((S0, S0, *geo, bgeom.long, *_filter_buffers(fc)))
+    ops = {torch.float32: count_ops(
+               ss.stream_steps_ref, S.copy_(S0), zero, RING_K, MAIN["dt"],
+               bgeom, fc, filter_ref=banded, dtypes=(torch.float32,)),
+           torch.float64: _filter_ops(fc, bgeom, 2 * RING_K)}
+    s0 = _planes(S0, L)
+    stack = torch.cat(core25d.pgf_forces(s0[0], s0[1], s0[3], bgeom)[:2])
+    fft_ms = cuda_ms(lambda: [polar_filter.arakawa_1977(stack, bgeom)
+                              for _ in range(2 * RING_K)], 5)
+    rows.append(_row(
+        "stream_steps_shard", "gcmiipy_tpu_torch/csrc/stream_steps.cu",
+        "gcmiipy_tpu/ops/pallas_stream.py:108",
+        ring["stream"]["counts"]["stream_steps_shard"],
+        ring["max_abs"]["k7"], ms, plain_ms, nbytes, ops, fft_ms,
+        f"stream_steps_shard (rank 0's block, {len(rb)} rows, "
+        f"k={RING_K})"))
+    return rows
+
+
 def timing_physics(device, launches, max_abs):
     """The row of K7's column-physics epilogue alone at the main path's
     shape, launched in place as K7 launches it (the wrapper's copies of u,
@@ -1834,7 +2338,10 @@ def main():
     launches.update(phase_main_stream(device, geom, start))
     launches.update(phase_main_mega_v2(device, geom, start, runs))
     surface = phase_surface(device)
+    launches.update(phase_services(device))
+    ring = phase_ring(device)
     rows = phase_timing(device, launches, max_abs, geom, start, surface)
+    rows += timing_shards(device, ring)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

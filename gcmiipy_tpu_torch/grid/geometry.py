@@ -56,6 +56,20 @@ class Geom:
     def device(self):
         return self.sig.device
 
+    def take_rows(self, rows):
+        """The geometry of the latitude rows ``rows`` (global indices, in
+        order, repeats allowed): a lat-ring shard's block or band.  Every
+        per-row field is indexed, the sigma ladder, ``long`` and the
+        scalars are shared; ``height`` becomes ``len(rows)``.  The kernels
+        take the block's rows as their whole grid and wrap them modulo its
+        height (JAX ``make_mega_step_kernel(geom_as_args=True)``)."""
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        per_row = dict(lat=-2, lat_h=-2, dx_j=-2, dx_h=-2, area=-2,
+                       heightmap=-2, land_fraction=-2, polar_mask=-2)
+        return dataclasses.replace(self, height=int(idx.numel()), **{
+            name: getattr(self, name).index_select(dim, idx).contiguous()
+            for name, dim in per_row.items()})
+
     def to(self, dtype=None, device=None):
         """Copy with every tensor field cast to ``dtype`` / moved to ``device``."""
         return dataclasses.replace(self, **{

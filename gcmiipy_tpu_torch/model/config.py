@@ -109,6 +109,7 @@ PORTED = frozenset((
     "topography", "sea_level_temp", "land_cover", "albedo_land",
     "evaporation", "gw0", "precipitation", "rh_crit",
     "shapiro_every", "shapiro_order", "shapiro_fields", "shapiro_slp",
+    "checkpoint_dir", "checkpoint_every", "metrics_path",
 ))
 BACKENDS = ("xla", "fused", "mega", "mega4", "stream")
 POLAR_FILTERS = ("fft", "matmul", "dft")

@@ -7,6 +7,11 @@ cadenced physics (grey or four-band radiation, convection, surface drag,
 evaporation and precipitation), the per-step ``StepStats`` and the blow-up
 guard.  The 'stream' backend advances
 ``stream_steps`` steps a call through K7 (:func:`_make_stream_run_fn`).
+``run_model`` writes checkpoints every ``checkpoint_every`` steps and the
+per-step stats as JSON lines (``metrics_path``); ``make_run_fn(start_step=)``
+resumes a run.  With ``mesh`` (:mod:`gcmiipy_tpu_torch.parallel.mesh`) every
+rank steps its own latitude band with the shard forms of K6 or K7, the
+halos going over ``torch.distributed``.
 
 Where the JAX driver compiles the run as one ``lax.scan``, this one is an
 eager loop.  The guard is still a device-side flag carried through the loop:
@@ -22,6 +27,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gcmiipy_tpu_torch import constants
 from gcmiipy_tpu_torch.device import resolve_device, torch_dtype
@@ -32,6 +38,8 @@ from gcmiipy_tpu_torch.model.config import ModelConfig, check_ported
 from gcmiipy_tpu_torch.model.state import (
     GroundVars, ModelState, PrognosticVars, gen_initial_conditions)
 from gcmiipy_tpu_torch.ops import polar_filter, shapiro, stream_steps
+from gcmiipy_tpu_torch.parallel import distributed, halo
+from gcmiipy_tpu_torch.parallel import mesh as mesh_mod
 from gcmiipy_tpu_torch.physics import (
     condensation, convection, evaporation, radiation, thermo)
 
@@ -133,23 +141,52 @@ def make_filter_fn(config, geom):
     return polar_filter.arakawa_1977
 
 
-def make_dynamics_step(geom, config, filter_fn, warn_degrade=True):
+def check_mesh(mesh, config):
+    """Raise ``NotImplementedError`` for a mesh the port does not run yet:
+    a 2D (lat x lon) mesh, and backend 'xla' on a mesh (the JAX package's
+    GSPMD path, ``parallel/gspmd.py``)."""
+    if mesh.shape.get("x", 1) > 1:
+        raise NotImplementedError(
+            f"a 2D ('y','x') mesh {mesh.shape}: the fused2d lat x lon path "
+            "with the spectral-psum filter (JAX make_shard_step_fused2d) is "
+            "not ported yet; use a lat-ring mesh (one 'y' axis)")
+    if config.backend == "xla":
+        raise NotImplementedError(
+            "backend 'xla' on a mesh (the JAX package's GSPMD path, "
+            "parallel/gspmd.py) is not ported yet; the ring runs 'fused', "
+            "'mega', 'mega4' (K6's shard form) and 'stream' (K7's)")
+
+
+def make_dynamics_step(geom, config, filter_fn, mesh=None, warn_degrade=True):
     """The stencil backend: 'xla' runs the plain PyTorch core, 'fused' the
     K1 kernel pipeline, 'mega' the K5 half-step kernel twice, 'mega4' the
     K6 whole-step kernel (:mod:`gcmiipy_tpu_torch.dynamics.fused`; 'mega'
     and 'mega4' have their own filters and do not use ``filter_fn``).
     'stream' advances many steps a call (:func:`make_run_fn`); a per-step
     caller of it gets 'mega4', with a RuntimeWarning unless
-    ``warn_degrade`` is False, as in the JAX package."""
+    ``warn_degrade`` is False, as in the JAX package.
+
+    With ``mesh`` (a lat ring) 'fused', 'mega' and 'mega4' run the ring's
+    step on the rank's band, K6's shard form
+    (:func:`shard_step.make_shard_step_fused4`); ``geom`` is the global
+    geometry."""
     check_ported(config)
     backend = config.backend
     if backend == "stream":
         backend = "mega4"
         if warn_degrade:
+            why = ("a device mesh" if mesh is not None
+                   else "a per-step caller (callback path)")
             warnings.warn(
-                "backend 'stream' does not support a per-step caller "
-                "(callback path); running 'mega4' instead — "
-                "timings/numerics are mega4's", RuntimeWarning, stacklevel=3)
+                f"backend 'stream' does not support {why}; running "
+                "'mega4' instead — timings/numerics are mega4's",
+                RuntimeWarning, stacklevel=3)
+    if mesh is not None:
+        check_mesh(mesh, dataclasses.replace(config, backend=backend))
+        from gcmiipy_tpu_torch.parallel import shard_step
+        return shard_step.make_shard_step_fused4(
+            mesh, geom, config.dt, coriolis=config.coriolis,
+            q_limiter=config.q_limiter)
     if backend in ("fused", "mega", "mega4"):
         return fused.make_fused_step(
             geom, config.dt, coriolis=config.coriolis, filter_fn=filter_fn,
@@ -282,19 +319,24 @@ def apply_cadenced_shapiro(prog, step_next, geom, config, granularity=1):
 
 
 def full_timestep(state: ModelState, geom, config, filter_fn,
-                  dynamics_step=None, host_step=None) -> ModelState:
+                  dynamics_step=None, host_step=None, ring=None) -> ModelState:
     """One dynamics step, the Shapiro filter at ``(step + 1) %
     shapiro_every == 0`` and the cadenced physics extras (reference
     no_limits_2_5d.py:79-104).  Both key off the state's integer step
     counter, or off ``host_step``, the same count held on the host (a
-    Python int), which lets them skip the work off cadence."""
+    Python int), which lets them skip the work off cadence.  ``ring``: the
+    rank's :class:`_Ring` on a mesh, which runs the filter and the extras
+    on its band."""
     if dynamics_step is None:
         dynamics_step = make_dynamics_step(geom, config, filter_fn)
     prog, g, utc, step = state
     prog = PrognosticVars(*dynamics_step(*prog))
     step_next = step + 1 if host_step is None else host_step + 1
-    prog = apply_cadenced_shapiro(prog, step_next, geom, config)
-    prog, g = apply_cadenced_extras(prog, g, utc, step_next, geom, config)
+    if ring is None:
+        prog = apply_cadenced_shapiro(prog, step_next, geom, config)
+        prog, g = apply_cadenced_extras(prog, g, utc, step_next, geom, config)
+    else:
+        prog, g = ring.cadenced(prog, g, utc, step_next)
     return ModelState(prog, g, utc + config.dt, step + 1)
 
 
@@ -342,7 +384,93 @@ def _stack_stats(stats_list):
     return StepStats(*(torch.stack(col) for col in zip(*stats_list)))
 
 
-def make_run_fn(geom, config, timesteps):
+def _cat_stats(a, b):
+    """Two stacked :class:`StepStats` joined along the step axis (either
+    may be None)."""
+    if a is None or b is None:
+        return b if a is None else a
+    return StepStats(*(torch.cat([x, y]) for x, y in zip(a, b)))
+
+
+class _Ring:
+    """What a rank of a lat ring runs besides the dynamics, on its band of
+    Hl rows: the guard, the stats and the cadenced extras.
+
+    * :meth:`bad`: :func:`state_bad` of the band, its maximum over the ring
+      (``all_reduce``, on the device), so that every rank freezes at the
+      same step without a host read.
+    * :meth:`stats`: :func:`collect_stats` over the band's core rows, the
+      energies summed and the extrema reduced over the ring.  The kinetic
+      energy averages v with the row above, so the band is padded by one
+      row from its neighbours, whose cell areas count as zero.
+    * :meth:`cadenced`: the Shapiro filter (zonal, complete rows) and the
+      extras (column-local, but the evaporation's wind averages v with the
+      row above) on the band padded by one row, then trimmed.  The
+      adaptive convection reads a flag on the host per sweep, per rank:
+      ranks may sweep different times (a sweep over a converged column is
+      the identity) and no collective waits on it.
+    """
+
+    def __init__(self, mesh, geom, config):
+        self.mesh, self.config = mesh, config
+        rows = mesh_mod.block_rows(geom.height, mesh.ny, mesh.index, 1)
+        self.geom = geom.to(device=mesh.device).take_rows(rows)
+        area = self.geom.area.clone()
+        area[0] = area[-1] = 0.0
+        self.stats_geom = dataclasses.replace(self.geom, area=area)
+
+    def _pad(self, *fields):
+        """Each field padded by one row from the ring neighbours (one
+        exchange of the fields stacked as planes)."""
+        planes = [x if x.dim() == 3 else x[None] for x in fields]
+        block = halo.exchange_axis(torch.cat(planes), 1, self.mesh)
+        out = list(torch.split(block, [x.shape[0] for x in planes]))
+        return [b if x.dim() == 3 else b[0] for b, x in zip(out, fields)]
+
+    def bad(self, state):
+        flag = state_bad(state, self.config).to(torch.int32)
+        return distributed.all_reduce(flag, dist.ReduceOp.MAX,
+                                      self.mesh.group) > 0
+
+    def stats(self, state):
+        prog = state.prog
+        ke, ate, geo, _ = energy.calc_energy(*self._pad(*prog),
+                                             self.stats_geom)
+        sums = distributed.all_reduce(torch.stack([ke, ate, geo]),
+                                      dist.ReduceOp.SUM, self.mesh.group)
+        ext = distributed.all_reduce(
+            torch.stack([prog.u.max(), prog.v.max(), -prog.u.min(),
+                         -prog.v.min()]), dist.ReduceOp.MAX, self.mesh.group)
+        return StepStats(u_max=ext[0], u_min=-ext[2], v_max=ext[1],
+                         v_min=-ext[3], ke=sums[0], ate=sums[1], geo=sums[2],
+                         total_energy=sums[0] + sums[1] + sums[2])
+
+    def cadenced(self, prog, g, utc, step_next, granularity=1):
+        config = self.config
+        has_extras = config.drag_tau > 0 or config.physics
+        has_shapiro = config.shapiro_every > 0
+        if not (has_extras or has_shapiro):
+            return prog, g
+        if isinstance(step_next, int) and not (
+                (has_shapiro
+                 and step_next % config.shapiro_every < granularity)
+                or (has_extras
+                    and step_next % config.physics_every < granularity)):
+            return prog, g
+        padded = self._pad(*prog, *g)
+        pprog, pg = PrognosticVars(*padded[:5]), GroundVars(*padded[5:])
+        pprog = apply_cadenced_shapiro(pprog, step_next, self.geom, config,
+                                       granularity=granularity)
+        if has_extras:
+            pprog, pg = apply_cadenced_extras(pprog, pg, utc, step_next,
+                                              self.geom, config,
+                                              granularity=granularity)
+        return (PrognosticVars(*(halo.trim(x, 1).contiguous()
+                                 for x in pprog)),
+                GroundVars(*(halo.trim(x, 1).contiguous() for x in pg)))
+
+
+def make_run_fn(geom, config, timesteps, mesh=None, start_step=0):
     """Build ``run(state) -> (state, stats)`` over ``timesteps`` Matsuno
     steps; with ``config.guard`` on, ``run(state) -> (state, stats,
     GuardInfo)``: the state stops advancing (freezes at the last good step)
@@ -350,18 +478,41 @@ def make_run_fn(geom, config, timesteps):
     :class:`StepStats` of (timesteps,) tensors, or None with
     ``config.stats`` off.  The 'stream' backend advances ``stream_steps``
     steps a call; see :func:`_make_stream_run_fn` for its guard and stats
-    granularity."""
+    granularity.
+
+    ``start_step``: the step counter the state carries on entry (0 for a
+    fresh run; the restored step when resuming).  A 'stream' run with
+    cadenced extras that starts off a multiple of its launch size first
+    runs the steps up to it on the per-step 'mega4' path
+    (:func:`_with_alignment_head`), so that the cadence points land on
+    call boundaries.  The per-step backends key off the state's own
+    counter and ignore it.
+
+    With ``mesh`` (a lat ring, :func:`mesh.make_mesh`) ``state`` is the
+    rank's band (:func:`mesh.shard_state`) and ``geom`` the global
+    geometry: the dynamics run the ring's step (K6's or K7's shard form),
+    and the guard, the stats and the extras are those of :class:`_Ring`."""
     config = normalize_config(config)
+    if mesh is not None:
+        check_mesh(mesh, config)
     if config.backend == "stream":
-        return _make_stream_run_fn(geom, config, timesteps)
-    filter_fn = make_filter_fn(config, geom)
-    dynamics_step = make_dynamics_step(geom, config, filter_fn)
+        if mesh is not None:
+            return _make_stream_ring_run_fn(geom, config, timesteps, mesh,
+                                            start_step=start_step)
+        return _make_stream_run_fn(geom, config, timesteps,
+                                   start_step=start_step)
+    filter_fn = make_filter_fn(config, geom) if mesh is None else None
+    dynamics_step = make_dynamics_step(geom, config, filter_fn, mesh=mesh)
+    ring = _Ring(mesh, geom, config) if mesh is not None else None
+    bad_of = ring.bad if ring else (lambda s: state_bad(s, config))
+    stats_of = ring.stats if ring else (lambda s: collect_stats(s, geom))
+    device = mesh.device if mesh is not None else geom.device
 
     def run(state):
         stats = []
         if config.guard:
-            ok = torch.ones((), dtype=torch.bool, device=geom.device)
-            blown = torch.full((), -1, dtype=torch.int32, device=geom.device)
+            ok = torch.ones((), dtype=torch.bool, device=device)
+            blown = torch.full((), -1, dtype=torch.int32, device=device)
         # with extras or the Shapiro filter at a cadence, the step counter
         # on the host, read once: a state frozen by the guard stops its
         # counter, but its new state is then discarded
@@ -372,9 +523,9 @@ def make_run_fn(geom, config, timesteps):
         for step_idx in range(timesteps):
             new_state = full_timestep(
                 state, geom, config, filter_fn, dynamics_step,
-                None if step0 is None else step0 + step_idx)
+                None if step0 is None else step0 + step_idx, ring=ring)
             if config.guard:
-                bad = state_bad(new_state, config)
+                bad = bad_of(new_state)
                 advance = ok & ~bad
                 state = _where_state(advance, new_state, state)
                 blown = torch.where(ok & bad,
@@ -383,11 +534,52 @@ def make_run_fn(geom, config, timesteps):
             else:
                 state = new_state
             if config.stats:
-                stats.append(collect_stats(state, geom))
+                stats.append(stats_of(state))
         if config.guard:
             return state, _stack_stats(stats), GuardInfo(ok, blown)
         return state, _stack_stats(stats)
 
+    return run
+
+
+def _with_alignment_head(geom, config, timesteps, K, make_rest, start_step,
+                         mesh=None):
+    """A 'stream' run (single-device or ring) behind a per-step alignment
+    head (JAX ``_with_alignment_head``): its calls apply the cadenced
+    extras at their boundaries, which must land on multiples of the launch
+    size K.  When ``start_step`` is not a multiple of K and extras or the
+    Shapiro filter run at a cadence, ``head = (-start_step) % K`` steps run
+    on the per-step 'mega4' path first, then ``make_rest(timesteps -
+    head)``, which starts aligned.  Returns None when no head is needed."""
+    cadenced = (config.physics or config.drag_tau > 0
+                or config.shapiro_every > 0)
+    head = (-start_step) % K if cadenced else 0
+    if not head:
+        return None
+    head = min(head, timesteps)
+    head_run = make_run_fn(geom, dataclasses.replace(config, backend="mega4"),
+                           head, mesh=mesh)
+    rest_run = make_rest(timesteps - head) if timesteps > head else None
+
+    def run(state):
+        out = head_run(state)
+        if rest_run is None:
+            return out
+        if config.guard:
+            state, stats_h, gi = out
+            if not bool(gi.ok):
+                return out
+            state, stats_r, gi = rest_run(state)
+            blown = torch.where(gi.blown_step >= 0, gi.blown_step + head,
+                                gi.blown_step)
+            return (state, _cat_stats(stats_h, stats_r),
+                    GuardInfo(gi.ok, blown))
+        state, stats_h = out
+        state, stats_r = rest_run(state)
+        return state, _cat_stats(stats_h, stats_r)
+
+    run.chunk_steps = K
+    run.head_steps = head
     return run
 
 
@@ -440,7 +632,19 @@ def _inkernel_physics(config, geom):
             and geom.width <= STREAM_RESIDENT_MAX_WIDTH)
 
 
-def _make_stream_run_fn(geom, config, timesteps):
+def _cadence_clamp(config, K, k_cap):
+    """K clamped to ``k_cap`` (the ring's halo bound) so that it still
+    divides every active cadence (JAX ``_cadence_clamp``): the largest even
+    divisor of ``stream_steps`` (which :func:`_resolve_stream_cadence` made
+    divide them) up to ``k_cap``, else ``min(2, k_cap)``."""
+    if K <= k_cap:
+        return K
+    g = config.stream_steps
+    cands = [d for d in range(2, k_cap + 1, 2) if g % d == 0]
+    return max(cands) if cands else min(2, k_cap)
+
+
+def _make_stream_run_fn(geom, config, timesteps, start_step=0):
     """``run`` of the 'stream' backend: the state is packed once into the
     (2, planes, H, W) ping-pong buffer, advanced ``K`` steps a call by
     :class:`stream_steps.StreamSteps` (K7), and unpacked at the end.
@@ -464,7 +668,8 @@ def _make_stream_run_fn(geom, config, timesteps):
     Guard and stats act once per call: ``GuardInfo.blown_step`` names the
     first step of the call that went bad, which :func:`run_model` narrows
     to the exact step (:func:`localize_blown_step`), and the stats hold one
-    entry per call."""
+    entry per call.  A run that starts at a ``start_step`` off the launch
+    size runs an alignment head first (:func:`_with_alignment_head`)."""
     extras = (config.physics or config.drag_tau > 0
               or config.shapiro_every > 0)
     wide_tall = geom.width > STREAM_RESIDENT_MAX_WIDTH and geom.height > 64
@@ -498,6 +703,11 @@ def _make_stream_run_fn(geom, config, timesteps):
     else:
         physics = None
         config, K = _resolve_stream_cadence(config, timesteps)
+        headed = _with_alignment_head(
+            geom, config, timesteps, K,
+            lambda n: _make_stream_run_fn(geom, config, n), start_step)
+        if headed is not None:
+            return headed
     n_chunks, rem = divmod(timesteps, K)
     rem_even = rem - rem % 2
     tail_odd = rem % 2
@@ -656,27 +866,141 @@ def _make_stream_run_fn(geom, config, timesteps):
     return out
 
 
-def _blown_chunk_len(blown, n, K):
-    """Length of the stream call that starts at step offset ``blown`` of an
-    ``n``-step run with launch size ``K``: K for the main calls, the even
-    remainder for the remainder call, 1 for the odd tail."""
-    n_chunks, rem = divmod(n, K)
+def _make_stream_ring_run_fn(geom, config, timesteps, mesh, start_step=0):
+    """``run`` of backend 'stream' on a lat ring (JAX
+    ``_make_stream_ring_run_fn``): each call advances the rank's band K
+    steps with one K*PHJ-row exchange and one call of K7's shard form
+    (:func:`shard_step.make_shard_stream_ring`).  The extras, the Shapiro
+    filter, the guard and the stats run between calls, as on one device,
+    over the ring (:class:`_Ring`); an even remainder runs as one shorter
+    call, an odd last step on the per-step 'mega4' ring.
+
+    K is ``stream_steps`` resolved against the cadences, then clamped to
+    at most 4 and to the halo bound ``k_cap`` (K*PHJ <= Hl, even), keeping
+    it a divisor of every cadence (:func:`_cadence_clamp`).  Fewer than 2
+    steps, a grid outside the streaming envelope or shards of fewer than
+    2*PHJ rows run the 'mega4' ring, with JAX's warning."""
+    from gcmiipy_tpu_torch.parallel import shard_step
+
+    ny = mesh.shape.get("y", 1)
+    hl = geom.height // ny if geom.height % ny == 0 else 0
+    k_cap = (hl // shard_step.PHJ) - (hl // shard_step.PHJ) % 2
+    if timesteps < 2 or not stream_grid_supported(geom) or k_cap < 2:
+        warnings.warn(
+            f"sharded backend 'stream' needs >= 2 steps, a grid inside "
+            f"the streaming envelope and shard rows >= 2*PHJ; "
+            f"{timesteps} steps on {geom.height}x{geom.width} over "
+            f"{ny} shards falls back to the 'mega4' ring", stacklevel=3)
+        return make_run_fn(geom, dataclasses.replace(config, backend="mega4"),
+                           timesteps, mesh=mesh)
+    config, K = _resolve_stream_cadence(config, timesteps)
+    # the ring's halo rows are recomputed every call: cap the launch at 4
+    # steps, as the JAX package does
+    K = _cadence_clamp(config, K, min(k_cap, 4))
+    headed = _with_alignment_head(
+        geom, config, timesteps, K,
+        lambda n: _make_stream_ring_run_fn(geom, config, n, mesh),
+        start_step, mesh=mesh)
+    if headed is not None:
+        return headed
+    n_chunks, rem = divmod(timesteps, K)
     rem_even = rem - rem % 2
-    if blown < n_chunks * K:
+    tail_odd = rem % 2
+
+    def make_adv(k):
+        return shard_step.make_shard_stream_ring(
+            mesh, geom, config.dt, steps_per_launch=k,
+            coriolis=config.coriolis, q_limiter=config.q_limiter)
+
+    adv = make_adv(K)
+    adv_rem = make_adv(rem_even) if rem_even else None
+    tail_step = (make_dynamics_step(geom, config, None, mesh=mesh,
+                                    warn_degrade=False) if tail_odd
+                 else None)
+    ring = _Ring(mesh, geom, config)
+    cadenced = (config.physics or config.drag_tau > 0
+                or config.shapiro_every > 0)
+
+    def advance_chunk(state, adv_k, k, host_step):
+        prog = PrognosticVars(*adv_k(*state.prog))
+        utc = state.utc + k * config.dt
+        # the extras see the clock at the start of the call's last step, as
+        # on one device
+        prog, g = ring.cadenced(prog, state.ground, utc - config.dt,
+                                host_step + k, granularity=k)
+        return ModelState(prog, g, utc, state.step + k)
+
+    def chunks(state):
+        """(chunk start, its function) of the run, in order."""
+        at = int(state.step) if cadenced else 0
+        out = [(idx * K, lambda s, i=idx: advance_chunk(s, adv, K, at + i * K))
+               for idx in range(n_chunks)]
+        if rem_even:
+            out.append((n_chunks * K, lambda s: advance_chunk(
+                s, adv_rem, rem_even, at + n_chunks * K)))
+        if tail_odd:
+            out.append((timesteps - 1, lambda s: full_timestep(
+                s, geom, config, None, tail_step, at + timesteps - 1,
+                ring=ring)))
+        return out
+
+    def run(state):
+        stats = []
+        todo = chunks(state)
+        for n, (_, fn) in enumerate(todo):
+            state = fn(state)
+            if config.stats and (n < n_chunks or n == len(todo) - 1):
+                stats.append(ring.stats(state))
+        return state, _stack_stats(stats)
+
+    def run_guarded(state):
+        stats = []
+        ok = torch.ones((), dtype=torch.bool, device=mesh.device)
+        blown = torch.full((), -1, dtype=torch.int32, device=mesh.device)
+        for start, fn in chunks(state):
+            new = fn(state)
+            bad = ring.bad(new)
+            advance = ok & ~bad
+            state = _where_state(advance, new, state)
+            blown = torch.where(ok & bad, torch.full_like(blown, start),
+                                blown)
+            ok = advance
+            if config.stats:
+                stats.append(ring.stats(state))
+        return state, _stack_stats(stats), GuardInfo(ok, blown)
+
+    out = run_guarded if config.guard else run
+    out.chunk_steps = K
+    return out
+
+
+def _blown_chunk_len(blown, n, K, head=0):
+    """Length of the stream call that starts at step offset ``blown`` of an
+    ``n``-step run with launch size ``K`` behind ``head`` per-step
+    alignment steps: K for the main calls, the even remainder for the
+    remainder call, 1 for the odd tail and the head's steps (JAX
+    ``_blown_chunk_len``)."""
+    if blown < head:
+        return 1
+    b, n2 = blown - head, n - head
+    n_chunks, rem = divmod(n2, K)
+    rem_even = rem - rem % 2
+    if b < n_chunks * K:
         return K
-    if rem_even and blown == n_chunks * K:
+    if rem_even and b == n_chunks * K:
         return rem_even
     return 1
 
 
-def localize_blown_step(state, geom, config, max_steps):
+def localize_blown_step(state, geom, config, max_steps, mesh=None):
     """Replay up to ``max_steps`` steps one at a time on the 'mega4' path
-    from the frozen last-good ``state``; returns the 0-based offset of the
-    first bad step, or None when the replay stays healthy (the call-level
-    report then stands)."""
+    (the 'mega4' ring with ``mesh``) from the frozen last-good ``state``;
+    returns the 0-based offset of the first bad step, or None when the
+    replay stays healthy (the call-level report then stands)."""
     cfg = dataclasses.replace(config, backend="mega4", stats=False,
-                              guard=True)
-    gi = make_run_fn(geom, cfg, max_steps)(state)[2]
+                              guard=True, checkpoint_dir=None,
+                              metrics_path=None)
+    gi = make_run_fn(geom, cfg, max_steps, mesh=mesh)(state)[2]
     return None if bool(gi.ok) else int(gi.blown_step)
 
 
@@ -729,24 +1053,28 @@ def gen_model_geometry(config, device="cuda"):
                                  dtype=dtype, device=device, **maps)
 
 
-def _warn_blown(guard_info, config, geom, state, chunk_steps, n_steps):
-    """Warn that the run blew up, naming the first bad step.  A stream run
-    reports the start of its bad call; the call is replayed step by step
-    from the frozen state to name the exact step (the reference's
-    port.py:295-310 names it)."""
+def _warn_blown(guard_info, config, geom, state, chunk_steps, n_steps,
+                base_step=0, head=0, mesh=None):
+    """Warn that the run blew up, naming the first bad step; returns
+    whether it did.  A stream run reports the start of its bad call; the
+    call is replayed step by step from the frozen state to name the exact
+    step (the reference's port.py:295-310 names it).  ``base_step``: the
+    step the run started at; ``head``: its alignment steps."""
     if bool(guard_info.ok):
-        return
+        return False
     causes = ("NaN or surface pressure out of "
               f"[{config.guard_p_min}, {config.guard_p_max}] Pa")
     if config.guard_t_max > 0 or config.guard_t_min > 0:
         causes += (" or potential temperature out of "
                    f"[{config.guard_t_min}, "
                    f"{config.guard_t_max or float('inf')}] K")
-    step = int(guard_info.blown_step)
+    blown = int(guard_info.blown_step)
+    step = base_step + blown
     detail = ""
-    replay = _blown_chunk_len(step, n_steps, chunk_steps) if chunk_steps else 1
+    replay = (_blown_chunk_len(blown, n_steps, chunk_steps, head)
+              if chunk_steps else 1)
     if replay > 1:
-        off = localize_blown_step(state, geom, config, replay)
+        off = localize_blown_step(state, geom, config, replay, mesh=mesh)
         if off is not None:
             step += off
             detail = (" (exact; localized by a per-step replay of the "
@@ -757,10 +1085,72 @@ def _warn_blown(guard_info, config, geom, state, chunk_steps, n_steps):
     warnings.warn(
         f"run blew up ({causes}) at step {step}{detail}; state frozen at "
         "the last good step", RuntimeWarning, stacklevel=3)
+    return True
+
+
+def _log_metrics(config, stats, n_steps=None):
+    """The stats as JSON lines at ``config.metrics_path``, one line a stats
+    entry (a step; a call on 'stream'), written by rank 0 alone (JAX
+    ``_log_metrics``)."""
+    if not (config.metrics_path and stats is not None):
+        return
+    if distributed.rank() != 0:
+        return
+    from gcmiipy_tpu_torch.model.observability import MetricsLogger
+    host = StepStats(*(x.detach().cpu().numpy() for x in stats))
+    n = len(host.total_energy)
+    if n_steps is not None:
+        n = min(n, n_steps)
+    logger = MetricsLogger(config.metrics_path)
+    for i in range(n):
+        logger.log(i, **{k: getattr(host, k)[i] for k in StepStats._fields})
+    logger.close()
+
+
+def _run_checkpointed(geom, config, timesteps, state, mesh):
+    """``run_model``'s chunked loop (JAX ``run_model`` :1233-1283): runs of
+    ``checkpoint_every`` steps, a checkpoint after each, stamped with the
+    last good step when the guard froze the run (which then stops).  A
+    'stream' run with cadenced extras rounds ``checkpoint_every`` to a
+    multiple of its launch size, with a warning, so that every chunk starts
+    aligned."""
+    from gcmiipy_tpu_torch.model.checkpoint import save_checkpoint
+    every = config.checkpoint_every
+    run_chunk = make_run_fn(geom, config, every, mesh=mesh)
+    K = getattr(run_chunk, "chunk_steps", 1)
+    cadenced = (config.physics or config.drag_tau > 0
+                or config.shapiro_every > 0)
+    if K > 1 and cadenced and every % K:
+        new_every = max(K, every - every % K)
+        warnings.warn(
+            f"checkpoint_every={every} is not a multiple of the stream "
+            f"launch size K={K}; rounding to {new_every} so cadenced "
+            "extras stay chunk-aligned", stacklevel=3)
+        every = new_every
+        run_chunk = make_run_fn(geom, config, every, mesh=mesh)
+    stats, done = None, 0
+    while done < timesteps:
+        n = min(every, timesteps - done)
+        run_n = (run_chunk if n == every else
+                 make_run_fn(geom, config, n, mesh=mesh, start_step=done))
+        out = run_n(state)
+        state = out[0]
+        stats = _cat_stats(stats, out[1])
+        done += n
+        blown = config.guard and not bool(out[2].ok)
+        good_step = done - n + int(out[2].blown_step) if blown else done
+        save_checkpoint(config.checkpoint_dir, state, good_step, mesh=mesh)
+        if blown and _warn_blown(out[2], config, geom, state,
+                                 getattr(run_n, "chunk_steps", None), n,
+                                 base_step=done - n,
+                                 head=getattr(run_n, "head_steps", 0),
+                                 mesh=mesh):
+            break
+    return state, stats, done
 
 
 def run_model(height, width, layers, dt, timesteps, callback=None,
-              config: ModelConfig = None, device="cuda"):
+              config: ModelConfig = None, device="cuda", mesh=None):
     """Reference-compatible entry point (reference no_limits_2_5d.py:220-236).
 
     Returns (p, u, v, t, q, ground, geom, stats), tensors on ``device``;
@@ -770,7 +1160,21 @@ def run_model(height, width, layers, dt, timesteps, callback=None,
     runs without the guard, as in the JAX driver.  With ``config.guard`` a
     run that blows up stops advancing and a RuntimeWarning names the first
     bad step.  ``device`` defaults to the GPU; a missing GPU raises.
+
+    With ``config.checkpoint_dir`` and ``checkpoint_every`` the run goes in
+    chunks with a checkpoint after each (:func:`_run_checkpointed`); with
+    ``config.metrics_path`` the stats are written as JSON lines.
+
+    With ``mesh`` (a lat ring, :func:`mesh.make_mesh`) every rank calls
+    ``run_model``: each steps its own band of rows on the mesh's device,
+    the guard, the stats and the checkpoints span the ring, and every rank
+    receives the full fields.
     """
+    if mesh is not None:
+        if callback is not None:
+            raise ValueError("mesh runs use the run function; callback is "
+                             "not supported")
+        device = mesh.device
     device = resolve_device(device)
     if config is None:
         config = ModelConfig(height=height, width=width, layers=layers, dt=dt)
@@ -778,16 +1182,27 @@ def run_model(height, width, layers, dt, timesteps, callback=None,
         config = dataclasses.replace(config, height=height, width=width,
                                      layers=layers, dt=dt)
     config = normalize_config(config)
+    if mesh is not None:
+        check_mesh(mesh, config)
     geom = gen_model_geometry(config, device)
     state = gen_model_state(geom, config)
+    if mesh is not None:
+        state = mesh_mod.shard_state(state, mesh)
 
-    if callback is None:
-        run = make_run_fn(geom, config, timesteps)
+    if callback is None and config.checkpoint_dir \
+            and config.checkpoint_every > 0:
+        state, stats, done = _run_checkpointed(geom, config, timesteps,
+                                               state, mesh)
+        _log_metrics(config, stats, done)
+    elif callback is None:
+        run = make_run_fn(geom, config, timesteps, mesh=mesh)
         out = run(state)
         state, stats = out[0], out[1]
         if config.guard:
             _warn_blown(out[2], config, geom, state,
-                        getattr(run, "chunk_steps", None), timesteps)
+                        getattr(run, "chunk_steps", None), timesteps,
+                        head=getattr(run, "head_steps", 0), mesh=mesh)
+        _log_metrics(config, stats, timesteps)
     else:
         filter_fn = make_filter_fn(config, geom)
         dynamics_step = make_dynamics_step(geom, config, filter_fn)
@@ -801,5 +1216,7 @@ def run_model(height, width, layers, dt, timesteps, callback=None,
             callback(*state.prog)
         stats = _stack_stats(stats_list)
 
+    if mesh is not None:
+        state = mesh_mod.gather_state(state, mesh)
     prog, ground = state.prog, state.ground
     return prog.p, prog.u, prog.v, prog.t, prog.q, ground, geom, stats

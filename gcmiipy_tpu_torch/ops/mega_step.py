@@ -16,7 +16,14 @@ corrector repeats it on (base, starred).
   version on CPU tensors and launches ``csrc/mega_step.cu`` on CUDA
   tensors, or raises.
 
-``mega_step.launches`` counts the calls that launched the kernel; each adds
+:func:`mega_step_shard` is K6's shard form (JAX ``make_mega_step_kernel(
+local_height=, geom_as_args=True)``): the same kernel on a lat-ring shard's
+block of rows, with the block's row tables and the global wall
+(:class:`MegaStep` with ``rows``; :mod:`gcmiipy_tpu_torch.parallel.shard_step`
+runs it).
+
+``mega_step.launches`` and ``mega_step_shard.launches`` count the calls
+that launched the kernel; each adds
 to ``pgf_rest.pgf_tile.launches``, ``fft_filter.launches`` and
 ``pgf_rest.rest_stencil.launches`` the launches of the pgf tile, the
 filter and the rest tile that its C entry counted (two each: six a
@@ -58,13 +65,20 @@ class FilterConsts(NamedTuple):
     keep: torch.Tensor
 
 
-def build_filter_consts(geom):
-    """:class:`FilterConsts` of ``geom`` on its device."""
+def build_filter_consts(geom, rows=None):
+    """:class:`FilterConsts` of ``geom`` on its device.  With ``rows`` (a
+    lat-ring shard's block, :meth:`Geom.take_rows`), those of the block:
+    its rows' mask and listed latitudes, and ``keep`` 0 where the block
+    holds the global wall row H-1 (in the core of the last shard and the
+    halo of the first), not on the block's own last row."""
     H = geom.height
-    keep = torch.ones((H, 1), dtype=geom.polar_mask.dtype)
-    keep[H - 1, 0] = 0.0
+    wall = np.arange(H) == H - 1
+    if rows is not None:
+        geom, wall = geom.take_rows(rows), wall[np.asarray(rows)]
+    keep = torch.as_tensor((~wall).astype(np.float64)[:, None])
     return FilterConsts(*fft.build_fft_consts(geom),
-                        keep.to(geom.polar_mask.device))
+                        keep.to(dtype=geom.polar_mask.dtype,
+                                device=geom.polar_mask.device))
 
 
 class BandedConsts(NamedTuple):
@@ -223,7 +237,44 @@ def mega_step(p, u, v, t, q, dt, geom, fc, coriolis=False, q_limiter=False):
     if on_cpu("mega_step", fields):
         return mega_step_ref(*fields, dt, geom, fc, coriolis=coriolis,
                              q_limiter=q_limiter)
-    _check(fields, geom, fc)
+    outs = _launch("mega_step", fields, dt, geom, fc, coriolis, q_limiter)
+    mega_step.launches += 1
+    return outs
+
+
+mega_step.launches = 0
+
+
+def mega_step_shard(p, u, v, t, q, dt, block_geom, fc, coriolis=False,
+                    q_limiter=False):
+    """K6's shard form (JAX ``make_mega_step_kernel(local_height=,
+    geom_as_args=True)``, ``pallas_stencil.py:1340``, :1359-1373, :1556):
+    one Matsuno step of a lat-ring shard's block, its Hl core rows and
+    PHJ = 8 halo rows above and below from the ring neighbours.  It is K6
+    with the block as its grid: ``block_geom`` holds the block's row tables
+    (:meth:`Geom.take_rows`) and ``fc`` the block's filter buffers with the
+    global wall (:func:`build_filter_consts` with ``rows``).  The kernel's
+    rows wrap modulo the block's height, which spoils only the halo rows
+    within a step's reach (8) of the block's edges: the core rows are the
+    whole globe's.  ``mega_step_shard.launches`` counts its launches."""
+    fields = (p, u, v, t, q)
+    if on_cpu("mega_step_shard", fields):
+        return mega_step_ref(*fields, dt, block_geom, fc, coriolis=coriolis,
+                             q_limiter=q_limiter)
+    outs = _launch("mega_step_shard", fields, dt, block_geom, fc, coriolis,
+                   q_limiter)
+    mega_step_shard.launches += 1
+    return outs
+
+
+mega_step_shard.launches = 0
+
+
+def _launch(kernel, fields, dt, geom, fc, coriolis, q_limiter):
+    """K6's launch on CUDA tensors (checked), with the stage launches added
+    to their counts; raises if the launch fails."""
+    _check(fields, geom, fc, kernel)
+    p = fields[0]
     device = p.device
     fn = _library(p.dtype == torch.float64)
     L, H, W = geom.layers, geom.height, geom.width
@@ -245,23 +296,25 @@ def mega_step(p, u, v, t, q, dt, geom, fc, coriolis=False, q_limiter=False):
                  torch.cuda.current_stream(device).cuda_stream)
     add_stage_launches(counts)
     if err != 0:
-        raise RuntimeError(f"mega_step kernel launch failed: CUDA error {err}")
-    mega_step.launches += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     return tuple(outs)
-
-
-mega_step.launches = 0
 
 
 class MegaStep(torch.nn.Module):
     """The 'mega4' step of one geometry: ``MegaStep(geom, dt)(p, u, v, t,
-    q)`` runs :func:`mega_step` with the filter buffers it holds."""
+    q)`` runs :func:`mega_step` with the filter buffers it holds.  With
+    ``rows`` (global row indices of a lat-ring shard's block) it is K6's
+    shard form: ``self.geom`` is the block's geometry, the buffers the
+    block's (:func:`build_filter_consts`), and ``forward`` runs
+    :func:`mega_step_shard` on the block's fields."""
 
-    def __init__(self, geom, dt, coriolis=False, q_limiter=False):
+    def __init__(self, geom, dt, coriolis=False, q_limiter=False, rows=None):
         super().__init__()
-        self.geom, self.dt = geom, float(dt)
+        self.shard = rows is not None
+        self.geom = geom.take_rows(rows) if self.shard else geom
+        self.dt = float(dt)
         self.coriolis, self.q_limiter = bool(coriolis), bool(q_limiter)
-        for name, x in build_filter_consts(geom)._asdict().items():
+        for name, x in build_filter_consts(geom, rows)._asdict().items():
             self.register_buffer(name, x)
 
     @property
@@ -269,5 +322,6 @@ class MegaStep(torch.nn.Module):
         return FilterConsts(*(getattr(self, n) for n in FilterConsts._fields))
 
     def forward(self, p, u, v, t, q):
-        return mega_step(p, u, v, t, q, self.dt, self.geom, self.consts,
-                         coriolis=self.coriolis, q_limiter=self.q_limiter)
+        step = mega_step_shard if self.shard else mega_step
+        return step(p, u, v, t, q, self.dt, self.geom, self.consts,
+                    coriolis=self.coriolis, q_limiter=self.q_limiter)

@@ -20,6 +20,10 @@ at the clock ``utc0 + s*dt``.  k is even, so the state ends in buffer 0.
   launches of the pgf tile, the filter and the rest tile that its C
   entry counted (2k each), and to ``column_physics.launches`` the
   epilogue's (k with the physics).
+* :func:`stream_steps_shard` is K7's shard form (JAX ``make_stream_kernel(
+  local_height=, geom_as_args=True)``): the same kernel without the
+  epilogue on a lat-ring shard's block (:class:`StreamSteps` with
+  ``rows``); ``stream_steps_shard.launches`` counts its calls.
 * :func:`column_physics` is the epilogue alone (C entry
   ``gcm_column_physics``), with the arguments of
   :func:`physics_epilogue_ref`, its plain version;
@@ -257,19 +261,59 @@ def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
     if on_cpu("stream_steps", (S, utc0)):
         return stream_steps_ref(S, utc0, k, dt, geom, fc, coriolis=coriolis,
                                 q_limiter=q_limiter, physics=physics)
+    _launch("stream_steps", S, utc0, k, dt, geom, fc, coriolis, q_limiter,
+            physics, table, scratch)
+    stream_steps.launches += 1
+    return S
+
+
+stream_steps.launches = 0
+
+
+def stream_steps_shard(S, k, dt, block_geom, fc, coriolis=False,
+                       q_limiter=False, scratch=None):
+    """K7's shard form (JAX ``make_stream_kernel(local_height=,
+    geom_as_args=True)``, ``pallas_stream.py:108``, :153-166, :587-592,
+    :668-684): ``k`` steps of a lat-ring shard's block, its Hl core rows
+    and k*PHJ halo rows above and below, in place.  It is K7 with the
+    block as its grid (``block_geom``: :meth:`Geom.take_rows`; ``fc``: the
+    block's filter buffers with the global wall,
+    :func:`mega_step.build_filter_consts` with ``rows``).  Each step spoils
+    PHJ = 8 more rows inward from the block's edges, where its rows wrap,
+    so after k steps the core is the whole globe's.  No physics epilogue:
+    the JAX kernel refuses ``physics`` with ``geom_as_args``, and the
+    ring's extras run between calls.  ``stream_steps_shard.launches``
+    counts its launches."""
+    utc0 = torch.zeros((), dtype=S.dtype, device=S.device)
+    if on_cpu("stream_steps_shard", (S,)):
+        return stream_steps_ref(S, utc0, k, dt, block_geom, fc,
+                                coriolis=coriolis, q_limiter=q_limiter)
+    _launch("stream_steps_shard", S, utc0, k, dt, block_geom, fc, coriolis,
+            q_limiter, None, None, scratch)
+    stream_steps_shard.launches += 1
+    return S
+
+
+stream_steps_shard.launches = 0
+
+
+def _launch(kernel, S, utc0, k, dt, geom, fc, coriolis, q_limiter, physics,
+            table, scratch):
+    """K7's launch on CUDA tensors (checked), with the stage and epilogue
+    launches added to their counts; raises if the launch fails."""
     device = S.device
     _check_steps(S, k, geom, physics)
     if not S.is_contiguous():
-        raise ValueError("stream_steps: S is not contiguous")
+        raise ValueError(f"{kernel}: S is not contiguous")
     if (utc0.device != device or utc0.dtype != S.dtype or utc0.dim() != 0):
-        raise ValueError(f"stream_steps: utc0 must be a 0-dim {S.dtype} "
+        raise ValueError(f"{kernel}: utc0 must be a 0-dim {S.dtype} "
                          f"tensor on {device}")
-    check_filter_args(unpack_state(S[0], geom.layers), geom, fc)
-    _check_lat_lon("stream_steps", geom, S.dtype, device)
+    check_filter_args(unpack_state(S[0], geom.layers), geom, fc, kernel)
+    _check_lat_lon(kernel, geom, S.dtype, device)
     if physics is not None:
         if table is None:
             table = physics_table(physics, dt, device)
-        _check_table("stream_steps", table, device)
+        _check_table(kernel, table, device)
     if scratch is None:
         scratch = new_scratch(geom, S.dtype, device)
     fn = _function("gcm_stream_steps", S.dtype == torch.float64)
@@ -289,13 +333,7 @@ def stream_steps(S, utc0, k, dt, geom, fc, coriolis=False, q_limiter=False,
     add_stage_launches(counts[:3])
     column_physics.launches += counts[3].value
     if err != 0:
-        raise RuntimeError(
-            f"stream_steps kernel launch failed: CUDA error {err}")
-    stream_steps.launches += 1
-    return S
-
-
-stream_steps.launches = 0
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
 def column_physics(p, u, v, t, gt, utc_s, geom, dt, ph, table=None):
@@ -353,11 +391,17 @@ class StreamSteps(MegaStep):
     physics=...)(S, utc0, k)`` runs :func:`stream_steps` with the filter
     buffers of :class:`MegaStep`, the physics table and the scratch it
     holds (both made at the first call on a card and reused by every later
-    one)."""
+    one).  With ``rows`` (a lat-ring shard's block) it runs
+    :func:`stream_steps_shard` on the block, which takes no physics."""
 
     def __init__(self, geom, dt, coriolis=False, q_limiter=False,
-                 physics=None):
-        super().__init__(geom, dt, coriolis=coriolis, q_limiter=q_limiter)
+                 physics=None, rows=None):
+        if rows is not None and physics is not None:
+            raise ValueError("K7's shard form has no physics epilogue (as "
+                             "the JAX kernel refuses physics with "
+                             "geom_as_args); run the extras between calls")
+        super().__init__(geom, dt, coriolis=coriolis, q_limiter=q_limiter,
+                         rows=rows)
         self.physics = physics
         self.scratch = self.table = None
 
@@ -370,6 +414,11 @@ class StreamSteps(MegaStep):
                 self.table = (None if self.physics is None else
                               physics_table(self.physics, self.dt, S.device))
             scratch, table = self.scratch, self.table
+        if self.shard:
+            return stream_steps_shard(S, k, self.dt, self.geom, self.consts,
+                                      coriolis=self.coriolis,
+                                      q_limiter=self.q_limiter,
+                                      scratch=scratch)
         return stream_steps(S, utc0, k, self.dt, self.geom, self.consts,
                             coriolis=self.coriolis, q_limiter=self.q_limiter,
                             physics=self.physics, table=table,

@@ -116,13 +116,24 @@ def test_stats_off_returns_none():
     assert out[7] is None
 
 
-@pytest.mark.parametrize("field,value", [
-    ("stream_wide_native", True), ("checkpoint_dir", "ck"),
-    ("checkpoint_every", 5), ("metrics_path", "metrics.jsonl")])
+@pytest.mark.parametrize("field,value", [("stream_wide_native", True)])
 def test_unported_features_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         driver.run_model(8, 8, 3, 1800.0, 1, device="cpu",
                          config=ModelConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("checkpoint_dir", "ck"), ("checkpoint_every", 5),
+    ("metrics_path", "metrics.jsonl")])
+def test_run_services_are_ported(field, value, tmp_path, monkeypatch):
+    """The run services check_ported refused until they were ported run,
+    each alone, and leave the fields equal to JAX's run within 1e-10
+    (float64, 4 steps; tests/test_torch_checkpoint.py covers them)."""
+    monkeypatch.chdir(tmp_path)
+    port, ref = _both((8, 8, 3, 1800.0, 4), dtype="float64",
+                      **{field: value})
+    _compare(port, ref, 1e-10, 1e-10)
 
 
 @pytest.mark.parametrize("field,value,extra", [

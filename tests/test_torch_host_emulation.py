@@ -323,3 +323,61 @@ def test_stream_steps_source_matches_plain_version(build_dir):
                               coriolis=True, physics=ph,
                               filter_ref=lambda X: fft_filter_ref(X, fc))
     assert _scaled_err(list(out[0]), list(ref[0])) <= 1e-11
+
+
+@pytest.mark.parametrize("shard", [0, 3])
+def test_mega_step_shard_source_matches_plain_version(build_dir, shard):
+    """K6's shard form on one rank's block of a ring of 4 (8 core rows and
+    PHJ = 8 halo rows a side, the block's row tables, the wall from the
+    global row: in the halo of shard 0, in the core of shard 3), against
+    its plain version on the block, and its core rows against K6 on the
+    whole globe to the bit."""
+    from gcmiipy_tpu_torch.parallel.mesh import block_rows
+    geom = _geom((3, 32, 36), True)
+    state = random_prognostics(geom, 71)
+    rows = block_rows(32, 4, shard, 8)
+    step = ms.MegaStep(geom, DT, coriolis=True, rows=rows)
+    block = [x[..., rows, :].contiguous() for x in state]
+    before = ms.mega_step_shard.launches
+    with kernels_on_cpu(build_dir):
+        out = step(*block)
+        whole = ms.MegaStep(geom, DT, coriolis=True)(*state)
+    assert ms.mega_step_shard.launches == before + 1
+    fc = step.consts
+    ref = ms.mega_step_ref(*block, DT, step.geom, fc, coriolis=True,
+                           filter_ref=lambda X: fft_filter_ref(X, fc))
+    assert _scaled_err(out, ref) <= 1e-11
+    core = slice(8, 16)
+    for a, b in zip(out, whole):
+        assert torch.equal(a[..., core, :],
+                           b[..., shard * 8:(shard + 1) * 8, :])
+    assert bool((out[2][:, rows == 31] == 0).all())
+
+
+@pytest.mark.parametrize("shard", [0, 3])
+def test_stream_steps_shard_source_matches_plain_version(build_dir, shard):
+    """K7's shard form (2 steps, no physics) on one rank's block of a ring
+    of 4 (16 core rows and 2*PHJ halo rows a side), against its plain
+    version on the block, and its core rows against K7 on the whole globe
+    to the bit."""
+    from gcmiipy_tpu_torch.parallel.mesh import block_rows
+    L, H, W = 3, 64, 36
+    geom = _geom((L, H, W), True)
+    packed = ss.pack_state(*random_prognostics(geom, 72))
+    S = torch.stack([packed, torch.zeros_like(packed)])
+    rows = block_rows(H, 4, shard, 16)
+    multi = ss.StreamSteps(geom, DT, coriolis=True, rows=rows)
+    block = S[:, :, rows].contiguous()
+    before = ss.stream_steps_shard.launches
+    utc0 = torch.zeros((), dtype=torch.float64)
+    with kernels_on_cpu(build_dir):
+        out = multi(block.clone(), None, 2)
+        whole = ss.StreamSteps(geom, DT, coriolis=True)(S.clone(), utc0, 2)
+    assert ss.stream_steps_shard.launches == before + 1
+    fc = multi.consts
+    ref = ss.stream_steps_ref(block.clone(), utc0, 2, DT, multi.geom, fc,
+                              coriolis=True,
+                              filter_ref=lambda X: fft_filter_ref(X, fc))
+    assert _scaled_err(list(out[0]), list(ref[0])) <= 1e-11
+    assert torch.equal(out[0][:, 16:32],
+                       whole[0][:, shard * 16:(shard + 1) * 16])
