@@ -79,6 +79,24 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            sharing one card over gloo: not a scaling figure); a
 #            checkpointed ring run restores into a single-device run with the
 #            same fields; torchrun runs the CLI on 4 ranks once;
+#   mesh2d   the 2D (lat x lon) mesh and the ring's last forms, 4 ranks on
+#            the card again: K3's and K4's shard forms (pgf_parts_shard,
+#            rest_parts_shard) on each rank's 2x2 block (262 x 518) to the
+#            bit, K5's (mega_half_shard) on its ring block and K6 on
+#            fused4's overlap strips against their plain versions;
+#            run_model(512, 1024, 9, 30.0, 20, mesh=2x2) on 'mega4'
+#            (fused2d: K3, the spectral-psum filter, K4, twice a step,
+#            counted) against the single-device plain core with the DFT
+#            filter, and from the perturbed start 'mega4' and 'xla' on 2x2
+#            and 'xla' on 1x4 (1 and 20 steps, tpu_parity.py's bounds;
+#            float64 at 3 layers, 2 steps, within 1e-9); 'stream' on 2x2
+#            (JAX's warning, mega4's fields to the bit); K5's ring
+#            (make_shard_step_fused) against single-device 'mega' and
+#            fused4 overlap=True against the one-kernel ring, to the bit
+#            and timed; a checkpointed 2x2 run resumed to the bit; the 2x2
+#            loop timed, its parts timed on every rank at once and rank
+#            0's step profiled; stream_wide_native at 9x512x4096 against
+#            mega4 to the bit; torchrun of the CLI with --mesh-shape 2,2;
 #   timing   ms/step of the backends, mega4 and stream also with the
 #            physics and with Config S (over the terrain from phase
 #            surface's start), mega4 also with the physics every 4th step (windows
@@ -95,7 +113,10 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            with the launches the C entries of K3 and K5-K7 counted, and a
 #            row for the epilogue alone (csrc/column_physics.cuh), launched
 #            in place as K7 does; rows for K6's and K7's shard forms on rank
-#            0's block with the launches rank 0 counted in phase ring.
+#            0's block with the launches rank 0 counted in phase ring, and
+#            for K3's, K4's and K5's shard forms, K6 on the overlap strips
+#            and the spectral-psum filter stage on rank 0's blocks with the
+#            launches rank 0 counted in phase mesh2d.
 # The line before the last is the kernels JSON, the last the result JSON.
 # Imports nothing of JAX: the card's machine needs none.
 
@@ -178,6 +199,13 @@ WATER_REL = 1e-5
 # the bands, then across the ranks, in another order than one sum)
 RING, RING_K, RING_DEADLINE_S = 4, 4, 600
 RING_REL, RING_STATS_REL = 1e-6, 1e-5
+# phase mesh2d: its float64 runs (3 layers of the main grid, 2 steps) against
+# the single-device plain core within MULTICHIP_r05.json's bound; the
+# stream_wide_native check at the flagship height and 4096 columns
+MESH2D_REL64 = 1e-9
+PSUM_REL = 1e-6  # the psum filter's float32 result, of the field's scale
+MESH2D_F64 = dict(layers=3, steps=2)
+WIDE = dict(height=512, width=4096, layers=9, dt=30.0, steps=4)
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1601,12 +1629,14 @@ def free_port():
         return s.getsockname()[1]
 
 
-def ring_rank(rank, world, port, device_type, tmp, out):
-    """One rank of phase ring; puts (rank, traceback or None, results)."""
+def ring_rank(rank, world, port, device_type, tmp, out, work="ring"):
+    """One rank of phase ``work`` (ring or mesh2d); puts (rank, traceback
+    or None, results)."""
     import traceback
+    works = {"ring": _ring_work, "mesh2d": _mesh2d_work}
     try:
-        out.put((rank, None, _ring_work(rank, world, port, device_type,
-                                        tmp)))
+        out.put((rank, None, works[work](rank, world, port, device_type,
+                                         tmp)))
     except BaseException:  # a rank's failure (fail() exits) fails the phase
         out.put((rank, traceback.format_exc(), None))
         raise
@@ -1745,6 +1775,47 @@ def _ring_work(rank, world, port, device_type, tmp):
     return res
 
 
+def _spawn_ranks(phase, device):
+    """RING ranks spawned on the one card, each running phase ``phase``'s
+    work (ring_rank) within RING_DEADLINE_S; their results by rank.  The
+    ranks are joined, and killed if they hang, before it returns."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    tmp = tempfile.mkdtemp(prefix=f"gcm_{phase}_")
+    procs = [ctx.Process(target=ring_rank, args=(r, RING, port, device.type,
+                                                 tmp, out, phase))
+             for r in range(RING)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, end = {}, time.monotonic() + RING_DEADLINE_S
+    try:
+        while len(results) < RING:
+            try:
+                rank, err, res = out.get(timeout=max(1.0, end - time.monotonic()))
+            except queue.Empty:
+                fail(phase, f"ranks {sorted(set(range(RING)) - set(results))}"
+                            f" missed the {RING_DEADLINE_S} s deadline")
+            if err is not None:
+                fail(phase, f"rank {rank} failed:\n{err}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(phase, f"{RING} ranks in {time.perf_counter() - t:.1f}s, backend "
+               f"{results[0]['backend']} on {results[0]['device']}")
+    return results
+
+
 def phase_ring(device):
     """The lat ring: RING ranks spawned on the one card (gloo: NCCL refuses
     ranks that share a card), after phase build, so that no rank builds.
@@ -1758,40 +1829,7 @@ def phase_ring(device):
     over gloo: not a scaling figure).  A checkpointed ring run (every 10
     steps) restores into a single-device run that gives the same fields.
     Then torchrun runs the CLI on RING ranks.  Returns rank 0's results."""
-    import multiprocessing as mp
-    import queue
-    import shutil
-    import tempfile
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    port = free_port()
-    tmp = tempfile.mkdtemp(prefix="gcm_ring_")
-    procs = [ctx.Process(target=ring_rank, args=(r, RING, port, device.type,
-                                                 tmp, out))
-             for r in range(RING)]
-    t = time.perf_counter()
-    for p in procs:
-        p.start()
-    results, end = {}, time.monotonic() + RING_DEADLINE_S
-    try:
-        while len(results) < RING:
-            try:
-                rank, err, res = out.get(timeout=max(1.0, end - time.monotonic()))
-            except queue.Empty:
-                fail("ring", f"ranks {sorted(set(range(RING)) - set(results))}"
-                             f" missed the {RING_DEADLINE_S} s deadline")
-            if err is not None:
-                fail("ring", f"rank {rank} failed:\n{err}")
-            results[rank] = res
-    finally:
-        for p in procs:
-            p.join(30)
-            if p.is_alive():
-                p.kill()
-                p.join()
-        shutil.rmtree(tmp, ignore_errors=True)
-    log("ring", f"{RING} ranks in {time.perf_counter() - t:.1f}s, backend "
-                f"{results[0]['backend']} on {results[0]['device']}")
+    results = _spawn_ranks("ring", device)
     n, K = MAIN["steps"], RING_K
     want = {"stream": dict(mega_step_shard=0, stream_steps_shard=n // K,
                            pgf_tile=2 * n, fft_filter=2 * n,
@@ -1852,6 +1890,638 @@ def phase_ring(device):
     return results[0]
 
 
+def _f64_case(device):
+    """The float64 case of phase mesh2d: 3 layers of the main grid, its
+    geometry and a perturbed start (random_state's recipe, seed 5)."""
+    import dataclasses
+    from gcmiipy_tpu_torch.model.driver import gen_model_geometry, gen_model_state
+    from gcmiipy_tpu_torch.model.state import PrognosticVars
+    cfg = dataclasses.replace(_config("xla"), layers=MESH2D_F64["layers"],
+                              dtype="float64")
+    geom = gen_model_geometry(cfg, device)
+    state = gen_model_state(geom, cfg)
+    return cfg, geom, state._replace(prog=PrognosticVars(
+        *random_state(geom, 5, device, torch.float64)))
+
+
+def _mesh2d_blocks(m22, ring):
+    """K3's and K4's shard forms on this rank's block of the 2x2 mesh (its
+    256 x 512 core and a halo of EX = 3: 262 x 518) against their plain
+    versions to the bit, float32 at the main path's shape and float64 at 3
+    layers, flat and with a hill, K4 with Coriolis and the q limiter, each
+    launch counted; K5's shard form on this rank's block of the lat ring
+    (Hl + 16 rows) against its plain version with the kernel's FFT plan and
+    the banded DFT (held_to_plain), both types.  Returns the largest
+    float32 absolute errors."""
+    from gcmiipy_tpu_torch.ops import pgf_rest as pr
+    from gcmiipy_tpu_torch.ops.mega_half import MegaHalf, mega_half_ref
+    from gcmiipy_tpu_torch.ops.mega_step import MegaStep, mega_step_ref
+    from gcmiipy_tpu_torch.parallel import shard_step as ss
+    from gcmiipy_tpu_torch.parallel.mesh import block_cols, block_rows
+    from gcmiipy_tpu_torch.parallel.shard_step import EX, PHJ
+    H, W, dt = MAIN["height"], MAIN["width"], MAIN["dt"]
+    errs, cases = {}, 0
+    for L, dtype in ((MAIN["layers"], torch.float32), (3, torch.float64)):
+        for hill in (False, True):
+            geom, base, seval, filt, pg_phiv = k3k4_inputs(
+                (L, H, W), dtype, hill, m22.device)
+            rows = block_rows(H, m22.ny, m22.index, EX)
+            cols = block_cols(W, m22.nx, m22.x_index, EX)
+            bgeom = geom.take_block(rows, cols)
+
+            def blk(a):
+                return a[..., rows, :][..., cols].contiguous()
+
+            tag = (f"rank {m22.index * m22.nx + m22.x_index} block "
+                   f"{len(rows)}x{len(cols)}x{L} {str(dtype)[6:]} hill={hill}")
+            k3 = (blk(seval[0]), blk(seval[1]), blk(seval[3]), bgeom)
+            before = pr.pgf_parts_shard.launches
+            out = pr.pgf_parts_shard(*k3)
+            torch.cuda.synchronize()
+            ref = pr.pgf_parts_ref(*k3)
+            _bits(f"pgf_parts_shard {tag}", out, ref, pr.pgf_parts_shard,
+                  before)
+            if dtype == torch.float32:
+                errs["k3"] = max(errs.get("k3", 0.0), abs_err(out, ref))
+            k4 = (*map(blk, base), *map(blk, seval), blk(filt),
+                  blk(pg_phiv), dt, bgeom)
+            before = pr.rest_parts_shard.launches
+            out = pr.rest_parts_shard(*k4, coriolis=True, q_limiter=True)
+            torch.cuda.synchronize()
+            ref = pr.rest_parts_ref(*k4, coriolis=True, q_limiter=True)
+            _bits(f"rest_parts_shard {tag}", out, ref, pr.rest_parts_shard,
+                  before)
+            if dtype == torch.float32:
+                errs["k4"] = max(errs.get("k4", 0.0), abs_err(out, ref))
+            cases += 1
+        geom, base = k6_inputs((L, H, W), dtype, True, ring.device)
+        seval = random_state(geom, 3, ring.device, dtype)
+        rows = block_rows(H, ring.ny, ring.index, PHJ)
+        half = MegaHalf(geom, dt, coriolis=True, rows=rows)
+        bb = [x[..., rows, :].contiguous() for x in base]
+        bs = [x[..., rows, :].contiguous() for x in seval]
+        out = half(bb, bs)
+        torch.cuda.synchronize()
+        if not bool((out[2][:, torch.as_tensor(rows == H - 1)] == 0).all()):
+            fail("mesh2d", "mega_half_shard: v not 0 on the global wall row")
+        plain = {name: mega_half_ref(bb, bs, dt, half.geom, half.consts,
+                                     coriolis=True, filter_ref=f)
+                 for name, f in (("FFT plan", fft_plan(half.consts)),
+                                 ("banded DFT", None))}
+        _, err = held_to_plain(
+            f"rank {ring.index} mega_half_shard block {len(rows)}x{W}x{L} "
+            f"{str(dtype)[6:]}", out, plain, MEGA_REL[dtype],
+            banded_bound(dtype, MEGA_REL[dtype]))
+        if dtype == torch.float32:
+            errs["k5"] = err
+            # K6 on fused4's overlap strips of this rank's band
+            _, strips = ss._strips(H // ring.ny, 32, True)
+            for lo, lh in strips:
+                srows = np.arange(ring.index * (H // ring.ny) + lo - PHJ,
+                                  ring.index * (H // ring.ny) + lo + lh
+                                  + PHJ) % H
+                step = MegaStep(geom, dt, coriolis=True, rows=srows)
+                sb = [x[..., srows, :].contiguous() for x in base]
+                out = step(*sb)
+                torch.cuda.synchronize()
+                plain = {name: mega_step_ref(*sb, dt, step.geom, step.consts,
+                                             coriolis=True, filter_ref=f)
+                         for name, f in (("FFT plan", fft_plan(step.consts)),
+                                         ("banded DFT", None))}
+                _, err = held_to_plain(
+                    f"rank {ring.index} mega_step_shard strip {len(srows)}x"
+                    f"{W}x{L}", out, plain, MEGA_REL[dtype], MEGA_REL[dtype])
+                errs["k6_strips"] = max(errs.get("k6_strips", 0.0), err)
+    log("mesh2d", f"pgf_parts_shard and rest_parts_shard equal their plain "
+                  f"versions to the bit on this rank's block in {cases} cases "
+                  "each")
+    return errs
+
+
+def _profile_split(step, band, steps, device):
+    """Rank 0's split of ``steps`` calls of ``step`` (torch.profiler's
+    device activity, after one warm-up call in the same session): device
+    ms a step of the pgf tile (K3), the rest tile (K4), the float64
+    matmuls (the spectral-psum filter), the host-device copies (gloo's
+    staging) and the other kernels, and wall ms a step; the other ranks
+    run the same 1 + ``steps`` steps unprofiled.  The host's collectives
+    are timed by _mesh2d_parts.  The session's first start in a process
+    costs about 8 s (chip call 7, PR 14)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from gcmiipy_tpu_torch.step_profile import _device_us
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps,
+                                   repeat=1)) as prof:
+        for k in range(1 + steps):
+            if k == 1:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            band = step(*band)
+            if k == steps:
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t) / steps
+            prof.step()
+    split = dict.fromkeys(("pgf_tile", "tile_stencil", "gemm", "memcpy",
+                           "other kernels"), 0.0)
+    for e in prof.key_averages():
+        key = e.key.lower()
+        # the step markers are annotations on the device's timeline
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or key.startswith("profilerstep")
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        name = next((k for k in ("pgf_tile", "tile_stencil", "memcpy")
+                     if k in key), None)
+        if name is None:
+            name = "gemm" if "gemm" in key else "other kernels"
+        split[name] += _device_us(e) / 1e3 / steps
+    split["wall"] = wall
+    return split
+
+
+def _mesh2d_work(rank, world, port, device_type, tmp):
+    """Phase mesh2d's work on one rank (see phase_mesh2d)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from gcmiipy_tpu_torch.dynamics import fused
+    from gcmiipy_tpu_torch.model import checkpoint
+    from gcmiipy_tpu_torch.model.driver import (
+        gen_model_geometry, make_run_fn, run_model)
+    from gcmiipy_tpu_torch.ops import mega_half as mh, mega_step as ms
+    from gcmiipy_tpu_torch.ops import pgf_rest as pr
+    from gcmiipy_tpu_torch.parallel import distributed, mesh as mesh_mod
+    from gcmiipy_tpu_torch.parallel import shard_step as ss
+    distributed.initialize(f"127.0.0.1:{port}", world, rank,
+                           device=device_type)
+    m22 = mesh_mod.make_mesh(device=device_type, shape=(2, 2))
+    m14 = mesh_mod.make_mesh(device=device_type, shape=(1, 4))
+    ring = mesh_mod.make_mesh(device=device_type)
+    dev = ring.device
+    clock = [time.perf_counter()]
+
+    def tick(part):  # this rank's seconds in each part of the work
+        now = time.perf_counter()
+        res["seconds"][part] = now - clock[0]
+        clock[0] = now
+
+    res = {"backend": dist.get_backend(), "device": str(dev), "seconds": {},
+           "max_abs": _mesh2d_blocks(m22, ring)}
+    tick("start and blocks")
+    n, dt = MAIN["steps"], MAIN["dt"]
+    dims = (MAIN["height"], MAIN["width"], MAIN["layers"], dt)
+    geom = gen_model_geometry(_config("mega4"), dev)
+    start = perturbed_state(geom, dev)
+    ref0 = rank == 0  # the single-device references run on rank 0
+
+    def gathered(state, mesh):
+        return tuple(mesh_mod.gather_state(state, mesh).prog)
+
+    def marked(cfg, state, marks, mesh=None, g=geom):
+        """The fields of one run from ``state`` after each of ``marks``
+        steps (the run carried on from one mark to the next), gathered on
+        a mesh, and the ms a step of the last stretch (host clock, the
+        ranks started together, the run fn built before)."""
+        if mesh is not None:
+            state = mesh_mod.shard_state(state, mesh)
+        got, done = {}, 0
+        for mark in marks:
+            run = make_run_fn(g, cfg, mark - done, mesh=mesh, start_step=done)
+            if mesh is not None:
+                dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run(state)
+            torch.cuda.synchronize()
+            per_step = 1e3 * (time.perf_counter() - t) / (mark - done)
+            if not bool(out[2].ok):
+                fail("mesh2d", f"{cfg.backend} on "
+                               f"{mesh.shape if mesh else 'one device'}: "
+                               "guard tripped")
+            state, done = out[0], mark
+            got[mark] = (tuple(state.prog) if mesh is None
+                         else gathered(state, mesh))
+        return got, per_step
+
+    # the main path, counted: run_model on the 2x2 mesh, 'mega4' -> fused2d,
+    # checkpointed every n // 2 steps
+    kernels = (pr.pgf_parts_shard, pr.rest_parts_shard, pr.pgf_tile,
+               pr.rest_stencil, ss.spectral_psum)
+    names = ("pgf_parts_shard", "rest_parts_shard", "pgf_tile",
+             "rest_stencil", "spectral_psum")
+    ck = os.path.join(tmp, "mesh2d_ck")
+    dist.barrier()
+    main, counts = _counted(kernels, lambda: run_model(
+        *dims, n, mesh=m22, config=_config(
+            "mega4", checkpoint_dir=ck, checkpoint_every=n // 2)))
+    res["counts"] = dict(zip(names, counts))
+    res["rel"] = {}
+    if ref0:
+        one = run_model(*dims, n, device=dev, config=_config("xla", "dft"))
+        res["rel"]["run_model mega4 2x2"] = (
+            rel_err(main[:5], one[:5]),
+            float((main[0] - one[0]).abs().max()))
+    tick("main run")
+    # the untimed checks first: the CLI's torchrun starts beside the ranks
+    # (phase_mesh2d) and is done before the timed runs begin
+    # float64 at 3 layers, 2 steps
+    cfg64, geom64, start64 = _f64_case(dev)
+    n64 = MESH2D_F64["steps"]
+    ref64 = (marked(dataclasses.replace(cfg64, polar_filter="dft"), start64,
+                    (n64,), g=geom64)[0][n64] if ref0 else None)
+    for backend, mesh, label in (("mega4", m22, "2x2"), ("xla", m22, "2x2"),
+                                 ("xla", m14, "1x4")):
+        got = marked(dataclasses.replace(cfg64, backend=backend), start64,
+                     (n64,), mesh, geom64)[0][n64]
+        if ref0:
+            res["rel"][f"{backend} {label} float64"] = rel_err(got, ref64)
+    tick("float64 runs")
+    # 'stream' on 2x2: the warning, then fused2d's fields to the bit
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        stream = run_model(*dims, n, config=_config("stream"), mesh=m22)
+    res["stream"] = dict(bit_equal=bit_equal(stream[:5], main[:5]),
+                         warned=[str(w.message) for w in caught])
+    tick("stream")
+    # the main run's checkpoints: the last, restored on one device, holds
+    # its fields; the step-10 one, restored and cut into blocks, resumed
+    # on the mesh gives them to the bit
+    state, step = checkpoint.restore_checkpoint(ck, n // 2, device=dev)
+    resumed = make_run_fn(geom, _config("mega4"), n - step, mesh=m22,
+                          start_step=step)(mesh_mod.shard_state(state, m22))
+    res["restored"] = dict(files=sorted(os.listdir(ck)),
+                           resumed_equal=bit_equal(
+                               gathered(resumed[0], m22), main[:5]))
+    if ref0:
+        last, _ = checkpoint.restore_checkpoint(ck, device=dev)
+        res["restored"]["last_equal"] = bit_equal(last.prog, main[:5])
+    tick("checkpoints")
+    # from the perturbed start, one run each read after 1 and 20 steps:
+    # mega4 on 2x2 (its last 19 steps timed: the 2x2 guarded loop's
+    # ms/step), xla on 2x2 and on 1x4, against the single-device plain
+    # core with the DFT filter
+    refs = (marked(_config("xla", "dft"), start, (1, n))[0] if ref0
+            else None)
+    for backend, mesh, label in (("xla", m22, "2x2"), ("xla", m14, "1x4"),
+                                 ("mega4", m22, "2x2")):
+        got, ms_step = marked(_config(backend), start, (1, n), mesh)
+        if backend == "mega4":
+            res["ms_per_step"] = ms_step
+        if ref0:
+            res["rel"][f"{backend} {label}"] = (
+                rel_err(got[1], refs[1]), rel_err(got[n], refs[n]),
+                float((got[n][0] - refs[n][0]).abs().max()))
+    tick("perturbed runs")
+    # K5's ring against single-device 'mega'; fused4 overlap=True against
+    # the one-kernel ring; each form's ms/step (20 steps after a counted
+    # warm-up run, the ranks started together)
+    band = tuple(mesh_mod.shard_state(start, ring).prog)
+
+    def steps_of(step, k):
+        s = band
+        for _ in range(k):
+            s = step(*s)
+        return s
+
+    forms = {"k5 ring": (ss.make_shard_step_fused(ring, geom, dt),
+                         (mh.mega_half_shard,)),
+             "fused4 overlap": (ss.make_shard_step_fused4(ring, geom, dt,
+                                                          overlap=True),
+                                (ms.mega_step_shard,)),
+             "fused4": (ss.make_shard_step_fused4(ring, geom, dt),
+                        (ms.mega_step_shard,))}
+    res["forms"] = {}
+    for name, (step, counters) in forms.items():
+        dist.barrier()
+        out, cnt = _counted(counters, lambda: steps_of(step, n))
+        out = tuple(mesh_mod.gather_field(x, ring) for x in out)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps_of(step, n)
+        torch.cuda.synchronize()
+        res["forms"][name] = dict(launches=cnt[0], out=out,
+                                  ms=1e3 * (time.perf_counter() - t) / n)
+    f = res["forms"]
+    f["fused4 overlap"]["bit_equal"] = bit_equal(f["fused4 overlap"]["out"],
+                                                 f["fused4"]["out"])
+    if ref0:
+        mega = fused.make_fused_step(geom, dt, pipeline="mega")
+        s = tuple(start.prog)
+        for _ in range(n):
+            s = mega(*s)
+        f["k5 ring"]["bit_equal"] = bit_equal(f["k5 ring"]["out"], s)
+        f["k5 ring"]["rel"] = rel_err(f["k5 ring"]["out"], s)
+    for v in f.values():
+        del v["out"]
+    tick("ring forms")
+    # rank 0's profile of the 2x2 step
+    blocks = mesh_mod.shard_state(start, m22)
+    step = ss.make_shard_step_fused2d(m22, geom, dt)
+    b = tuple(blocks.prog)
+    dist.barrier()
+    if ref0:
+        res["split"] = _profile_split(step, b, 10, dev)
+    else:
+        for _ in range(11):
+            step(*b)
+        torch.cuda.synchronize()
+    tick("profile")
+    res["psum"] = _psum_check(m22, geom, start)
+    res["parts"] = _mesh2d_parts(m22, geom, blocks)
+    tick("psum check and parts")
+    dist.barrier()
+    dist.destroy_process_group()
+    return res
+
+
+def _psum_check(m22, geom, start):
+    """The spectral-psum filter on this rank's block held against an
+    independent plain filter: K3's stack (its plain version) of the
+    perturbed start's whole globe, cut to the rank's 256 x 512 core and
+    filtered over the mesh row (float32 in and out, float64 sums), against
+    torch.fft's filter (polar_filter.arakawa_1977) of the whole stack in
+    float64, cut to the same core.  Returns (max abs error, the filtered
+    field's max abs)."""
+    from gcmiipy_tpu_torch.ops import pgf_rest as pr, polar_filter
+    from gcmiipy_tpu_torch.parallel import shard_step as ss
+    p, u, _, t, _ = start.prog
+    stack = pr.pgf_parts_ref(p, u, t, geom)[0]
+    hl, wl = geom.height // m22.ny, geom.width // m22.nx
+    rows = slice(m22.index * hl, (m22.index + 1) * hl)
+    cols = slice(m22.x_index * wl, (m22.x_index + 1) * wl)
+    got = ss.spectral_psum_filter(m22, geom)(stack[:, rows, cols]
+                                             .contiguous())
+    want = polar_filter.arakawa_1977(stack.double(), geom)[:, rows, cols]
+    return float((got.double() - want).abs().max()), float(want.abs().max())
+
+
+def _mesh2d_parts(m22, geom, blocks):
+    """Host ms a call of the 2x2 step's parts, each run on every rank at
+    once (a barrier, 10 calls, a synchronise): the state's and spu's 2D
+    halo exchanges, the spectral-psum filter, its all_reduce of the float64
+    spectra alone (on the card, as gloo takes it, and through pinned host
+    memory), K3's and K4's shard forms, and the guard's and the stats'
+    reductions (driver._Ring)."""
+    import torch.distributed as dist
+    from gcmiipy_tpu_torch.model.driver import _Ring
+    from gcmiipy_tpu_torch.ops import pgf_rest as pr, stream_steps
+    from gcmiipy_tpu_torch.parallel import distributed, halo
+    from gcmiipy_tpu_torch.parallel import shard_step as ss
+
+    def timed(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps
+
+    L = geom.layers
+    packed = stream_steps.pack_state(*blocks.prog)
+    block = stream_steps.unpack_state(halo.exchange_2d(packed, ss.EX, m22), L)
+    bgeom = ss._block_geom(m22, geom, ss.EX)
+    stack, pg_phiv = pr.pgf_parts_shard(block[0], block[1], block[3], bgeom)
+    core = halo.trim(stack, ss.EX, ss.BOTH).contiguous()
+    fcore = ss.spectral_psum_filter(m22, geom)
+    spec = torch.randn(core.shape[0] * core.shape[1], 2 * core.shape[-1],
+                       dtype=torch.float64, device=core.device)
+    filt = torch.cat([halo.exchange_2d(core[:L], ss.EX, m22),
+                      torch.nn.functional.pad(core[L:], (ss.EX,) * 4)])
+
+    def host_all_reduce():
+        h = torch.empty(spec.shape, dtype=spec.dtype,
+                        pin_memory=spec.is_cuda)
+        h.copy_(spec)
+        dist.all_reduce(h, group=m22.row_group)
+        spec.copy_(h)
+
+    ring = _Ring(m22, geom, _config("mega4"))
+    return {
+        "exchange_2d state": timed(
+            lambda: halo.exchange_2d(packed, ss.EX, m22)),
+        "exchange_2d spu": timed(
+            lambda: halo.exchange_2d(core[:L], ss.EX, m22)),
+        "psum filter": timed(lambda: fcore(core)),
+        "all_reduce spectra (gloo, CUDA)": timed(
+            lambda: distributed.all_reduce(spec, dist.ReduceOp.SUM,
+                                           m22.row_group)),
+        "all_reduce spectra (pinned host)": timed(host_all_reduce),
+        "K3 + K4 shard forms": timed(lambda: pr.rest_parts_shard(
+            *block, *block, filt, pg_phiv, MAIN["dt"], bgeom)
+            + pr.pgf_parts_shard(block[0], block[1], block[3], bgeom)),
+        "guard + stats": timed(lambda: (ring.bad(blocks),
+                                        ring.stats(blocks))),
+        "spectra MB": spec.numel() * 8 / 1e6,
+    }
+
+
+def _wide_native(device):
+    """stream_wide_native: 'stream' with a one-day drag every 2nd step at
+    512 x 4096 (over JAX's resident width, so the flag chooses K7 calls
+    of 2 steps with the drag between them; off, per-step 'mega4'), 4 steps
+    from the quiescent start, against 'mega4' to the bit; both loops'
+    ms/step (the median of three more runs)."""
+    from gcmiipy_tpu_torch.model.config import ModelConfig
+    from gcmiipy_tpu_torch.model.driver import (
+        gen_model_geometry, gen_model_state, make_run_fn)
+    from gcmiipy_tpu_torch.ops.stream_steps import stream_steps
+    base = dict(WIDE, backend="stream", stream_wide_native=True, guard=True,
+                drag_tau=86400.0, physics_every=2)
+    steps = base.pop("steps")
+    cfgs = {"stream": ModelConfig(**base),
+            "mega4": ModelConfig(**dict(base, backend="mega4"))}
+    geom = gen_model_geometry(cfgs["mega4"], device)
+    out, ms = {}, {}
+    for name, cfg in cfgs.items():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run = make_run_fn(geom, cfg, steps)
+        if caught:
+            fail("mesh2d", f"wide {name} warned: {caught[0].message}")
+        res, (calls,) = _counted((stream_steps,),
+                                 lambda: run(gen_model_state(geom, cfg)))
+        if not bool(res[2].ok):
+            fail("mesh2d", f"wide {name}: guard tripped")
+        out[name] = tuple(res[0].prog)
+        if name == "stream" and (getattr(run, "chunk_steps", None) != 2
+                                 or calls != steps // 2):
+            fail("mesh2d", f"stream_wide_native made {calls} K7 calls, "
+                           f"expected {steps // 2}")
+        times = []
+        for _ in range(3):
+            state = gen_model_state(geom, cfg)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(state)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t) / steps)
+        ms[name] = statistics.median(times)
+    equal = bit_equal(out["stream"], out["mega4"])
+    log("mesh2d", f"stream_wide_native at {WIDE['layers']}x{WIDE['height']}x"
+                  f"{WIDE['width']} float32 (drag every 2nd step), {steps} "
+                  f"steps: K7 calls of 2 steps, equal to mega4 to the bit: "
+                  f"{equal} (rel {rel_err(out['stream'], out['mega4']):.3e});"
+                  f" {ms['stream']:.4f} ms/step on stream, {ms['mega4']:.4f} "
+                  "on mega4")
+    if not equal:
+        fail("mesh2d", "stream_wide_native differs from mega4")
+    return ms
+
+
+def phase_mesh2d(device):
+    """The 2D (lat x lon) mesh and the ring's last forms: RING ranks spawned
+    on the one card over gloo, as phase ring.  Each rank holds K3's and K4's
+    shard forms on its 2x2 block (262 x 518) against their plain versions
+    to the bit and K5's on its ring block (144 rows) against its plain
+    version; runs run_model(512, 1024, 9, 30.0, 20, mesh=2x2) on 'mega4'
+    (fused2d), checkpointed every 10 steps, with its launches counted (K3's
+    and K4's shard forms and the spectral-psum filter twice a step) against
+    the single-device plain core with the DFT filter (tpu_parity.py's
+    bounds), its last checkpoint restored on one device and its step-10
+    one resumed on the mesh; from the perturbed start, one run each read
+    after 1 and 20 steps, 'mega4' on 2x2 (its last 19 steps timed: the 2x2
+    guarded loop) and 'xla' on 2x2 and 1x4; the same in float64 at 3
+    layers for 2 steps within MESH2D_REL64; 'stream' on 2x2 (JAX's
+    warning, fused2d's fields to the bit); K5's ring (make_shard_step_fused)
+    against single-device 'mega' and fused4's overlap form against its
+    one-kernel ring, each to the bit and timed; the spectral-psum filter
+    against torch.fft's (PSUM_REL); rank 0's step profiled (ranks sharing
+    one card over gloo: not a scaling figure).  Then stream_wide_native at
+    512 x 4096.  torchrun of the CLI on a 2x2 mesh runs beside the ranks
+    from their start; the ranks run their untimed checks first.  Returns
+    rank 0's results."""
+    import signal
+    import tempfile
+    # the CLI's torchrun starts beside the ranks: its start overlaps the
+    # ranks' untimed checks, which they run before their timed ones
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(RING), "-m", "gcmiipy_tpu_torch", "run",
+           "--mesh-shape", "2,2", "--height", str(MAIN["height"]),
+           "--width", str(MAIN["width"]), "--layers", str(MAIN["layers"]),
+           "--dt", str(MAIN["dt"]), "--steps", "4", "--backend", "mega4",
+           "--guard", "--device", device.type]
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    cli = subprocess.Popen(cmd, cwd=REPO_DIR, stdout=logs[0], stderr=logs[1],
+                           text=True, start_new_session=True)
+    try:
+        r0 = _mesh2d_checks(device)
+        code = cli.wait(timeout=RING_DEADLINE_S)
+    finally:
+        if cli.poll() is None:
+            os.killpg(cli.pid, signal.SIGKILL)
+            cli.wait()
+    out, err = [(f.seek(0), f.read())[1] for f in logs]
+    for f in logs:
+        f.close()
+    log("mesh2d", f"torchrun --standalone --nproc-per-node {RING} -m "
+                  f"gcmiipy_tpu_torch run --mesh-shape 2,2 ... (started "
+                  f"with the ranks) exit code {code}: "
+                  + " | ".join(out.strip().splitlines()))
+    if code != 0:
+        fail("mesh2d", "torchrun failed: " + err[-3000:])
+    return r0
+
+
+def _mesh2d_checks(device):
+    """Phase mesh2d's ranks and their checks, then stream_wide_native;
+    rank 0's results."""
+    results = _spawn_ranks("mesh2d", device)
+    n = MAIN["steps"]
+    want = dict(pgf_parts_shard=2 * n, rest_parts_shard=2 * n,
+                pgf_tile=2 * n, rest_stencil=2 * n, spectral_psum=2 * n)
+    want_forms = {"k5 ring": 2 * n, "fused4 overlap": 3 * n, "fused4": n}
+    for rank in range(RING):
+        r = results[rank]
+        if r["backend"] != "gloo" or not r["device"].startswith(device.type):
+            fail("mesh2d", f"rank {rank}: {r['backend']} on {r['device']}")
+        log("mesh2d", f"rank {rank} run_model mega4 {n} steps on the 2x2 "
+                      f"mesh, checkpointed: launches {r['counts']}; the "
+                      f"guarded loop {r['ms_per_step']:.4f} ms/step (steps "
+                      f"2-{n} from the perturbed start; {RING} ranks sharing "
+                      "one card over gloo: not a scaling figure)")
+        if r["counts"] != want:
+            fail("mesh2d", f"rank {rank} launched {r['counts']}, expected "
+                           f"{want}")
+        if not r["stream"]["bit_equal"] or not any(
+                "latitude only" in w for w in r["stream"]["warned"]):
+            fail("mesh2d", f"rank {rank}: 'stream' on 2x2 did not warn or "
+                           "differs from mega4 on 2x2")
+        for name, f in r["forms"].items():
+            if f["launches"] != want_forms[name]:
+                fail("mesh2d", f"rank {rank} {name} launched "
+                               f"{f['launches']}, expected {want_forms[name]}")
+        if not r["forms"]["fused4 overlap"]["bit_equal"]:
+            fail("mesh2d", f"rank {rank}: the overlap ring differs from the "
+                           "one-kernel ring")
+        if not r["restored"]["resumed_equal"]:
+            fail("mesh2d", f"rank {rank}: the resumed 2x2 run differs")
+        err, scale = r["psum"]
+        log("mesh2d", f"rank {rank} spectral-psum filter on its 256x512 "
+                      f"core of the perturbed start's K3 stack against "
+                      f"torch.fft's float64 filter of the whole stack: max "
+                      f"abs {err:.3e}, {err / scale:.3e} of the field's "
+                      f"scale (< {PSUM_REL:g})")
+        if not err < PSUM_REL * scale:
+            fail("mesh2d", f"rank {rank}: the spectral-psum filter is off "
+                           "the plain filter")
+    r0 = results[0]
+    r0["psum_err"] = max(results[r]["psum"][0] for r in range(RING))
+    log("mesh2d", "'stream' on 2x2 warned: " + r0["stream"]["warned"][0])
+    for tag, v in r0["rel"].items():
+        if "float64" in tag:
+            log("mesh2d", f"{tag}, {MESH2D_F64['steps']} steps, against the "
+                          f"single-device plain core with the DFT filter: "
+                          f"rel {v:.3e} (< {MESH2D_REL64:g})")
+            if not v < MESH2D_REL64:
+                fail("mesh2d", f"{tag} outside {MESH2D_REL64:g}")
+        elif len(v) == 2:
+            log("mesh2d", f"{tag} (quiescent start) against the single-device "
+                          f"plain core with the DFT filter: {n}-step rel "
+                          f"{v[0]:.3e} (< {RUN_REL:g}), p drift {v[1]:.3e} Pa")
+            if not (v[0] < RUN_REL and v[1] < DRIFT_PA):
+                fail("mesh2d", tag + " outside the tpu_parity.py bounds")
+        else:
+            log("mesh2d", f"{tag} from the perturbed start against the "
+                          f"single-device plain core with the DFT filter: "
+                          f"1-step rel {v[0]:.3e} (< {STEP1_REL:g}), {n}-step"
+                          f" rel {v[1]:.3e} (< {RUN_REL:g}), p drift "
+                          f"{v[2]:.3e} Pa (< {DRIFT_PA:g})")
+            if not (v[0] < STEP1_REL and v[1] < RUN_REL and v[2] < DRIFT_PA):
+                fail("mesh2d", tag + " outside the tpu_parity.py bounds")
+    f = r0["forms"]
+    log("mesh2d", f"K5's ring (make_shard_step_fused, 4x1) {n} steps equal to "
+                  f"single-device 'mega' to the bit: {f['k5 ring']['bit_equal']}"
+                  f" (rel {f['k5 ring']['rel']:.3e}); {f['k5 ring']['ms']:.4f} "
+                  f"ms/step; fused4 overlap=True equal to the one-kernel ring "
+                  f"to the bit: {f['fused4 overlap']['bit_equal']}, "
+                  f"{f['fused4 overlap']['ms']:.4f} ms/step against "
+                  f"{f['fused4']['ms']:.4f} (rank 0, {RING} ranks on one card "
+                  "over gloo)")
+    if not f["k5 ring"]["bit_equal"]:
+        fail("mesh2d", "K5's ring differs from single-device 'mega'")
+    rs = r0["restored"]
+    log("mesh2d", f"checkpointed 2x2 run: {rs['files']}; the last restored on "
+                  f"one device holds its fields: {rs['last_equal']}; the "
+                  f"step-{n // 2} one resumed on the mesh equals it to the "
+                  f"bit: {rs['resumed_equal']}")
+    if rs["files"] != [f"step_{s:010d}.npz" for s in (n // 2, n)] \
+            or not rs["last_equal"]:
+        fail("mesh2d", "the 2x2 run's checkpoints do not restore it")
+    log("mesh2d", "rank 0's 2x2 step (torch.profiler, 10 steps after a "
+        "warm-up step in the same session), ms a step: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in r0["split"].items()))
+    log("mesh2d", "rank 0's seconds in each part of its work: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in r0["seconds"].items()))
+    log("mesh2d", "the 2x2 step's parts, all ranks at once, host ms a call "
+        "(rank 0): " + ", ".join(f"{k} {v:.4f}"
+                                 for k, v in r0["parts"].items()))
+    r0["wide_ms"] = _wide_native(device)
+    return r0
+
+
 def _bytes(tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
@@ -1870,26 +2540,33 @@ def _filter_ops(fc, geom, rounds):
                                  int(fc.lats.numel()))
 
 
+def _bound(nbytes, ops):
+    """(bound ms, what bounds it, its working): the larger of ``nbytes``
+    over the memory rate and ``ops`` (operations by arithmetic type) each
+    over its type's peak rate."""
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = sum(1e3 * n / PEAK_OPS_PER_S[t] for t, n in ops.items())
+    op_text = " + ".join(f"{n / 1e9:.3f} Gop {str(t)[6:]}"
+                         for t, n in ops.items())
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations",
+            f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB -> "
+            f"{bytes_ms:.4f} ms; {op_text} -> {ops_ms:.4f} ms)")
+
+
 def _row(name, source, replaces, launches, max_abs, ms, plain_ms, nbytes,
          ops, library_ms, tag, launch_ms=None):
     """A kernels-JSON row; ``ops`` maps each arithmetic type to the
     operations done in it, each timed at that type's peak rate.
     ``launch_ms``: the device ms of each kernel launch a call, by name
     (step_profile.kernel_ms), added to the row when given."""
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = sum(1e3 * n / PEAK_OPS_PER_S[t] for t, n in ops.items())
-    bound_ms = max(bytes_ms, ops_ms)
-    op_text = " + ".join(f"{n / 1e9:.3f} Gop {str(t)[6:]}"
-                         for t, n in ops.items())
+    bound_ms, bound_by, text = _bound(nbytes, ops)
     log("timing", f"{tag} {ms:.4f} ms/call, plain {plain_ms:.4f} ms; bound "
-                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f}"
-                  f" ms; {op_text} -> {ops_ms:.4f} ms); "
-                  f"{100 * bound_ms / ms:.1f}% of bound")
+                  f"{text}; {100 * bound_ms / ms:.1f}% of bound")
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": max_abs,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms}
+           "bound_by": bound_by, "library_ms": library_ms}
     if launch_ms is not None:
         log("timing", f"{tag} device ms a launch (torch.profiler): " + ", ".join(
             f"{k} {v:.4f}" for k, v in launch_ms.items()))
@@ -2173,6 +2850,170 @@ def timing_shards(device, ring):
     return rows
 
 
+def timing_mesh2d(device, m2d):
+    """The rows of the 2D path's forms, each on rank 0's block at the main
+    path's shape, timed alone on the card by CUDA events beside its plain
+    version and its bound on the block, with the launches rank 0 counted in
+    phase mesh2d: K3's and K4's shard forms on the 2x2 block (262 x 518),
+    K5's on the ring block (144 rows), K6 on fused4's overlap strips (48,
+    80 and 48 rows: a step's three calls).  The spectral-psum filter, a
+    stage of torch.matmul calls with no kernel, is logged on a line of its
+    own: its float64 matmuls on the 2L stacked 256 x 512 planes alone (no
+    peer), its time on the mesh and its error against torch.fft's filter
+    from phase mesh2d."""
+    from gcmiipy_tpu_torch.dynamics import core25d
+    from gcmiipy_tpu_torch.ops import pgf_rest as pr, polar_filter
+    from gcmiipy_tpu_torch.ops.fused_parts import GEOM_FIELDS
+    from gcmiipy_tpu_torch.ops.mega_half import MegaHalf, mega_half_ref
+    from gcmiipy_tpu_torch.ops.mega_step import (
+        MegaStep, banded_round, mega_step_ref)
+    from gcmiipy_tpu_torch.parallel import shard_step as ss
+    from gcmiipy_tpu_torch.parallel.mesh import (
+        RingMesh, block_cols, block_rows)
+    from gcmiipy_tpu_torch.step_profile import kernel_ms
+    L, H, W, dt = MAIN["layers"], MAIN["height"], MAIN["width"], MAIN["dt"]
+    geom, base, seval, filt, pg_phiv = k3k4_inputs((L, H, W), torch.float32,
+                                                   True, device)
+    rows, cols = block_rows(H, 2, 0, ss.EX), block_cols(W, 2, 0, ss.EX)
+    bgeom = geom.take_block(rows, cols)
+    geo = [getattr(bgeom, n) for n in GEOM_FIELDS]
+
+    def blk(a):
+        return a[..., rows, :][..., cols].contiguous()
+
+    out_rows = []
+    k3 = (blk(seval[0]), blk(seval[1]), blk(seval[3]), bgeom)
+    outs = pr.pgf_parts_ref(*k3)
+    out_rows.append(_row(
+        "pgf_parts_shard (K3's shard form)",
+        "gcmiipy_tpu_torch/csrc/pgf_tile.cuh",
+        "gcmiipy_tpu/ops/pallas_stencil.py:477",
+        m2d["counts"]["pgf_parts_shard"], m2d["max_abs"]["k3"],
+        cuda_ms(lambda: pr.pgf_parts_shard(*k3), 50),
+        cuda_ms(lambda: pr.pgf_parts_ref(*k3), 10),
+        _bytes((*k3[:3], *geo, *outs)),
+        {torch.float32: count_ops(pr.pgf_parts_ref, *k3)}, None,
+        f"pgf_parts_shard (rank 0's 2x2 block {len(rows)}x{len(cols)})",
+        launch_ms=kernel_ms(lambda: pr.pgf_parts_shard(*k3))))
+    k4 = (*map(blk, base), *map(blk, seval), blk(filt), blk(pg_phiv), dt,
+          bgeom)
+    outs = pr.rest_parts_ref(*k4)
+    out_rows.append(_row(
+        "rest_parts_shard (K4's shard form)",
+        "gcmiipy_tpu_torch/csrc/pgf_rest.cu",
+        "gcmiipy_tpu/ops/pallas_stencil.py:605",
+        m2d["counts"]["rest_parts_shard"], m2d["max_abs"]["k4"],
+        cuda_ms(lambda: pr.rest_parts_shard(*k4), 50),
+        cuda_ms(lambda: pr.rest_parts_ref(*k4), 10),
+        _bytes((*k4[:12], *geo, *outs)),
+        {torch.float32: count_ops(pr.rest_parts_ref, *k4)}, None,
+        f"rest_parts_shard (rank 0's 2x2 block {len(rows)}x{len(cols)})",
+        launch_ms=kernel_ms(lambda: pr.rest_parts_shard(*k4))))
+
+    # the spectral-psum filter stage (no Pallas, no kernel of its own: not
+    # a row of the kernels line) on the core of K3's stack of rank 0's
+    # block: its matmuls alone (a mesh of one: no psum), against the plain
+    # filter of the same rows at the full width (torch.fft in float64, the
+    # work the mesh row's two ranks share) and the library's two matmuls
+    CS, CwSw, nb = polar_filter.banded_pair_matrices(W, dtype=np.float64)
+    mcc = polar_filter.banded_correction_mask_pair(geom.polar_mask, nb,
+                                                   dtype=np.float64)
+    hl, wl = H // 2, W // 2
+    CS_l, CwSw_l, mcc_l = (torch.as_tensor(np.ascontiguousarray(a)).to(device)
+                           for a in (CS[:wl], CwSw[:, :wl], mcc[:hl]))
+    alone = RingMesh(ny=1, index=0, device=device)
+    fcore = ss._spectral_psum_filter(CS_l, CwSw_l, mcc_l, alone)
+    q = pr.pgf_parts_shard(*k3)[0][:, ss.EX:-ss.EX, ss.EX:-ss.EX].contiguous()
+    q2 = q.reshape(-1, wl).double()
+    mrow = mcc_l.expand(q.shape[0], *mcc_l.shape).reshape(-1, 2 * nb)
+    lib_ms = cuda_ms(lambda: torch.matmul(torch.matmul(q2, CS_l) * mrow,
+                                          CwSw_l), 50)
+    band = pr.pgf_parts_ref(seval[0], seval[1], seval[3], geom)[0][:, :hl]
+    band_geom = geom.take_rows(np.arange(hl))
+    plain_ms = cuda_ms(lambda: polar_filter.arakawa_1977(
+        band.double(), band_geom).to(band.dtype), 20)
+    _, bound_by, text = _bound(
+        _bytes((q, q, CS_l, CwSw_l, mcc_l)),
+        {torch.float64: 2 * q2.shape[0] * wl * 2 * nb * 2})
+    log("timing", "stage spectral_psum_filter (gcmiipy_tpu_torch/parallel/"
+        "shard_step.py, replaces gcmiipy_tpu/parallel/shard_step.py:169; "
+        "no kernel: not in the kernels line), rank 0's "
+        f"{tuple(q.shape)} float32 core (float64 sums): "
+        f"{m2d['parts']['psum filter']:.4f} host ms a call on the 2x2 mesh "
+        f"with its all_reduce (phase mesh2d), its matmuls alone "
+        f"{cuda_ms(lambda: fcore(q), 50):.4f} ms; plain (torch.fft float64 "
+        f"of rank 0's mesh row, {tuple(band.shape)}) {plain_ms:.4f} ms; "
+        f"library (the two torch.matmul) {lib_ms:.4f} ms; bound {text}, "
+        f"by {bound_by}; launches {m2d['counts']['spectral_psum']} a rank; "
+        f"max abs err against torch.fft's float64 filter "
+        f"{m2d['psum_err']:.3e} (every rank's block)")
+
+    # K5's shard form on rank 0's ring block, a corrector half
+    state = random_state(geom, 5, device, torch.float32)
+    rb = block_rows(H, RING, 0, ss.PHJ)
+    half = MegaHalf(geom, dt, rows=rb)
+    bb = [x[..., rb, :].contiguous() for x in state]
+    bs = list(half(bb, bb))
+    fc, hgeom = half.consts, half.geom
+    k5 = (bb, bs, dt, hgeom, fc, False, False, banded_round(hgeom))
+    stack = torch.cat(core25d.pgf_forces(bs[0], bs[1], bs[3], hgeom)[:2])
+    out_rows.append(_row(
+        "mega_half_shard (K5's shard form)",
+        "gcmiipy_tpu_torch/csrc/mega_half.cu",
+        "gcmiipy_tpu/ops/pallas_stencil.py:884",
+        m2d["forms"]["k5 ring"]["launches"], m2d["max_abs"]["k5"],
+        cuda_ms(lambda: half(bb, bs), 20),
+        cuda_ms(lambda: mega_half_ref(*k5), 5),
+        _bytes((*bb, *bs, *[getattr(hgeom, n) for n in GEOM_FIELDS],
+                *_filter_buffers(fc), *mega_half_ref(*k5))),
+        {torch.float32: count_ops(mega_half_ref, *k5,
+                                  dtypes=(torch.float32,)),
+         torch.float64: _filter_ops(fc, hgeom, 1)},
+        cuda_ms(lambda: polar_filter.arakawa_1977(stack, hgeom), 20),
+        f"mega_half_shard (rank 0's ring block, {len(rb)} rows)",
+        launch_ms=kernel_ms(lambda: half(bb, bs))))
+
+    # K6 on fused4's overlap strips of rank 0's band: one step's three calls
+    hl = H // RING
+    tj, strips = ss._strips(hl, 32, True)
+    calls = []
+    for lo, lh in strips:
+        srows = np.arange(lo - ss.PHJ, lo + lh + ss.PHJ) % H
+        step = MegaStep(geom, dt, rows=srows)
+        calls.append((step, [x[..., srows, :].contiguous() for x in state]))
+    bandeds = [banded_round(s.geom) for s, _ in calls]
+    nbytes = sum(_bytes((*b, *[getattr(s.geom, n) for n in GEOM_FIELDS],
+                         *_filter_buffers(s.consts),
+                         *mega_step_ref(*b, dt, s.geom, s.consts,
+                                        filter_ref=f)))
+                 for (s, b), f in zip(calls, bandeds))
+    ops = {torch.float32: sum(count_ops(mega_step_ref, *b, dt, s.geom,
+                                        s.consts, filter_ref=f,
+                                        dtypes=(torch.float32,))
+                              for (s, b), f in zip(calls, bandeds)),
+           torch.float64: sum(_filter_ops(s.consts, s.geom, 2)
+                              for s, _ in calls)}
+    stacks = [(torch.cat(core25d.pgf_forces(b[0], b[1], b[3], s.geom)[:2]),
+               s.geom) for s, b in calls]
+    out_rows.append(_row(
+        "mega_step_shard on fused4's overlap strips (K6)",
+        "gcmiipy_tpu_torch/csrc/mega_step.cu",
+        "gcmiipy_tpu/parallel/shard_step.py:614",
+        m2d["forms"]["fused4 overlap"]["launches"],
+        m2d["max_abs"].get("k6_strips", 0.0),
+        cuda_ms(lambda: [s(*b) for s, b in calls], 20),
+        cuda_ms(lambda: [mega_step_ref(*b, dt, s.geom, s.consts,
+                                       filter_ref=f)
+                         for (s, b), f in zip(calls, bandeds)], 3),
+        nbytes, ops,
+        cuda_ms(lambda: [polar_filter.arakawa_1977(x, g)
+                         for x, g in stacks for _ in range(2)], 20),
+        f"mega_step_shard strips {[lh + 2 * ss.PHJ for _, lh in strips]} "
+        f"rows (tj {tj}), a step's three calls",
+        launch_ms=kernel_ms(lambda: [s(*b) for s, b in calls])))
+    return out_rows
+
+
 def timing_physics(device, launches, max_abs):
     """The row of K7's column-physics epilogue alone at the main path's
     shape, launched in place as K7 launches it (the wrapper's copies of u,
@@ -2340,8 +3181,10 @@ def main():
     surface = phase_surface(device)
     launches.update(phase_services(device))
     ring = phase_ring(device)
+    m2d = phase_mesh2d(device)
     rows = phase_timing(device, launches, max_abs, geom, start, surface)
     rows += timing_shards(device, ring)
+    rows += timing_mesh2d(device, m2d)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -18,6 +18,12 @@ Examples:
         --mesh-shape 4 --height 512 --width 1024 --layers 9 --dt 30 \
         --steps 20 --backend stream --guard --checkpoint-dir ckpt \
         --checkpoint-every 10 --metrics run.jsonl
+
+    # a 2D (lat x lon) mesh of 2x2 ranks: K3's and K4's shard forms with
+    # the spectral-psum polar filter
+    torchrun --standalone --nproc-per-node 4 -m gcmiipy_tpu_torch run \
+        --mesh-shape 2,2 --height 512 --width 1024 --layers 9 --dt 30 \
+        --steps 20 --backend mega4 --guard
 """
 
 import argparse
@@ -150,10 +156,10 @@ def _add_run_args(ap):
     ap.add_argument("--no-stats", action="store_true",
                     help="skip per-step diagnostics (fastest)")
     ap.add_argument("--mesh-shape", default=None, metavar="NY[,NX]",
-                    help="decompose the run over a mesh of ranks: 'NY' = "
-                         "lat ring over NY ranks (one process each; "
-                         "torchrun or --coordinator); 'NY,NX' = 2D lat x "
-                         "lon mesh (the fused2d path, not ported yet)")
+                    help="decompose the run over a mesh of ranks (one "
+                         "process each; torchrun or --coordinator): 'NY' = "
+                         "lat ring over NY ranks; 'NY,NX' = 2D lat x lon "
+                         "mesh of NY*NX ranks (the fused2d path)")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                     help="torch.distributed rendezvous address, rank 0 "
                          "listening (with --num-processes and "
@@ -167,20 +173,19 @@ def _add_run_args(ap):
 
 
 def _mesh(args):
-    """The lat-ring mesh of ``--mesh-shape``, or None."""
+    """The mesh of ``--mesh-shape`` (a lat ring, or a 2D lat x lon mesh),
+    or None when the ranks do not fill it."""
     from gcmiipy_tpu_torch.parallel import distributed, mesh as mesh_mod
     dims = [int(d) for d in args.mesh_shape.split(",")]
-    if len(dims) > 1 and dims[1] > 1:
-        raise NotImplementedError(
-            f"--mesh-shape {args.mesh_shape}: the 2D lat x lon mesh (the "
-            "fused2d path) is not ported yet; use --mesh-shape NY")
+    ny, nx = dims[0], (dims[1] if len(dims) > 1 else 1)
     ranks = (distributed.dist.get_world_size()
              if distributed.is_multiprocess() else 1)
-    if dims[0] != ranks:
-        print(f"error: --mesh-shape {args.mesh_shape} needs {dims[0]} "
+    if ny * nx != ranks:
+        print(f"error: --mesh-shape {args.mesh_shape} needs {ny * nx} "
               f"ranks, have {ranks}", file=sys.stderr)
         return None
-    return mesh_mod.make_mesh(device=args.device)
+    return mesh_mod.make_mesh(device=args.device,
+                              shape=(ny, nx) if nx > 1 else None)
 
 
 def cmd_run(args):
@@ -261,7 +266,10 @@ def cmd_run(args):
         p, u, v = (x.detach().cpu().numpy() for x in (p, u, v))
         label = (effective_backend if effective_backend == args.backend
                  else f"{args.backend}->{effective_backend}")
-        ring = f", ring of {mesh.ny}" if mesh is not None else ""
+        ring = ""
+        if mesh is not None:
+            ring = (f", {mesh.ny}x{mesh.nx} mesh" if mesh.nx > 1
+                    else f", ring of {mesh.ny}")
         print(f"run: {args.steps} steps of {args.dt:g} s on "
               f"{args.layers}x{args.height}x{args.width} "
               f"({label}, {args.dtype}, {args.device}{ring})")

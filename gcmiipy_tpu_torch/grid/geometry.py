@@ -70,6 +70,22 @@ class Geom:
             name: getattr(self, name).index_select(dim, idx).contiguous()
             for name, dim in per_row.items()})
 
+    def take_block(self, rows, cols):
+        """The geometry of the block ``rows`` x ``cols`` (global indices, in
+        order, repeats allowed): a rank's block of a 2D (lat x lon) mesh.
+        :meth:`take_rows`, then ``heightmap``, ``land_fraction`` and
+        ``long`` indexed by ``cols`` too; ``width`` becomes ``len(cols)``.
+        ``polar_mask`` keeps the global width's wavenumbers: the 2D path's
+        filter is spectral over the whole row (JAX ``_spectral_psum_filter``).
+        The kernels wrap the block modulo its extents, which spoils only
+        halo outputs."""
+        geom = self.take_rows(rows)
+        idx = torch.as_tensor(np.asarray(cols, np.int64), device=self.device)
+        per_col = dict(heightmap=-1, land_fraction=-1, long=-1)
+        return dataclasses.replace(geom, width=int(idx.numel()), **{
+            name: getattr(geom, name).index_select(dim, idx).contiguous()
+            for name, dim in per_col.items()})
+
     def to(self, dtype=None, device=None):
         """Copy with every tensor field cast to ``dtype`` / moved to ``device``."""
         return dataclasses.replace(self, **{

@@ -70,6 +70,10 @@ class ModelConfig:
     # flag keeps the physics out of the kernel, between its calls
     stream_pipeline: bool = False
     stream_steps: int = 20
+    # 'stream' with extras on a grid wider than 2048 and taller than 64:
+    # False runs the per-step 'mega4' path with JAX's warning (the JAX
+    # package leaves its tall-wide streaming kernel there for its v1
+    # pipeline), True streams K7 natively with the extras between calls
     stream_wide_native: bool = False
     q_limiter: bool = False
     # Precision of the 'mega', 'mega4' and 'stream' filters.  'high' and
@@ -105,7 +109,7 @@ PORTED = frozenset((
     "filter_precision", "filter_split_tau",
     "physics", "physics_every", "seasonal", "obliquity", "year_days",
     "convection", "drag_tau", "t_lw", "t_sw", "albedo", "radiation",
-    "stream_steps", "stream_pipeline",
+    "stream_steps", "stream_pipeline", "stream_wide_native",
     "topography", "sea_level_temp", "land_cover", "albedo_land",
     "evaporation", "gw0", "precipitation", "rh_crit",
     "shapiro_every", "shapiro_order", "shapiro_fields", "shapiro_slp",

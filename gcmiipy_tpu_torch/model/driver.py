@@ -141,22 +141,6 @@ def make_filter_fn(config, geom):
     return polar_filter.arakawa_1977
 
 
-def check_mesh(mesh, config):
-    """Raise ``NotImplementedError`` for a mesh the port does not run yet:
-    a 2D (lat x lon) mesh, and backend 'xla' on a mesh (the JAX package's
-    GSPMD path, ``parallel/gspmd.py``)."""
-    if mesh.shape.get("x", 1) > 1:
-        raise NotImplementedError(
-            f"a 2D ('y','x') mesh {mesh.shape}: the fused2d lat x lon path "
-            "with the spectral-psum filter (JAX make_shard_step_fused2d) is "
-            "not ported yet; use a lat-ring mesh (one 'y' axis)")
-    if config.backend == "xla":
-        raise NotImplementedError(
-            "backend 'xla' on a mesh (the JAX package's GSPMD path, "
-            "parallel/gspmd.py) is not ported yet; the ring runs 'fused', "
-            "'mega', 'mega4' (K6's shard form) and 'stream' (K7's)")
-
-
 def make_dynamics_step(geom, config, filter_fn, mesh=None, warn_degrade=True):
     """The stencil backend: 'xla' runs the plain PyTorch core, 'fused' the
     K1 kernel pipeline, 'mega' the K5 half-step kernel twice, 'mega4' the
@@ -166,10 +150,15 @@ def make_dynamics_step(geom, config, filter_fn, mesh=None, warn_degrade=True):
     caller of it gets 'mega4', with a RuntimeWarning unless
     ``warn_degrade`` is False, as in the JAX package.
 
-    With ``mesh`` (a lat ring) 'fused', 'mega' and 'mega4' run the ring's
-    step on the rank's band, K6's shard form
-    (:func:`shard_step.make_shard_step_fused4`); ``geom`` is the global
-    geometry."""
+    With ``mesh`` the step runs on the rank's block and ``geom`` is the
+    global geometry: 'fused', 'mega' and 'mega4' run K6's shard form on a
+    lat ring (:func:`shard_step.make_shard_step_fused4`) and K3's and K4's
+    with the spectral-psum filter on a 2D mesh
+    (:func:`shard_step.make_shard_step_fused2d`), as the JAX package's
+    ``make_dynamics_step(mesh=)``; 'xla' runs the plain core with the
+    spectral-psum filter on either (:func:`shard_step.make_shard_step_2d`:
+    PyTorch has no GSPMD; JAX's 'xla' mesh run takes the DFT filter
+    too)."""
     check_ported(config)
     backend = config.backend
     if backend == "stream":
@@ -182,8 +171,15 @@ def make_dynamics_step(geom, config, filter_fn, mesh=None, warn_degrade=True):
                 "'mega4' instead — timings/numerics are mega4's",
                 RuntimeWarning, stacklevel=3)
     if mesh is not None:
-        check_mesh(mesh, dataclasses.replace(config, backend=backend))
         from gcmiipy_tpu_torch.parallel import shard_step
+        if backend == "xla":
+            return shard_step.make_shard_step_2d(
+                mesh, geom, config.dt, coriolis=config.coriolis,
+                q_limiter=config.q_limiter)
+        if mesh.nx > 1:
+            return shard_step.make_shard_step_fused2d(
+                mesh, geom, config.dt, coriolis=config.coriolis,
+                q_limiter=config.q_limiter)
         return shard_step.make_shard_step_fused4(
             mesh, geom, config.dt, coriolis=config.coriolis,
             q_limiter=config.q_limiter)
@@ -393,19 +389,26 @@ def _cat_stats(a, b):
 
 
 class _Ring:
-    """What a rank of a lat ring runs besides the dynamics, on its band of
-    Hl rows: the guard, the stats and the cadenced extras.
+    """What a rank of a mesh runs besides the dynamics, on its block of Hl
+    rows (and Wl columns on a 2D mesh): the guard, the stats and the
+    cadenced extras.
 
-    * :meth:`bad`: :func:`state_bad` of the band, its maximum over the ring
-      (``all_reduce``, on the device), so that every rank freezes at the
-      same step without a host read.
-    * :meth:`stats`: :func:`collect_stats` over the band's core rows, the
-      energies summed and the extrema reduced over the ring.  The kinetic
-      energy averages v with the row above, so the band is padded by one
-      row from its neighbours, whose cell areas count as zero.
-    * :meth:`cadenced`: the Shapiro filter (zonal, complete rows) and the
-      extras (column-local, but the evaporation's wind averages v with the
-      row above) on the band padded by one row, then trimmed.  The
+    * :meth:`bad`: :func:`state_bad` of the block, its maximum over the
+      mesh (``all_reduce``, on the device), so that every rank freezes at
+      the same step without a host read.
+    * :meth:`stats`: :func:`collect_stats` over the block's core, the
+      energies summed and the extrema reduced over the mesh.  The kinetic
+      energy averages v with the row above (and u with the column to the
+      left), so the block is padded by one cell from its neighbours, whose
+      cell areas count as zero.
+    * :meth:`cadenced`: the Shapiro filter and the extras.  On a lat ring
+      both run on the band padded by one row, then trimmed: the filter is
+      zonal over complete rows, the extras are column-local but the
+      evaporation's wind averages v with the row above.  On a 2D mesh the
+      filter needs whole latitude rows: p and t are gathered over the mesh
+      row, filtered and cut back (cadence steps only); the extras run on
+      the block padded by one cell on both axes (the evaporation's wind
+      also averages u with the column to the left), then trimmed.  The
       adaptive convection reads a flag on the host per sweep, per rank:
       ranks may sweep different times (a sweep over a converged column is
       the identity) and no collective waits on it.
@@ -413,19 +416,37 @@ class _Ring:
 
     def __init__(self, mesh, geom, config):
         self.mesh, self.config = mesh, config
+        self.two_d = mesh.nx > 1
+        self.axes = (-2, -1) if self.two_d else (-2,)
+        geom = geom.to(device=mesh.device)
         rows = mesh_mod.block_rows(geom.height, mesh.ny, mesh.index, 1)
-        self.geom = geom.to(device=mesh.device).take_rows(rows)
-        area = self.geom.area.clone()
+        if self.two_d:
+            self.geom = geom.take_block(rows, mesh_mod.block_cols(
+                geom.width, mesh.nx, mesh.x_index, 1))
+            self.rows_geom = geom.take_rows(
+                mesh_mod.band_rows(geom.height, mesh.ny, mesh.index))
+            self.cols = mesh_mod.band_cols(geom.width, mesh.nx,
+                                           mesh.x_index)
+            area = self.geom.area.expand(-1, self.geom.width).clone()
+            area[:, 0] = area[:, -1] = 0.0
+        else:
+            self.geom = geom.take_rows(rows)
+            area = self.geom.area.clone()
         area[0] = area[-1] = 0.0
         self.stats_geom = dataclasses.replace(self.geom, area=area)
 
     def _pad(self, *fields):
-        """Each field padded by one row from the ring neighbours (one
-        exchange of the fields stacked as planes)."""
+        """Each field padded by one cell from the neighbours along the cut
+        axes (one exchange of the fields stacked as planes)."""
         planes = [x if x.dim() == 3 else x[None] for x in fields]
-        block = halo.exchange_axis(torch.cat(planes), 1, self.mesh)
+        stack = torch.cat(planes)
+        block = (halo.exchange_2d(stack, 1, self.mesh) if self.two_d
+                 else halo.exchange_axis(stack, 1, self.mesh))
         out = list(torch.split(block, [x.shape[0] for x in planes]))
         return [b if x.dim() == 3 else b[0] for b, x in zip(out, fields)]
+
+    def _trim(self, x):
+        return halo.trim(x, 1, self.axes).contiguous()
 
     def bad(self, state):
         flag = state_bad(state, self.config).to(torch.int32)
@@ -445,29 +466,49 @@ class _Ring:
                          v_min=-ext[3], ke=sums[0], ate=sums[1], geo=sums[2],
                          total_energy=sums[0] + sums[1] + sums[2])
 
+    def _shapiro_rows(self, prog, step_next, granularity):
+        """The Shapiro filter of a 2D mesh's block: p and t gathered into
+        whole latitude rows over the mesh row, filtered, and cut back."""
+        row_group = self.mesh.row_group
+        whole = prog._replace(**{
+            k: distributed.all_gather_rows(getattr(prog, k), row_group,
+                                           dim=-1) for k in ("p", "t")})
+        out = apply_cadenced_shapiro(whole, step_next, self.rows_geom,
+                                     self.config, granularity=granularity)
+        c0, c1 = int(self.cols[0]), int(self.cols[-1]) + 1
+        return prog._replace(p=out.p[..., c0:c1].contiguous(),
+                             t=out.t[..., c0:c1].contiguous())
+
     def cadenced(self, prog, g, utc, step_next, granularity=1):
         config = self.config
         has_extras = config.drag_tau > 0 or config.physics
         has_shapiro = config.shapiro_every > 0
         if not (has_extras or has_shapiro):
             return prog, g
-        if isinstance(step_next, int) and not (
-                (has_shapiro
-                 and step_next % config.shapiro_every < granularity)
-                or (has_extras
-                    and step_next % config.physics_every < granularity)):
+        due_shapiro = has_shapiro and not (
+            isinstance(step_next, int)
+            and step_next % config.shapiro_every >= granularity)
+        due_extras = has_extras and not (
+            isinstance(step_next, int)
+            and step_next % config.physics_every >= granularity)
+        if not (due_shapiro or due_extras):
             return prog, g
+        if self.two_d:
+            if due_shapiro:
+                prog = self._shapiro_rows(prog, step_next, granularity)
+            if not due_extras:
+                return prog, g
         padded = self._pad(*prog, *g)
         pprog, pg = PrognosticVars(*padded[:5]), GroundVars(*padded[5:])
-        pprog = apply_cadenced_shapiro(pprog, step_next, self.geom, config,
-                                       granularity=granularity)
+        if not self.two_d:
+            pprog = apply_cadenced_shapiro(pprog, step_next, self.geom,
+                                           config, granularity=granularity)
         if has_extras:
             pprog, pg = apply_cadenced_extras(pprog, pg, utc, step_next,
                                               self.geom, config,
                                               granularity=granularity)
-        return (PrognosticVars(*(halo.trim(x, 1).contiguous()
-                                 for x in pprog)),
-                GroundVars(*(halo.trim(x, 1).contiguous() for x in pg)))
+        return (PrognosticVars(*map(self._trim, pprog)),
+                GroundVars(*map(self._trim, pg)))
 
 
 def make_run_fn(geom, config, timesteps, mesh=None, start_step=0):
@@ -493,8 +534,6 @@ def make_run_fn(geom, config, timesteps, mesh=None, start_step=0):
     geometry: the dynamics run the ring's step (K6's or K7's shard form),
     and the guard, the stats and the extras are those of :class:`_Ring`."""
     config = normalize_config(config)
-    if mesh is not None:
-        check_mesh(mesh, config)
     if config.backend == "stream":
         if mesh is not None:
             return _make_stream_ring_run_fn(geom, config, timesteps, mesh,
@@ -879,9 +918,17 @@ def _make_stream_ring_run_fn(geom, config, timesteps, mesh, start_step=0):
     at most 4 and to the halo bound ``k_cap`` (K*PHJ <= Hl, even), keeping
     it a divisor of every cadence (:func:`_cadence_clamp`).  Fewer than 2
     steps, a grid outside the streaming envelope or shards of fewer than
-    2*PHJ rows run the 'mega4' ring, with JAX's warning."""
+    2*PHJ rows run the 'mega4' ring, with JAX's warning; a 2D mesh runs the
+    per-step fused2d path with JAX's warning."""
     from gcmiipy_tpu_torch.parallel import shard_step
 
+    if mesh.nx > 1:
+        warnings.warn(
+            "sharded backend 'stream' decomposes over latitude only; a "
+            "2D ('y','x') mesh runs the per-step fused2d path instead "
+            "(mega4-class timings)", stacklevel=3)
+        return make_run_fn(geom, dataclasses.replace(config, backend="mega4"),
+                           timesteps, mesh=mesh, start_step=start_step)
     ny = mesh.shape.get("y", 1)
     hl = geom.height // ny if geom.height % ny == 0 else 0
     k_cap = (hl // shard_step.PHJ) - (hl // shard_step.PHJ) % 2
@@ -1182,8 +1229,6 @@ def run_model(height, width, layers, dt, timesteps, callback=None,
         config = dataclasses.replace(config, height=height, width=width,
                                      layers=layers, dt=dt)
     config = normalize_config(config)
-    if mesh is not None:
-        check_mesh(mesh, config)
     geom = gen_model_geometry(config, device)
     state = gen_model_state(geom, config)
     if mesh is not None:

@@ -23,7 +23,14 @@ FFT over the latitudes with some damping
   :func:`mega_half`, which runs the plain version on CPU tensors and
   launches ``csrc/mega_half.cu`` on CUDA tensors, or raises.
 
-``mega_half.launches`` counts the calls that launched the kernel; each adds
+:func:`mega_half_shard` is K5's shard form (JAX ``make_mega_kernel_padded(
+local_height=, geom_as_args=True)``, :663-692, :884): the same kernel on a
+lat-ring shard's block of Hl + 2*PHJ rows with the block's row tables and
+the global wall (:class:`MegaHalf` with ``rows``, as ``MegaStep(rows=)``);
+:func:`gcmiipy_tpu_torch.parallel.shard_step.make_shard_step_fused` runs it.
+
+``mega_half.launches`` and ``mega_half_shard.launches`` count the calls
+that launched the kernel; each adds
 to ``pgf_rest.pgf_tile.launches``, ``fft_filter.launches`` and
 ``pgf_rest.rest_stencil.launches`` the launches of the pgf tile, the
 filter and the rest tile that its C entry counted (one each).  The
@@ -44,7 +51,7 @@ from gcmiipy_tpu_torch.ops.mega_step import (
     FilterConsts, _check, add_stage_launches, build_filter_consts,
     filter_args, mega_half_ref)
 
-__all__ = ["MegaHalf", "mega_half", "mega_half_ref"]
+__all__ = ["MegaHalf", "mega_half", "mega_half_ref", "mega_half_shard"]
 
 
 def _library(double):
@@ -61,11 +68,11 @@ def _library(double):
     return fn
 
 
-def _check_half(fields, geom, fc):
+def _check_half(fields, geom, fc, kernel="mega_half"):
     """K6's checks on base and seval (``fields``, ten tensors) and the
     filter buffers."""
-    _check(fields[:5], geom, fc, "mega_half")
-    _check(fields[5:], geom, fc, "mega_half")
+    _check(fields[:5], geom, fc, kernel)
+    _check(fields[5:], geom, fc, kernel)
 
 
 def mega_half(base, seval, dt, geom, fc, coriolis=False, q_limiter=False):
@@ -74,11 +81,36 @@ def mega_half(base, seval, dt, geom, fc, coriolis=False, q_limiter=False):
     tuple; they may be the same), as :func:`mega_half_ref` to rounding (the
     kernel's filter is the FFT), v walled.  ``fc`` from
     :func:`build_filter_consts` on the same device and dtype."""
+    return _half(mega_half, base, seval, dt, geom, fc, coriolis, q_limiter)
+
+
+def mega_half_shard(base, seval, dt, block_geom, fc, coriolis=False,
+                    q_limiter=False):
+    """K5's shard form: :func:`mega_half` on a lat-ring shard's block, its
+    Hl core rows and PHJ = 8 halo rows above and below from the ring
+    neighbours, ``block_geom`` the block's row tables
+    (:meth:`Geom.take_rows`) and ``fc`` the block's filter buffers with the
+    global wall (:func:`build_filter_consts` with ``rows``).  The kernel's
+    rows wrap modulo the block's height, which spoils only the halo rows
+    within a half step's reach of the block's edges."""
+    return _half(mega_half_shard, base, seval, dt, block_geom, fc, coriolis,
+                 q_limiter)
+
+
+mega_half_shard.launches = 0
+
+
+def _half(wrapper, base, seval, dt, geom, fc, coriolis, q_limiter):
+    """K5 for ``wrapper`` (:func:`mega_half` or its shard form): the plain
+    version on CPU tensors, else the checked launch, counted on
+    ``wrapper.launches`` and with the stage launches added to their counts;
+    raises if the launch fails."""
+    kernel = wrapper.__name__
     fields = tuple(base) + tuple(seval)
-    if on_cpu("mega_half", fields):
+    if on_cpu(kernel, fields):
         return mega_half_ref(tuple(base), tuple(seval), dt, geom, fc,
                              coriolis=coriolis, q_limiter=q_limiter)
-    _check_half(fields, geom, fc)
+    _check_half(fields, geom, fc, kernel)
     L, H, W = geom.layers, geom.height, geom.width
     dtype, device = fields[0].dtype, fields[0].device
     fn = _library(dtype == torch.float64)
@@ -100,8 +132,8 @@ def mega_half(base, seval, dt, geom, fc, coriolis=False, q_limiter=False):
                  torch.cuda.current_stream(device).cuda_stream)
     add_stage_launches(counts)
     if err != 0:
-        raise RuntimeError(f"mega_half kernel launch failed: CUDA error {err}")
-    mega_half.launches += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
     return tuple(outs)
 
 
@@ -110,13 +142,19 @@ mega_half.launches = 0
 
 class MegaHalf(torch.nn.Module):
     """The 'mega' half step of one geometry: ``MegaHalf(geom, dt)(base,
-    seval)`` runs :func:`mega_half` with the filter buffers it holds."""
+    seval)`` runs :func:`mega_half` with the filter buffers it holds.  With
+    ``rows`` (global row indices of a lat-ring shard's block) it is K5's
+    shard form: ``self.geom`` is the block's geometry, the buffers the
+    block's (:func:`build_filter_consts`), and ``forward`` runs
+    :func:`mega_half_shard` on the block's fields."""
 
-    def __init__(self, geom, dt, coriolis=False, q_limiter=False):
+    def __init__(self, geom, dt, coriolis=False, q_limiter=False, rows=None):
         super().__init__()
-        self.geom, self.dt = geom, float(dt)
+        self.shard = rows is not None
+        self.geom = geom.take_rows(rows) if self.shard else geom
+        self.dt = float(dt)
         self.coriolis, self.q_limiter = bool(coriolis), bool(q_limiter)
-        for name, x in build_filter_consts(geom)._asdict().items():
+        for name, x in build_filter_consts(geom, rows)._asdict().items():
             self.register_buffer(name, x)
 
     @property
@@ -124,5 +162,6 @@ class MegaHalf(torch.nn.Module):
         return FilterConsts(*(getattr(self, n) for n in FilterConsts._fields))
 
     def forward(self, base, seval):
-        return mega_half(base, seval, self.dt, self.geom, self.consts,
-                         coriolis=self.coriolis, q_limiter=self.q_limiter)
+        half = mega_half_shard if self.shard else mega_half
+        return half(base, seval, self.dt, self.geom, self.consts,
+                    coriolis=self.coriolis, q_limiter=self.q_limiter)

@@ -17,8 +17,17 @@ the pgf stage of K5, K6 and K7.  K4 is one launch of the rest tile
 (``csrc/stencil_tile.cuh``: aflux in a prologue, then the rest stencil),
 which is also stages 4-5 of K5, K6 and K7.
 
+:func:`pgf_parts_shard` and :func:`rest_parts_shard` are K3's and K4's
+shard forms (JAX ``make_pgf_kernel_padded`` / ``make_rest_kernel_padded``
+with ``local_height``, ``local_width`` and ``geom_as_args``, :398-421,
+:477, :492-520, :605): the same kernels on a rank's block of a 2D (lat x
+lon) mesh, its core and the exchanged halo, with the block's geometry
+(:meth:`Geom.take_block`); :mod:`gcmiipy_tpu_torch.parallel.shard_step`'s
+fused2d path runs them.
+
 ``pgf_parts.launches`` and ``rest_parts.launches`` count the calls that
-launched a kernel.  ``pgf_tile.launches`` and ``rest_stencil.launches``
+launched a kernel, ``pgf_parts_shard.launches`` and
+``rest_parts_shard.launches`` those of the shard forms.  ``pgf_tile.launches`` and ``rest_stencil.launches``
 count every launch of the pgf tile and of the rest tile where the C
 entries make it: K3's and K4's own and those inside K5, K6 and K7, which
 their wrappers add after the call (:func:`add_pgf_launches`,
@@ -86,14 +95,14 @@ REST_ARGTYPES = [_I, _PTRS, _VP, _VP, _PTRS, _PTRS, _I, _I, _I, _CONSTS, _I,
                  _I, ctypes.POINTER(_I), _VP]
 
 
-def _check_pgf(fields, geom):
+def _check_pgf(fields, geom, kernel="pgf_parts"):
     L, H, W = geom.layers, geom.height, geom.width
-    check_args("pgf_parts", fields, [(H, W), (L, H, W), (L, H, W)], geom)
+    check_args(kernel, fields, [(H, W), (L, H, W), (L, H, W)], geom)
 
 
-def _check_rest(fields, geom):
+def _check_rest(fields, geom, kernel="rest_parts"):
     L, H, W = geom.layers, geom.height, geom.width
-    check_args("rest_parts", fields,
+    check_args(kernel, fields,
                [(H, W)] + [(L, H, W)] * 4 + [(H, W)] + [(L, H, W)] * 4
                + [(2 * L, H, W), (L, H, W)], geom)
 
@@ -101,10 +110,33 @@ def _check_rest(fields, geom):
 def pgf_parts(sp, su, st, geom):
     """K3: ``(stack, pg_phiv)`` exactly as :func:`pgf_parts_ref`.  ``sp``
     is (H,W), ``su`` and ``st`` (L,H,W)."""
-    fields = (sp, su, st)
-    if on_cpu("pgf_parts", fields):
-        return pgf_parts_ref(sp, su, st, geom)
-    _check_pgf(fields, geom)
+    return _pgf(pgf_parts, (sp, su, st), geom)
+
+
+pgf_parts.launches = 0
+
+
+def pgf_parts_shard(sp, su, st, block_geom):
+    """K3's shard form: :func:`pgf_parts` on a rank's block of a 2D mesh
+    (its Hl x Wl core and the exchanged halo), ``block_geom`` the block's
+    geometry (:meth:`Geom.take_block`).  The kernel wraps the block modulo
+    its extents, which spoils only outputs within the stencil's reach of
+    the block's edges: the core's are the whole globe's."""
+    return _pgf(pgf_parts_shard, (sp, su, st), block_geom)
+
+
+pgf_parts_shard.launches = 0
+
+
+def _pgf(wrapper, fields, geom):
+    """K3 for ``wrapper`` (:func:`pgf_parts` or its shard form): the plain
+    version on CPU tensors, else the checked launch, counted on
+    ``wrapper.launches``; raises if the launch fails."""
+    kernel = wrapper.__name__
+    if on_cpu(kernel, fields):
+        return pgf_parts_ref(*fields, geom)
+    _check_pgf(fields, geom, kernel)
+    sp = fields[0]
     L, H, W = geom.layers, geom.height, geom.width
     fn = _function("gcm_pgf_parts", PGF_ARGTYPES, sp.dtype == torch.float64)
     device = sp.device
@@ -120,12 +152,9 @@ def pgf_parts(sp, su, st, geom):
                  torch.cuda.current_stream(device).cuda_stream)
     add_pgf_launches(count)
     if err != 0:
-        raise RuntimeError(f"pgf_parts kernel launch failed: CUDA error {err}")
-    pgf_parts.launches += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
     return stack, pg_phiv
-
-
-pgf_parts.launches = 0
 
 
 def rest_parts(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv, dt,
@@ -133,11 +162,36 @@ def rest_parts(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv, dt,
     """K4: ``(p_n, u_n, v_n, t_n, q_n)`` exactly as :func:`rest_parts_ref`,
     v not walled.  ``p``/``sp`` are (H,W), ``filt_stack`` (2L,H,W), the
     rest (L,H,W); the outputs are new tensors."""
-    fields = (p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv)
-    if on_cpu("rest_parts", fields):
+    return _rest(rest_parts, (p, u, v, t, q, sp, su, sv, st, sq, filt_stack,
+                              pg_phiv), dt, geom, coriolis, q_limiter)
+
+
+def rest_parts_shard(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv,
+                     dt, block_geom, coriolis=False, q_limiter=False):
+    """K4's shard form: :func:`rest_parts` on a rank's block of a 2D mesh,
+    ``block_geom`` the block's geometry (:meth:`Geom.take_block`); the
+    filtered spu (the stack's first L planes) must carry the exchanged
+    halo, pgfu and ``pg_phiv`` are read at each output point only.  As
+    :func:`pgf_parts_shard`, the core's outputs are the whole globe's; v
+    is not walled."""
+    return _rest(rest_parts_shard, (p, u, v, t, q, sp, su, sv, st, sq,
+                                    filt_stack, pg_phiv), dt, block_geom,
+                 coriolis, q_limiter)
+
+
+rest_parts_shard.launches = 0
+
+
+def _rest(wrapper, fields, dt, geom, coriolis, q_limiter):
+    """K4 for ``wrapper`` (:func:`rest_parts` or its shard form): the plain
+    version on CPU tensors, else the checked launch, counted on
+    ``wrapper.launches``; raises if the launch fails."""
+    kernel = wrapper.__name__
+    if on_cpu(kernel, fields):
         return rest_parts_ref(*fields, dt, geom, coriolis=coriolis,
                               q_limiter=q_limiter)
-    _check_rest(fields, geom)
+    _check_rest(fields, geom, kernel)
+    p, filt_stack, pg_phiv = fields[0], fields[10], fields[11]
     L, H, W = geom.layers, geom.height, geom.width
     device = p.device
     outs = [torch.empty((H, W), dtype=p.dtype, device=device)] + [
@@ -154,8 +208,8 @@ def rest_parts(p, u, v, t, q, sp, su, sv, st, sq, filt_stack, pg_phiv, dt,
             torch.cuda.current_stream(device).cuda_stream)
     add_stencil_launches(count)
     if err != 0:
-        raise RuntimeError(f"rest_parts kernel launch failed: CUDA error {err}")
-    rest_parts.launches += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
     return tuple(outs)
 
 

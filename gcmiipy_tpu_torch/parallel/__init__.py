@@ -1,1 +1,2 @@
-"""The latitude-ring decomposition over ``torch.distributed``."""
+"""The decompositions over ``torch.distributed``: the latitude ring, the 2D
+(lat x lon) mesh and the ensemble axis."""

@@ -12,9 +12,10 @@ latitude band (:mod:`gcmiipy_tpu_torch.parallel.mesh`).
   on one card).  The choice is logged.
 * :func:`is_multiprocess`, :func:`barrier`.
 * :func:`all_reduce`, :func:`all_gather_rows` and :func:`send_recv`: the
-  collectives the ring uses, on the rank's tensors.  Under gloo a CUDA
-  tensor goes through a pinned host buffer for the operations that gloo's
-  CUDA support does not take (:data:`GLOO_CUDA_OPS`).
+  collectives the meshes use, on the rank's tensors, in the default group
+  or a subgroup (a 2D mesh's row or column).  Under gloo a CUDA tensor
+  goes through a pinned host buffer for the operations that gloo's CUDA
+  support does not take (:data:`GLOO_CUDA_OPS`).
 * :func:`fully_replicated_host_copy` gathers a band state into the full
   state on the host of every process (the checkpoint's gather).
 """
@@ -30,9 +31,11 @@ LOG = logging.getLogger("gcmiipy_tpu_torch")
 # The operations that gloo takes on CUDA tensors directly; the others are
 # staged through pinned host memory.  Measured on the card's machine
 # (torch 2.11, cu128) with ``python -m gcmiipy_tpu_torch.parallel.gloo_probe``:
-# all_reduce, all_gather and broadcast gave the right values; point-to-point
-# (batch_isend_irecv) on CUDA tensors lost the connection to its peer.
-GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather", "broadcast"})
+# all_reduce (in the default group and in a subgroup), all_gather and
+# broadcast gave the right values; point-to-point (batch_isend_irecv) on
+# CUDA tensors lost the connection to its peer.
+GLOO_CUDA_OPS = frozenset({"all_reduce", "all_reduce_subgroup", "all_gather",
+                           "broadcast"})
 TIMEOUT_S = 600  # how long a collective may wait for its peers
 
 
@@ -109,7 +112,9 @@ def _alone(group):
 def _staged(x, group, op):
     """True when ``x`` must go through host memory for ``op`` on
     ``group``: a CUDA tensor under gloo, for an op gloo does not take on
-    the card."""
+    the card (``all_reduce`` in a subgroup is ``all_reduce_subgroup``)."""
+    if op == "all_reduce" and group is not None:
+        op = "all_reduce_subgroup"
     return (x.is_cuda and op not in GLOO_CUDA_OPS
             and dist.get_backend(group) == "gloo")
 
@@ -145,29 +150,40 @@ def all_gather_rows(x, group=None, dim=-2):
     return out.to(x.device) if staged else out
 
 
-def send_recv(sends, recvs, group=None):
+def stage(x, group=None):
+    """``x`` as :func:`send_recv` will send it over ``group``: a pinned
+    host copy made now where the point-to-point goes through host memory,
+    else ``x`` itself."""
+    return _host(x) if _staged(x, group, "p2p") else x
+
+
+def send_recv(sends, recvs, group=None, device=None):
     """Point-to-point in one batch: ``sends`` [(tensor, peer, tag)] and
     ``recvs`` [(shape, peer, tag)] with peers as group ranks; returns the
-    received tensors (``sends[0]``'s dtype and device)."""
+    received tensors on ``device`` (default: ``sends[0]``'s) in
+    ``sends[0]``'s dtype.  Sends may already be staged on the host
+    (:func:`stage`)."""
     like = sends[0][0]
-    staged = _staged(like, group, "p2p")
+    device = like.device if device is None else torch.device(device)
+    staged = (device.type == "cuda" and "p2p" not in GLOO_CUDA_OPS
+              and dist.get_backend(group) == "gloo")
 
     def peer(r):
         return dist.get_global_rank(group, r) if group is not None else r
 
     ops, out = [], []
     for x, r, tag in sends:
-        ops.append(dist.P2POp(dist.isend, _host(x) if staged
+        ops.append(dist.P2POp(dist.isend, _host(x) if staged and x.is_cuda
                               else x.contiguous(), peer(r), group, tag))
     for shape, r, tag in recvs:
         buf = torch.empty(shape, dtype=like.dtype,
-                          device="cpu" if staged else like.device,
-                          pin_memory=staged and like.is_cuda)
+                          device="cpu" if staged else device,
+                          pin_memory=staged)
         out.append(buf)
         ops.append(dist.P2POp(dist.irecv, buf, peer(r), group, tag))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return [b.to(like.device) for b in out] if staged else out
+    return [b.to(device) for b in out] if staged else out
 
 
 def fully_replicated_host_copy(state, mesh=None):

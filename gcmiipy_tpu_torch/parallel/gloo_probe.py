@@ -2,8 +2,10 @@
 
     python -m gcmiipy_tpu_torch.parallel.gloo_probe
 
-For each operation the ring uses (``all_reduce``, ``all_gather``,
-``broadcast`` and point-to-point by ``batch_isend_irecv``), two spawned
+For each operation the meshes use (``all_reduce`` in the default group
+and in a subgroup made by ``dist.new_group``, as the 2D mesh's row and
+column groups are, ``all_gather``, ``broadcast`` and point-to-point by
+``batch_isend_irecv``), two spawned
 ranks on the first card (gloo, ``tcp://127.0.0.1``) run it on CUDA tensors
 and check the values.  Each operation has a process pair of its own, so a
 crash fails that operation only.  Prints one JSON line, ``{op: "ok" |
@@ -19,7 +21,8 @@ import sys
 import torch
 import torch.distributed as dist
 
-OPS = ("all_reduce", "all_gather", "broadcast", "p2p")
+OPS = ("all_reduce", "all_reduce_subgroup", "all_gather", "broadcast",
+       "p2p")
 DEADLINE_S = 120
 
 
@@ -38,6 +41,9 @@ def _rank(op, rank, port, out):
         x = torch.full((4, 8), float(rank + 1), device=dev)
         if op == "all_reduce":
             dist.all_reduce(x)
+            good = bool((x == 3).all())
+        elif op == "all_reduce_subgroup":
+            dist.all_reduce(x, group=dist.new_group([0, 1]))
             good = bool((x == 3).all())
         elif op == "all_gather":
             parts = [torch.empty_like(x) for _ in range(2)]

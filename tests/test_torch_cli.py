@@ -62,8 +62,6 @@ def test_cli_metrics_requires_stats():
 def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="plotting"):
         main(SMALL + CPU + ["--plot-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="2D"):
-        main(SMALL + CPU + ["--mesh-shape", "2,2"])
 
 
 def test_cli_ring_needs_its_ranks(capsys):

@@ -7,6 +7,7 @@ import ast
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -116,11 +117,42 @@ def test_stats_off_returns_none():
     assert out[7] is None
 
 
-@pytest.mark.parametrize("field,value", [("stream_wide_native", True)])
+@pytest.mark.parametrize("field,value", [
+    ("backend", "v9"), ("polar_filter", "spectral"),
+    ("filter_precision", "fwd_high")])
 def test_unported_features_raise(field, value):
+    """Every ModelConfig field is ported; check_ported still refuses the
+    values the port does not run."""
     with pytest.raises(NotImplementedError, match=field):
         driver.run_model(8, 8, 3, 1800.0, 1, device="cpu",
                          config=ModelConfig(**{field: value}))
+
+
+def test_stream_wide_native_reaches_the_driver_choice():
+    """'stream' with extras on a grid wider than 2048 and taller than 64:
+    stream_wide_native=True streams K7 natively with the extras between
+    calls (no warning, calls of 2 steps) and equals JAX's run at 1e-10;
+    False takes the per-step 'mega4' path with JAX's warning, as the JAX
+    driver leaves its streaming kernel there."""
+    H, W, L, dt, steps = 72, 2176, 2, 300.0, 4
+    cfg = dict(backend="stream", stream_steps=2, drag_tau=86400.0,
+               physics_every=2, dtype="float64", stats=False)
+    geom = driver.gen_model_geometry(ModelConfig(H, W, L, **cfg), "cpu")
+    for native in (False, True):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run = driver.make_run_fn(geom, ModelConfig(
+                H, W, L, **cfg, stream_wide_native=native), steps)
+        per_step = any("per-step 'mega4' path" in str(w.message)
+                       for w in caught)
+        assert per_step == (not native)
+        assert getattr(run, "chunk_steps", None) == (2 if native else None)
+    port = driver.run_model(H, W, L, dt, steps, device="cpu",
+                            config=ModelConfig(**cfg,
+                                               stream_wide_native=True))
+    ref = jdriver.run_model(H, W, L, dt, steps, config=JModelConfig(
+        **dict(cfg, backend="xla")))
+    assert_close(port[:5], ref[:5], 1e-10, 1e-10, FIELDS)
 
 
 @pytest.mark.parametrize("field,value", [

@@ -381,3 +381,82 @@ def test_stream_steps_shard_source_matches_plain_version(build_dir, shard):
     assert _scaled_err(list(out[0]), list(ref[0])) <= 1e-11
     assert torch.equal(out[0][:, 16:32],
                        whole[0][:, shard * 16:(shard + 1) * 16])
+
+
+@pytest.mark.parametrize("block", [(0, 0), (1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pgf_rest_shard_sources_match_plain_version(build_dir, block, dtype):
+    """K3's and K4's shard forms on one rank's block of a 2x2 mesh (its 8 x
+    18 core and a halo of EX = 3 on both axes, the block's take_block
+    geometry; the first and the last block), against their plain versions
+    on the block to the bit (the host's pow, no Coriolis), and their cores
+    against K3 and K4 on the whole globe to the bit: the kernels read the
+    block alone."""
+    from gcmiipy_tpu_torch.parallel.mesh import block_cols, block_rows
+    L, H, W = 3, 16, 36
+    geom = _geom((L, H, W), True, dtype)
+    base = [x.to(dtype) for x in random_prognostics(_geom((L, H, W), True),
+                                                    81)]
+    seval = [x.to(dtype) for x in random_prognostics(_geom((L, H, W), True),
+                                                     82)]
+    y, x = block
+    rows, cols = block_rows(H, 2, y, 3), block_cols(W, 2, x, 3)
+    bgeom = geom.take_block(rows, cols)
+
+    def blk(a):
+        return a[..., rows, :][..., cols].contiguous()
+
+    core = (Ellipsis, slice(3, 11), slice(3, 21))
+    whole = (Ellipsis, slice(y * 8, y * 8 + 8), slice(x * 18, x * 18 + 18))
+    before = (pr.pgf_parts_shard.launches, pr.rest_parts_shard.launches)
+    with kernels_on_cpu(build_dir):
+        stack, pgv = pr.pgf_parts_shard(blk(seval[0]), blk(seval[1]),
+                                        blk(seval[3]), bgeom)
+        wstack, wpgv = pr.pgf_parts(seval[0], seval[1], seval[3], geom)
+        filt = polar_filter.arakawa_1977(wstack, geom)
+        args = (*map(blk, base), *map(blk, seval), blk(filt), blk(wpgv), DT,
+                bgeom)
+        out = pr.rest_parts_shard(*args, q_limiter=True)
+        wout = pr.rest_parts(*base, *seval, filt, wpgv, DT, geom,
+                             q_limiter=True)
+    assert (pr.pgf_parts_shard.launches, pr.rest_parts_shard.launches) == (
+        before[0] + 1, before[1] + 1)
+    with host_pow():
+        ref = pr.pgf_parts_ref(blk(seval[0]), blk(seval[1]), blk(seval[3]),
+                               bgeom)
+        rref = pr.rest_parts_ref(*args, q_limiter=True)
+    for a, b, w in zip((stack, pgv), ref, (wstack, wpgv)):
+        assert torch.equal(a, b)
+        assert torch.equal(a[core], w[whole])
+    for a, b, w in zip(out, rref, wout):
+        assert torch.equal(a, b)
+        assert torch.equal(a[core], w[whole])
+
+
+@pytest.mark.parametrize("shard", [0, 3])
+def test_mega_half_shard_source_matches_plain_version(build_dir, shard):
+    """K5's shard form on one rank's block of a ring of 4 (8 core rows and
+    PHJ = 8 halo rows a side, the block's row tables, the wall from the
+    global row), against its plain version on the block, and its core rows
+    against K5 on the whole globe to the bit."""
+    from gcmiipy_tpu_torch.ops import mega_half as mh
+    from gcmiipy_tpu_torch.parallel.mesh import block_rows
+    geom = _geom((3, 32, 36), True)
+    base, seval = random_prognostics(geom, 83), random_prognostics(geom, 84)
+    rows = block_rows(32, 4, shard, 8)
+    half = mh.MegaHalf(geom, DT, coriolis=True, rows=rows)
+    bb = [x[..., rows, :].contiguous() for x in base]
+    bs = [x[..., rows, :].contiguous() for x in seval]
+    before = mh.mega_half_shard.launches
+    with kernels_on_cpu(build_dir):
+        out = half(bb, bs)
+        whole = mh.MegaHalf(geom, DT, coriolis=True)(base, seval)
+    assert mh.mega_half_shard.launches == before + 1
+    fc = half.consts
+    ref = mh.mega_half_ref(bb, bs, DT, half.geom, fc, coriolis=True,
+                           filter_ref=lambda X: fft_filter_ref(X, fc))
+    assert _scaled_err(out, ref) <= 1e-11
+    for a, b in zip(out, whole):
+        assert torch.equal(a[..., 8:16, :],
+                           b[..., shard * 8:(shard + 1) * 8, :])
+    assert bool((out[2][:, rows == 31] == 0).all())

@@ -150,19 +150,6 @@ def test_halo_depth_and_odd_k_raise():
         shard_step.make_shard_step_fused4(small, geom, 100.0)
 
 
-def test_xla_and_2d_meshes_are_not_ported():
-    mesh = mesh_mod.make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        driver.run_model(16, 128, 2, 300.0, 1, mesh=mesh,
-                         config=ModelConfig(dtype="float64"))
-    square = mesh_mod.RingMesh(ny=1, index=0, device=torch.device("cpu"),
-                               nx=2)
-    with pytest.raises(NotImplementedError, match="2D"):
-        driver.run_model(16, 128, 2, 300.0, 1, mesh=square,
-                         config=ModelConfig(dtype="float64",
-                                            backend="mega4"))
-
-
 def _both(height, steps, cfg, n, pool, width=128):
     """(ring results of every rank, the port's single-device run, JAX's
     run_model) for the same run."""

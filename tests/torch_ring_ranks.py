@@ -1,11 +1,13 @@
-"""Ranks of a gloo lat ring on the CPU, for the port's tests.
+"""Ranks of a gloo mesh on the CPU, for the port's tests.
 
 A :class:`RankPool` spawns ``world`` processes once (one pool per test
 module), each a rank of one gloo process group on ``127.0.0.1``, with a
-second group of ranks 0 and 1 for two-rank rings.  ``pool.run(task, n,
-**kwargs)`` runs one of :data:`TASKS` on the first ``n`` ranks, each on
-its own band of a lat ring of ``n`` (``mesh.make_mesh`` on the CPU), and
-returns their results in rank order.  Every call has a deadline: on expiry
+second group of ranks 0 and 1 for two-rank meshes.  ``pool.run(task, n,
+shape=None, **kwargs)`` runs one of :data:`TASKS` on the first ``n``
+ranks, each on its own block of a mesh of ``n`` (``mesh.make_mesh`` on the
+CPU): a lat ring, or the 2D (ny, nx) ``shape``, and returns their results
+in rank order.  Every rank builds the 2D meshes of :data:`SHAPES` at
+start, in one order, since their row and column groups need every rank.  Every call has a deadline: on expiry
 the ranks are killed and the call raises, so a hung collective cannot eat
 the test run's clock.
 
@@ -25,6 +27,8 @@ import numpy as np
 DEADLINE_S = 300
 INIT_TIMEOUT_S = 120
 FIELDS = "puvtq"
+# the 2D meshes a pool of 4 builds: (ranks, (ny, nx))
+SHAPES = ((4, (2, 2)), (4, (1, 4)), (2, (1, 2)))
 
 
 def free_port():
@@ -41,18 +45,19 @@ def _geom(geom_d):
 
 
 def _band(fields, mesh):
+    """This rank's block of each full numpy field, as a tensor."""
     import torch
 
-    from gcmiipy_tpu_torch.parallel.mesh import band_rows
+    from gcmiipy_tpu_torch.parallel.mesh import band_cols, band_rows
     rows = band_rows(fields[0].shape[-2], mesh.ny, mesh.index)
+    cols = band_cols(fields[0].shape[-1], mesh.nx, mesh.x_index)
     return tuple(torch.as_tensor(np.ascontiguousarray(
-        x[..., rows[0]:rows[-1] + 1, :])) for x in fields)
+        x[..., rows[0]:rows[-1] + 1, cols[0]:cols[-1] + 1])) for x in fields)
 
 
 def _gathered(band, mesh):
-    from gcmiipy_tpu_torch.parallel import distributed
-    return tuple(distributed.all_gather_rows(x, mesh.group).numpy()
-                 for x in band)
+    from gcmiipy_tpu_torch.parallel.mesh import gather_field
+    return tuple(gather_field(x, mesh).numpy() for x in band)
 
 
 def task_halo(mesh, x, halo):
@@ -60,6 +65,40 @@ def task_halo(mesh, x, halo):
     from gcmiipy_tpu_torch.parallel import halo as halo_mod
     (band,) = _band((x,), mesh)
     return halo_mod.exchange_axis(band, halo, mesh).numpy()
+
+
+def task_halo2d(mesh, x, halo):
+    """The rank's block of ``x`` padded by the 2D exchange, and trimmed
+    back."""
+    from gcmiipy_tpu_torch.parallel import halo as halo_mod
+    (block,) = _band((x,), mesh)
+    padded = halo_mod.exchange_2d(block, halo, mesh)
+    back = halo_mod.trim(padded, halo, (-2, -1))
+    return padded.numpy(), bool((back == block).all())
+
+
+def task_psum_filter(mesh, q, geom_d):
+    """The spectral-psum filter of the rank's block of ``q``; the gathered
+    field."""
+    from gcmiipy_tpu_torch.parallel import shard_step
+    (block,) = _band((q,), mesh)
+    filt = shard_step.spectral_psum_filter(mesh, _geom(geom_d))
+    return _gathered((filt(block),), mesh)[0]
+
+
+def task_step(mesh, form, fields, geom_d, dt, steps, **kw):
+    """``steps`` steps of ``shard_step.<form>(mesh, geom, dt, **kw)``;
+    the gathered fields and the warnings."""
+    import warnings
+
+    from gcmiipy_tpu_torch.parallel import shard_step
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step = getattr(shard_step, form)(mesh, _geom(geom_d), dt, **kw)
+    band = _band(fields, mesh)
+    for _ in range(steps):
+        band = step(*band)
+    return _gathered(band, mesh), [str(w.message) for w in caught]
 
 
 def task_fused4(mesh, fields, geom_d, dt, steps):
@@ -149,6 +188,43 @@ def task_run_from(mesh, state_d, height, width, layers, dt, steps, config):
     return res
 
 
+def task_sharded_run(mesh, state_d, height, width, layers, dt, steps,
+                     config):
+    """``gspmd.make_sharded_run_fn`` from the full state ``state_d``; the
+    gathered fields."""
+    from gcmiipy_tpu_torch.convert import state_from_jax_numpy
+    from gcmiipy_tpu_torch.model import driver
+    from gcmiipy_tpu_torch.model.config import ModelConfig
+    from gcmiipy_tpu_torch.parallel import gspmd, mesh as mesh_mod
+    cfg = driver.normalize_config(ModelConfig(
+        height=height, width=width, layers=layers, dt=dt, **config))
+    geom = driver.gen_model_geometry(cfg, "cpu")
+    run = gspmd.make_sharded_run_fn(geom, cfg, steps, mesh)
+    out = run(gspmd.shard_state(state_from_jax_numpy(state_d, "cpu"), mesh))
+    full = mesh_mod.gather_state(out[0], mesh)
+    return {k: x.numpy() for k, x in zip(FIELDS, full.prog)}
+
+
+def task_ensemble(mesh, states_d, height, width, layers, dt, steps, config):
+    """``ensemble.make_ensemble_run_fn`` on an 'e' mesh of this task's
+    ranks, from the members ``states_d``; the gathered members' fields and
+    total energies."""
+    from gcmiipy_tpu_torch.convert import state_from_jax_numpy
+    from gcmiipy_tpu_torch.model import driver
+    from gcmiipy_tpu_torch.model.config import ModelConfig
+    from gcmiipy_tpu_torch.parallel import ensemble
+    cfg = driver.normalize_config(ModelConfig(
+        height=height, width=width, layers=layers, dt=dt, **config))
+    geom = driver.gen_model_geometry(cfg, "cpu")
+    emesh = ensemble.make_ensemble_mesh(device="cpu", group=mesh.group)
+    run = ensemble.make_ensemble_run_fn(geom, cfg, steps, emesh)
+    out, stats = run(ensemble.stack_states(
+        [state_from_jax_numpy(d, "cpu") for d in states_d]))
+    res = {k: x.numpy() for k, x in zip(FIELDS, out.prog)}
+    res["total_energy"] = stats.total_energy.numpy()
+    return res
+
+
 def task_cli(mesh, argv):
     """``python -m gcmiipy_tpu_torch`` in-process on this rank: its exit
     code."""
@@ -173,15 +249,21 @@ def _serve(rank, world, port, tasks, results):
     if world > 2:
         groups[2] = dist.new_group([0, 1])
     from gcmiipy_tpu_torch.parallel.mesh import make_mesh
+    # every rank builds every 2D mesh, members or not, in one order
+    meshes = {(n, shape): make_mesh(device="cpu", group=groups[n],
+                                    shape=shape)
+              for n, shape in SHAPES if n in groups}
     while True:
         item = tasks.get()
         if item is None:
             break
-        name, n, kwargs = item
+        name, n, shape, kwargs = item
         try:
             out = None
             if rank < n:
-                mesh = make_mesh(device="cpu", group=groups[n])
+                mesh = (make_mesh(device="cpu", group=groups[n])
+                        if shape is None or shape[1] == 1
+                        else meshes[n, tuple(shape)])
                 out = TASKS[name](mesh, **kwargs)
             results.put((rank, None, out))
         except Exception:  # noqa: BLE001 - sent to the test, which fails
@@ -207,15 +289,17 @@ class RankPool:
             p.start()
         self.broken = None
 
-    def run(self, task, n=None, deadline_s=DEADLINE_S, **kwargs):
-        """``task`` on the first ``n`` ranks (all by default); their
+    def run(self, task, n=None, shape=None, deadline_s=DEADLINE_S,
+            **kwargs):
+        """``task`` on the first ``n`` ranks (all by default), on a lat
+        ring or the 2D mesh ``shape`` (one of :data:`SHAPES`); their
         results in rank order.  Raises on a rank's error, and kills the
         pool on a missed deadline."""
         if self.broken:
             raise RuntimeError(f"the rank pool is down: {self.broken}")
         n = self.world if n is None else n
         for q in self.tasks:
-            q.put((task, n, kwargs))
+            q.put((task, n, shape, kwargs))
         end = time.monotonic() + deadline_s
         got = {}
         while len(got) < self.world:
