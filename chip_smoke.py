@@ -67,6 +67,18 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            at step 7, off its launch size K = 2, resumed behind a one-step
 #            alignment head and equal to its straight run to the bit; python
 #            -m gcmiipy_tpu_torch run as a subprocess (exit code 0);
+#   sideband the side-band modules, plain PyTorch on the card at float64 held
+#            to the same calls on the CPU at float64 (SIDEBAND_REL64 of each
+#            field's scale), the runs also at float32 on the card
+#            (SIDEBAND_REL32): the 1D advection config (161 cells, dx = 10
+#            m, dt = 1 s) for 400 steps of upwind, third-order upwind and
+#            Lax-Friedrichs through run_guarded; the 2D C-grid shallow water
+#            (64x64, dx = 300 km, dt = 300 s) for 1000 steps through
+#            run_guarded, stable, with a tensor's host reads made to raise;
+#            the C-grid, A-grid, temperature-viscosity and GCM-form 2D cores
+#            and ctu_step at 512x1024 for 20 steps; dynam_matsuno on 161
+#            cells for 50 steps; grey_solar and grey_radiation at 9x512x1024;
+#            each card run's ms by CUDA events;
 #   ring     the latitude ring: 4 ranks spawned on the one card over gloo
 #            (after phase build, so that no rank builds); each holds its K6
 #            shard block (128+16 rows) and K7 shard block (k=4: 128+64 rows)
@@ -97,6 +109,11 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            loop timed, its parts timed on every rank at once and rank
 #            0's step profiled; stream_wide_native at 9x512x4096 against
 #            mega4 to the bit; torchrun of the CLI with --mesh-shape 2,2;
+#            the ensemble: 4 members on a pure 'e' mesh (K6) and 2 members on
+#            an ('e','y','x') mesh of shape (2, 2, 1) (K6's ring form), 5
+#            steps of 'mega4' at 9x512x1024, each member held against its
+#            single-device run (to the bit expected; a float64 case at 3
+#            layers within MESH2D_REL64);
 #   timing   ms/step of the backends, mega4 and stream also with the
 #            physics and with Config S (over the terrain from phase
 #            surface's start), mega4 also with the physics every 4th step (windows
@@ -206,6 +223,18 @@ MESH2D_REL64 = 1e-9
 PSUM_REL = 1e-6  # the psum filter's float32 result, of the field's scale
 MESH2D_F64 = dict(layers=3, steps=2)
 WIDE = dict(height=512, width=4096, layers=9, dt=30.0, steps=4)
+# phase mesh2d's ensembles: 'mega4' steps, the ('e','y','x') shape
+ENSEMBLE_STEPS, ENSEMBLE_SHAPE = 5, (2, 2, 1)
+# phase sideband: the card's float64 result held to the CPU's float64 result
+# of the same call (both plain PyTorch: they differ by the rounding of pow,
+# exp and log, by a division by a Python number, which the card does as a
+# product with its reciprocal, and by the order of reductions), and a
+# float32 run on the card held to the CPU's float64 run, of each field's
+# scale: the 1000-step shallow water's float32 rounding grows to about 2e-3
+SIDEBAND_REL64, SIDEBAND_REL32 = 1e-10, 1e-2
+SIDEBAND_1D = dict(cells=161, dx=10.0, dt=1.0, steps=400, v=2.0)
+SIDEBAND_SW = dict(side=64, dx=300e3, dt=300.0, steps=1000)
+SIDEBAND_2D = dict(height=512, width=1024, steps=20)
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1622,6 +1651,225 @@ def phase_services(device):
     return launches
 
 
+def _sideband_inputs():
+    """The side band's starts as float64 CPU tensors, from a seed."""
+    from gcmiipy_tpu_torch import constants
+    from gcmiipy_tpu_torch.model import ctu_model
+    rng = np.random.default_rng(7)
+    c = SIDEBAND_1D["cells"]
+    q1 = np.zeros(c)
+    q1[c // 4:c // 2] = 1.0
+    n = SIDEBAND_SW["side"]
+    x = np.arange(n)
+    X, Y = np.meshgrid(x, x, indexing="ij")
+    bump = 8000.0 + 10.0 * np.exp(-((X - n / 2) ** 2 + (Y - n / 2) ** 2)
+                                  / (2 * 4.0 ** 2))
+    H, W = SIDEBAND_2D["height"], SIDEBAND_2D["width"]
+    X, Y = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    hump = np.exp(-((X - H / 2) ** 2 + (Y - W / 2) ** 2) / (2 * 16.0 ** 2))
+    small = 0.1 * rng.standard_normal((2, H, W))
+    t0 = constants.standard_temperature * (
+        constants.P0 / constants.standard_pressure) ** constants.kappa
+    impulse = np.zeros((H, W))
+    impulse[H // 2, W // 2] = 1.5
+    gcm = (constants.standard_pressure * (1 + 1e-4 * rng.standard_normal(
+        (H, W))), 1.0 + 0.1 * rng.standard_normal((H, W)),
+        0.1 * rng.standard_normal((H, W)),
+        t0 + 0.1 * rng.standard_normal((H, W)),
+        0.1 + 0.01 * rng.random((H, W)))
+    dyn = (np.full(c, 10.0), np.full(c, constants.standard_pressure),
+           np.full(c, constants.standard_temperature), 1e-3 * q1)
+    return {
+        "q1": torch.as_tensor(q1), "sw": tuple(torch.as_tensor(a) for a in (
+            np.zeros((n, n)), np.zeros((n, n)), bump)),
+        "c_grid": tuple(torch.as_tensor(a) for a in (
+            small[0], small[1], 8000.0 + 10.0 * hump)),
+        "a_grid": tuple(torch.as_tensor(a) for a in (
+            small[0], small[1], 1000.0 + hump)),
+        "temp": tuple(torch.as_tensor(a) for a in (
+            impulse, np.zeros((H, W)),
+            np.full((H, W), constants.standard_pressure),
+            np.full((H, W), constants.standard_temperature))),
+        "gcm": tuple(torch.as_tensor(a) for a in gcm),
+        "ctu": ctu_model.get_initial_conditions((H, W), device="cpu"),
+        "dyn": tuple(torch.as_tensor(a) for a in dyn),
+    }
+
+
+def _sideband_radiation_inputs():
+    """The grey schemes' random but physical columns at 9x512x1024 (JAX
+    tests/test_radiation.py's recipe) on the CPU at float64, and their
+    geometry."""
+    from gcmiipy_tpu_torch import constants
+    from gcmiipy_tpu_torch.grid import geometry
+    from gcmiipy_tpu_torch.model.state import GroundVars
+    L, H, W = MAIN["layers"], SIDEBAND_2D["height"], SIDEBAND_2D["width"]
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(3)
+    p = torch.as_tensor(1e5 * (1 + 0.02 * rng.standard_normal((H, W))))
+    tp = p * geom.sig + geom.ptop
+    tt = torch.as_tensor(260.0 + 60.0 * rng.random((L, H, W)))
+    t = tt * (constants.P0 / tp) ** constants.kappa
+    q = torch.as_tensor(10.0 ** rng.uniform(-5, -2, (L, H, W)))
+    gt = torch.as_tensor(270.0 + 50.0 * rng.random((H, W)))
+    zero = torch.zeros_like(gt)
+    return geom, (p, q, t, tt, GroundVars(gt, zero, zero, zero))
+
+
+def _to(x, device, dtype):
+    """A tensor, or each tensor of a (named)tuple, on ``device`` in
+    ``dtype``."""
+    if isinstance(x, tuple):
+        items = [_to(v, device, dtype) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x.to(device=device, dtype=dtype)
+
+
+def _timed(fn, device):
+    """``fn()`` and the ms it took on the card (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_sideband(device, card):
+    """The side-band modules on the card: each run (and each single call)
+    at float64 against the same call on the CPU at float64 within
+    SIDEBAND_REL64 of each field's scale; each run also at float32 on the
+    card against the CPU's float64 run within SIDEBAND_REL32; the guarded
+    runs stable; the 1000-step 2D shallow-water run with every host read
+    of a tensor made to raise.  Logs each card run's ms (CUDA events)."""
+    from gcmiipy_tpu_torch.dynamics import advection_schemes as sch
+    from gcmiipy_tpu_torch.dynamics import gcm_sequence
+    from gcmiipy_tpu_torch.dynamics import shallow_water_2d as sw2
+    from gcmiipy_tpu_torch.model import ctu_model, harness
+    from gcmiipy_tpu_torch.physics import radiation
+    inputs = _sideband_inputs()
+    o, sw, two = SIDEBAND_1D, SIDEBAND_SW, SIDEBAND_2D
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+
+    def looped(step, steps):
+        def run(state):
+            for _ in range(steps):
+                state = step(*state)
+            return state
+        return run
+
+    def guarded(step, steps, variation_of=None):
+        return lambda state: harness.run_guarded(
+            step, state, steps, variation_of=variation_of)
+
+    v1 = torch.full((o["cells"],), o["v"], dtype=f64)
+    runs = {}
+    for name in ("ft_upwind", "upwind_third_order", "lax_friedrichs"):
+        scheme = getattr(sch, name)
+        runs[f"1D {name} {o['cells']} cells {o['steps']} steps"] = (
+            lambda s, scheme=scheme: guarded(
+                lambda q: scheme(o["dt"], o["dx"], v1.to(q), q),
+                o["steps"])(s), inputs["q1"], True)
+    runs[f"2D C-grid SW {sw['side']}x{sw['side']} {sw['steps']} steps"] = (
+        guarded(lambda s: sw2.matsuno_scheme_c_grid(*s, sw["dx"], sw["dt"]),
+                sw["steps"], variation_of=lambda s: s[2]), inputs["sw"], True)
+    shape = f"{two['height']}x{two['width']} {two['steps']} steps"
+    n2 = two["steps"]
+    runs[f"matsuno_scheme_c_grid {shape}"] = (looped(
+        lambda *s: sw2.matsuno_scheme_c_grid(*s, 300e3, 300.0), n2),
+        inputs["c_grid"], False)
+    runs[f"matsuno_scheme_a_grid {shape}"] = (looped(
+        lambda *s: sw2.matsuno_scheme_a_grid(*s, 300e3, 900.0), n2),
+        inputs["a_grid"], False)
+    runs[f"matsuno_scheme_temp {shape}"] = (looped(
+        lambda *s: sw2.matsuno_scheme_temp(*s, 300e3, 300.0), n2),
+        inputs["temp"], False)
+    runs[f"matsuno_timestep_2d {shape}"] = (looped(
+        lambda *s: sw2.matsuno_timestep_2d(*s, 100.0, 100e3), n2),
+        inputs["gcm"], False)
+    runs[f"ctu_step {shape}"] = (looped(
+        lambda *s: ctu_model.ctu_step(*s, dt=0.5, spatial_change=(1.0, 1.0)),
+        n2), inputs["ctu"], False)
+    runs[f"dynam_matsuno {o['cells']} cells 50 steps"] = (looped(
+        lambda *s: gcm_sequence.dynam_matsuno(*s, 10.0, 100e3), 50),
+        inputs["dyn"], False)
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("a host read of a tensor in run_guarded")
+
+    ms, cpu_s = {}, {}
+    for tag, (run, start, is_guarded) in runs.items():
+        t0 = time.perf_counter()
+        ref = run(_to(start, cpu, f64))
+        cpu_s[tag] = time.perf_counter() - t0
+        got = {}
+        for dtype in (f64, f32):
+            saved = {}
+            if is_guarded:  # the guard stays on the device: no host read
+                for name in ("item", "__bool__", "__float__", "__int__",
+                             "tolist"):
+                    saved[name] = getattr(torch.Tensor, name)
+                    setattr(torch.Tensor, name, refuse)
+            try:
+                got[dtype], t = _timed(
+                    lambda: run(_to(start, device, dtype)), device)
+            finally:
+                for name, fn in saved.items():
+                    setattr(torch.Tensor, name, fn)
+            ms[f"{tag} {str(dtype)[6:]}"] = t
+        if is_guarded:
+            flags = [bool(ref[1])] + [bool(got[d][1]) for d in (f64, f32)]
+            if not all(flags):
+                fail("sideband", f"{tag}: run_guarded not stable (CPU, card "
+                                 f"float64, card float32: {flags})")
+            ref, got = ref[0], {d: g[0] for d, g in got.items()}
+        ref = [ref] if torch.is_tensor(ref) else list(ref)
+        refc = [x.to(device) for x in ref]
+        rel = {d: rel_err([x.to(f64) for x in ([got[d]] if torch.is_tensor(
+            got[d]) else got[d])], refc) for d in (f64, f32)}
+        finite = all(torch.isfinite(x).all() for x in ref)
+        log("sideband", f"{tag}: card float64 against the CPU's float64 rel "
+                        f"{rel[f64]:.3e} (< {SIDEBAND_REL64:g}), card float32 "
+                        f"rel {rel[f32]:.3e} (< {SIDEBAND_REL32:g})"
+                        + ("; run_guarded stable" if is_guarded else ""))
+        if not (finite and rel[f64] < SIDEBAND_REL64
+                and rel[f32] < SIDEBAND_REL32):
+            fail("sideband", f"{tag} outside its bounds (finite: {finite})")
+
+    geom, cols = _sideband_radiation_inputs()
+    p, q, t, tt, g = cols
+    calls = {
+        "grey_solar": lambda geom, p, q, t, tt, g: radiation.grey_solar(
+            p, q, t, 0.4, g.gt, 0.0, 600.0, geom),
+        "grey_radiation": lambda geom, p, q, t, tt, g:
+            radiation.grey_radiation(p, q, tt, 0.3, g, None, 600.0, geom),
+    }
+    shape = f"{MAIN['layers']}x{two['height']}x{two['width']}"
+    for name, call in calls.items():
+        t0 = time.perf_counter()
+        ref = call(geom, *cols)
+        cpu_s[name] = time.perf_counter() - t0
+        gdev = geom.to(device=device)
+        dev_cols = _to(cols, device, f64)
+        got, t_ms = _timed(lambda: call(gdev, *dev_cols), device)
+        ms[f"{name} {shape} float64"] = t_ms
+        rel = rel_err(got, [x.to(device) for x in ref])
+        log("sideband", f"{name} {shape}: card float64 against the CPU's "
+                        f"float64 rel {rel:.3e} (< {SIDEBAND_REL64:g})")
+        if not (rel < SIDEBAND_REL64
+                and all(torch.isfinite(x).all() for x in got)):
+            fail("sideband", f"{name} outside its bound")
+    log("sideband", f"ms on the card ({card}; CUDA events around each run, "
+        "plain PyTorch, one kernel an operation): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ms.items()))
+    log("sideband", "the CPU references, host seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in cpu_s.items()))
+    return ms
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -2050,13 +2298,18 @@ def _mesh2d_work(rank, world, port, device_type, tmp):
         gen_model_geometry, make_run_fn, run_model)
     from gcmiipy_tpu_torch.ops import mega_half as mh, mega_step as ms
     from gcmiipy_tpu_torch.ops import pgf_rest as pr
-    from gcmiipy_tpu_torch.parallel import distributed, mesh as mesh_mod
+    from gcmiipy_tpu_torch.parallel import distributed, ensemble
+    from gcmiipy_tpu_torch.parallel import mesh as mesh_mod
     from gcmiipy_tpu_torch.parallel import shard_step as ss
     distributed.initialize(f"127.0.0.1:{port}", world, rank,
                            device=device_type)
     m22 = mesh_mod.make_mesh(device=device_type, shape=(2, 2))
     m14 = mesh_mod.make_mesh(device=device_type, shape=(1, 4))
     ring = mesh_mod.make_mesh(device=device_type)
+    # the ensembles' meshes: every rank creates their groups, in one order
+    e_pure = ensemble.make_ensemble_mesh(device=device_type)
+    e_yx = ensemble.make_ensemble_mesh(device=device_type,
+                                       shape=ENSEMBLE_SHAPE)
     dev = ring.device
     clock = [time.perf_counter()]
 
@@ -2230,9 +2483,67 @@ def _mesh2d_work(rank, world, port, device_type, tmp):
     res["psum"] = _psum_check(m22, geom, start)
     res["parts"] = _mesh2d_parts(m22, geom, blocks)
     tick("psum check and parts")
+    res["ensembles"] = _ensemble_checks(rank, e_pure, e_yx, geom, dev)
+    tick("ensembles")
     dist.barrier()
     dist.destroy_process_group()
     return res
+
+
+def _ensemble_checks(rank, e_pure, e_yx, geom, dev):
+    """The ensembles of phase mesh2d on this rank: 4 members on the pure
+    'e' mesh (one a rank, K6) and 2 on the ('e','y','x') mesh of
+    ENSEMBLE_SHAPE (one a member group, its lat ring of 2 ranks running
+    K6's ring form), ENSEMBLE_STEPS steps of 'mega4' each from a perturbed
+    start of its own seed, with the launches counted; every rank receives
+    all the members, and holds member ``rank % members`` against its
+    single-device 'mega4' run.  Then the ('e','y','x') ensemble in float64
+    at 3 layers against the single-device float64 runs."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from gcmiipy_tpu_torch.model.driver import gen_model_state, make_run_fn
+    from gcmiipy_tpu_torch.model.state import PrognosticVars
+    from gcmiipy_tpu_torch.ops import mega_step as ms
+    from gcmiipy_tpu_torch.parallel import ensemble
+    n = ENSEMBLE_STEPS
+    out = {}
+
+    def members(g, cfg, count, dtype):
+        base = gen_model_state(g, cfg)
+        return [base._replace(prog=PrognosticVars(
+            *random_state(g, 20 + k, dev, dtype))) for k in range(count)]
+
+    def one(g, cfg, state):
+        return tuple(make_run_fn(g, dataclasses.replace(cfg, guard=False),
+                                 n)(state)[0].prog)
+
+    cases = (("pure 'e'", e_pure, 4, _config("mega4"), geom, torch.float32),
+             (f"{ENSEMBLE_SHAPE}", e_yx, 2, _config("mega4"), geom,
+              torch.float32))
+    cfg64, geom64, _ = _f64_case(dev)
+    cases += ((f"{ENSEMBLE_SHAPE} float64", e_yx, 2,
+               dataclasses.replace(cfg64, backend="mega4"), geom64,
+               torch.float64),)
+    for tag, emesh, count, cfg, g, dtype in cases:
+        starts = members(g, cfg, count, dtype)
+        run = ensemble.make_ensemble_run_fn(g, cfg, n, emesh)
+        dist.barrier()
+        t = time.perf_counter()
+        (states, stats), counts = _counted(
+            (ms.mega_step, ms.mega_step_shard),
+            lambda: run(ensemble.stack_states(starts)))
+        seconds = time.perf_counter() - t
+        k = rank % count
+        ref = one(g, cfg, starts[k])
+        got = tuple(x[k] for x in states.prog)
+        out[tag] = dict(
+            counts=dict(zip(("mega_step", "mega_step_shard"), counts)),
+            member=k, bit_equal=bit_equal(got, ref), rel=rel_err(got, ref),
+            members=int(states.step.shape[0]),
+            stats_shape=tuple(stats.total_energy.shape), seconds=seconds,
+            finite=all(bool(torch.isfinite(x).all()) for x in states.prog))
+    return out
 
 
 def _psum_check(m22, geom, start):
@@ -2518,8 +2829,37 @@ def _mesh2d_checks(device):
     log("mesh2d", "the 2x2 step's parts, all ranks at once, host ms a call "
         "(rank 0): " + ", ".join(f"{k} {v:.4f}"
                                  for k, v in r0["parts"].items()))
+    _log_ensembles(results)
     r0["wide_ms"] = _wide_native(device)
     return r0
+
+
+def _log_ensembles(results):
+    """Phase mesh2d's ensembles, every rank: all the members received, the
+    launches of K6 (a member a rank on the pure 'e' mesh) and of K6's ring
+    form (a member a group of 2 ranks), each member equal to its
+    single-device run (to the bit expected; the float64 case within
+    MESH2D_REL64, the float32 ones within RING_REL)."""
+    n = ENSEMBLE_STEPS
+    want = {"pure 'e'": dict(mega_step=n, mega_step_shard=0)}
+    want[f"{ENSEMBLE_SHAPE}"] = dict(mega_step=0, mega_step_shard=n)
+    want[f"{ENSEMBLE_SHAPE} float64"] = dict(mega_step=0, mega_step_shard=n)
+    for rank in range(RING):
+        for tag, e in results[rank]["ensembles"].items():
+            bound = MESH2D_REL64 if "float64" in tag else RING_REL
+            log("mesh2d", f"rank {rank} ensemble {tag}, {e['members']} "
+                          f"members, {n} mega4 steps in {e['seconds']:.2f}s: "
+                          f"launches {e['counts']}; member {e['member']} "
+                          f"equal to its single-device run to the bit: "
+                          f"{e['bit_equal']} (rel {e['rel']:.3e}, < "
+                          f"{bound:g}); stats {e['stats_shape']}")
+            if e["counts"] != want[tag]:
+                fail("mesh2d", f"rank {rank} ensemble {tag} launched "
+                               f"{e['counts']}, expected {want[tag]}")
+            if not (e["finite"] and e["rel"] < bound
+                    and e["stats_shape"] == (e["members"], n)):
+                fail("mesh2d", f"rank {rank} ensemble {tag}: a member differs"
+                               " from its single-device run")
 
 
 def _bytes(tensors):
@@ -3180,6 +3520,7 @@ def main():
     launches.update(phase_main_mega_v2(device, geom, start, runs))
     surface = phase_surface(device)
     launches.update(phase_services(device))
+    phase_sideband(device, card)
     ring = phase_ring(device)
     m2d = phase_mesh2d(device)
     rows = phase_timing(device, launches, max_abs, geom, start, surface)

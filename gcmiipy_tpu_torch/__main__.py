@@ -4,8 +4,10 @@ Port of ``gcmiipy_tpu/__main__.py:29-309``: every :class:`gcmiipy_tpu_torch.
 model.config.ModelConfig` knob is a flag, and the run summary mirrors the
 reference's STATS prints (u/v extrema and the total energy,
 ``no_limits_2_5d.py:85-91``).  ``--device`` picks the card (the default) or
-the CPU.  Exit codes: 0 for a clean run, 2 for a bad combination of flags,
-3 for a run that blew up.
+the CPU.  ``--plot-dir`` writes the final fields and the energy trace as
+PNGs (matplotlib, checked before the run starts).  Exit codes: 0 for a
+clean run, 2 for a bad combination of flags or a missing matplotlib, 3 for
+a run that blew up.
 
 Examples:
 
@@ -27,6 +29,7 @@ Examples:
 """
 
 import argparse
+import os
 import sys
 import warnings
 
@@ -151,8 +154,8 @@ def _add_run_args(ap):
     ap.add_argument("--metrics", default=None,
                     help="write per-step StepStats as JSON lines here")
     ap.add_argument("--plot-dir", default=None,
-                    help="final-state field PNGs + energy trace (not "
-                         "ported yet: utils/plotting.py)")
+                    help="write the final fields and the energy trace as "
+                         "PNGs here (needs matplotlib)")
     ap.add_argument("--no-stats", action="store_true",
                     help="skip per-step diagnostics (fastest)")
     ap.add_argument("--mesh-shape", default=None, metavar="NY[,NX]",
@@ -194,8 +197,12 @@ def cmd_run(args):
     from gcmiipy_tpu_torch.parallel import distributed
 
     if args.plot_dir:
-        raise NotImplementedError(
-            "--plot-dir: utils/plotting.py is not ported yet")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print("error: --plot-dir needs matplotlib, which does not "
+                  "import here", file=sys.stderr)
+            return 2
     # join the process group before anything touches a device
     distributed.initialize(coordinator_address=args.coordinator,
                            num_processes=args.num_processes,
@@ -282,6 +289,16 @@ def cmd_run(args):
             drift = float(te[-1] / te[0] - 1.0) if te[0] else float("nan")
             print(f"  total energy {te[0]:.6e} -> {te[-1]:.6e} J/m^2 "
                   f"(drift {drift:+.3e})")
+        if args.plot_dir:
+            from gcmiipy_tpu_torch.utils import plotting
+            paths = [plotting.save_field_plot(
+                f, os.path.join(args.plot_dir, f"final_{name}.png"),
+                title=f"{name} after {args.steps} steps")
+                for name, f in zip("puvtq", (p, u, v, t, q))]
+            if stats is not None:
+                paths.append(plotting.save_energy_plot(
+                    stats, os.path.join(args.plot_dir, "energy.png")))
+            print(f"  plots: {', '.join(paths)}")
     if blown:
         if not quiet:
             print(f"  BLOWN UP: {blown[0].message}", file=sys.stderr)

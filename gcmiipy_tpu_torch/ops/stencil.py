@@ -24,6 +24,33 @@ def im(q):
     return torch.roll(q, 1, dims=-1)
 
 
+def iph_1d(q):
+    """q averaged to i+1/2."""
+    return (q + ip(q)) * 0.5
+
+
+def imh_1d(q):
+    """q averaged to i-1/2."""
+    return (q + im(q)) * 0.5
+
+
+def div_1d(q_h, dx):
+    """Divergence at the cell center of an edge quantity (reference
+    coordinates_1d.py:41)."""
+    return (q_h - im(q_h)) / dx
+
+
+def divu_1d(q_h, dx):
+    """Centered divergence (reference coordinates_1d.py:45)."""
+    return (ip(q_h) - im(q_h)) / (2 * dx)
+
+
+def gradh_1d(q_i, dx):
+    """Gradient at the half point of a centered quantity (reference
+    coordinates_1d.py:49)."""
+    return (ip(q_i) - q_i) / dx
+
+
 def ipj(q):
     """q at (i+1, j)."""
     return torch.roll(q, -1, dims=i_axis)
@@ -42,6 +69,11 @@ def ijp(q):
 def ijm(q):
     """q at (i, j-1)."""
     return torch.roll(q, 1, dims=j_axis)
+
+
+def imjp(q):
+    """q at (i-1, j+1) (reference coordinates.py:48)."""
+    return imj(ijp(q))
 
 
 def kp(q):

@@ -1,8 +1,12 @@
 """Grey-gas radiation column physics.
 
-Port of the grey scheme of ``gcmiipy_tpu/physics/radiation.py`` (reference
-``grey_solar.py``): the zenith angle and the solar clock, and the basic grey
-atmosphere of Atmospheric Dynamics section 2.7 (reference
+Port of ``gcmiipy_tpu/physics/radiation.py`` (reference ``grey_solar.py``):
+the zenith angle and the solar clock; the cloudy grey schemes with ozone,
+CO2 and H2O absorbers, Hansen 1983 cloud optical thickness and a slab ground
+(:func:`grey_solar`, the shortwave alone, and :func:`grey_radiation`, the
+shortwave and longwave sweeps, reference ``grey_solar.py:106-320``), whose
+vertical ``lax.scan`` sweeps are loops over the L layers here; the basic
+grey atmosphere of Atmospheric Dynamics section 2.7 (reference
 ``grey_solar.py:358-563``) in its two forms: :func:`basic_grey_radiation`
 (per-layer tensors, the vertical scans written as loops over the L layers)
 and :func:`basic_grey_radiation_ladder` (the same math with every layer's
@@ -18,12 +22,25 @@ import numpy as np
 import torch
 
 from gcmiipy_tpu_torch import constants
+from gcmiipy_tpu_torch.physics import ozone as ozone_mod
+from gcmiipy_tpu_torch.physics import thermo
 
 
 def mmr_from_vmr(vmr, mmg, mma):
     """Mass from volumetric mixing ratio (reference grey_solar.py:21-26)."""
     return vmr * mmg / mma
 
+
+# 300 ppm CO2 as mass mixing ratio (reference grey_solar.py:29)
+co2_mmr = mmr_from_vmr(300 / 1e6, constants.M_CO2, constants.Md)
+
+# Grey absorption cross-sections [m^2/kg] (reference grey_solar.py:76-83);
+# the reference's ozone_weight = 0.01 in the units of h2o_weight is a plain
+# 0.01 m^2/kg (grey_solar.py:82)
+h2o_weight = 0.125
+co2_weight = 1.0
+co2_sw_weight = co2_weight
+ozone_weight = 0.01
 
 # Four-band longwave absorptivities per dp = 1e5 Pa, from MITgcm/aim, which
 # the reference records for a multi-band scheme (no_limits_2_5d.py:241-248;
@@ -123,20 +140,178 @@ def solar_zenith_angle(latitude, hour_angle, declination):
             + torch.cos(latitude) * _cos(declination) * torch.cos(hour_angle))
 
 
-def zenith_angle(longs, lats, time, declination=0.0):
+def zenith_angle(longs, lats, time, geom=None, declination=0.0):
     """Clamped cos(zenith) over the grid at the clock ``time`` [s]
     (reference grey_solar.py:49-65): ``longs`` (I,), ``lats`` (J,1) in
-    radians, ``time`` a 0-dim tensor."""
+    radians, ``time`` a 0-dim tensor or a float.  ``geom`` is unused, as in
+    JAX's signature."""
+    del geom
     hour_angle = time / (-24.0 * 3600.0) * 2 * math.pi  # sun moves west
     point_angle = longs + hour_angle
     sza = solar_zenith_angle(lats, point_angle, declination)
     return torch.clamp(sza, min=0.0)
 
 
+def compute_absorbance(gasses, rho, path_length):
+    """Beer-Lambert absorbance sum over (mixing ratio, cross-section) pairs
+    (reference grey_solar.py:85-91)."""
+    absorbance = torch.zeros_like(rho)
+    for gas, coefficient in gasses:
+        absorbance = absorbance + gas * rho * path_length * coefficient
+    return absorbance
+
+
+def hansen_cloud_thickness(tp, tt):
+    """Cloud optical thickness, Hansen 1983 eq. 21 (reference
+    grey_solar.py:94-101), in the reference's order: cold layers (<258 K)
+    get 1/3, then negatives clamp to 0."""
+    thickness = (tp - 100.0e2) * 0.0133 / 100.0   # per hPa -> per Pa
+    thickness = torch.where(tt < 258.0, torch.full_like(thickness, 1.0 / 3.0),
+                            thickness)
+    return torch.where(thickness < 0, torch.zeros_like(thickness), thickness)
+
+
+def _sw_cloud_sweep(downwelling_top, transmittance, t_cloud, cloud_albedo, c):
+    """Downward SW sweep with partial cloud (reference grey_solar.py:157-171),
+    from the top layer (L-1) down to 0.  Returns (the downwelling below
+    each layer, stacked so that index k is layer k's, as JAX's reversed
+    scan stacks them; the absorbed per layer; the reflected total)."""
+    L = transmittance.shape[0]
+    down, absorbed = [None] * L, [None] * L
+    previous = downwelling_top
+    reflected_total = torch.zeros_like(downwelling_top)
+    for k in range(L - 1, -1, -1):
+        absorbed_nc = (1 - c) * (previous * (1 - transmittance[k]))
+        reflected = c * cloud_albedo[k] * previous
+        absorbed_c = c * (1 - cloud_albedo[k]) * previous * (1 - t_cloud[k])
+        total_absorbed = absorbed_nc + absorbed_c
+        previous = previous - total_absorbed - reflected
+        reflected_total = reflected_total + reflected
+        down[k], absorbed[k] = previous, total_absorbed
+    return torch.stack(down), torch.stack(absorbed), reflected_total
+
+
+def grey_solar(p, q, t, c, gt, utc, dt, geom):
+    """SW-only grey sweep (reference grey_solar.py:106-184); returns
+    (t_next, the downwelling at the L+1 levels, bottom to top)."""
+    sig, dsig = geom.sig.to(t.dtype), geom.dsig.to(t.dtype)
+    ptop = geom.ptop.to(t.dtype)
+
+    tp = p * sig + ptop
+    tt = thermo.to_true_temp(t, tp)
+    rho = tp / (constants.Rd * tt)
+    dp = p * dsig
+    oc = ozone_mod.ozone_at(tp)
+
+    depth = dp / (rho * constants.G)
+    gasses = [(oc, ozone_weight), (q, h2o_weight)]
+    absorbance = compute_absorbance(gasses, rho, depth)
+    transmittance = torch.pow(10.0, -absorbance)
+    # Manabe diffuse path factor (grey_solar.py:145)
+    t_cloud = torch.pow(10.0, -(absorbance * 1.66))
+
+    cloud_thickness = hansen_cloud_thickness(tp, tt)
+    cloud_albedo = (1 - torch.exp(-cloud_thickness)) * 0.7
+
+    top = torch.full(p.shape, constants.solar_constant * 0.25,
+                     dtype=t.dtype, device=t.device)
+    down_levels, absorbed, _ = _sw_cloud_sweep(
+        top, transmittance, t_cloud, cloud_albedo, c)
+    downwelling = torch.cat([down_levels, top[None]], dim=0)
+
+    dT = absorbed / constants.Cp / rho / depth * dt
+    t_n = thermo.to_potential_temp(tt + dT, tp)
+    return t_n, downwelling
+
+
+def _lw_sweep(previous, emittance, eps_clear, eps_cloud, c, layers):
+    """One longwave sweep over ``layers`` in order: each absorbs its part of
+    the flux coming in and adds its emission.  Returns (the flux leaving
+    the last layer, the flux below/above each layer by layer index, the
+    absorbed per layer by layer index)."""
+    L = emittance.shape[0]
+    out, absorbed = [None] * L, [None] * L
+    for k in layers:
+        total_absorbtion = (c * eps_cloud[k] + (1 - c) * eps_clear[k]) * previous
+        previous = previous - total_absorbtion + emittance[k]
+        out[k], absorbed[k] = previous, total_absorbtion
+    return previous, torch.stack(out), torch.stack(absorbed)
+
+
+def grey_radiation(p, q, tt, c, g, utc, dt, geom):
+    """Full SW+LW grey radiation with clouds (reference
+    grey_solar.py:192-320); returns (dt_ground, dt_air, the TOA thermal
+    upwelling)."""
+    sig, dsig = geom.sig.to(tt.dtype), geom.dsig.to(tt.dtype)
+    ptop = geom.ptop.to(tt.dtype)
+
+    tp = p * sig + ptop
+    rho = tp / (constants.Rd * tt)
+    dp = p * dsig
+    depth = dp / (rho * constants.G)
+
+    # Manabe64 solar constant halved twice (reference grey_solar.py:207-209)
+    irradiance = 2 * 41840.0 / 60.0 * 0.5 * 0.5
+
+    sw_gasses = [(q, h2o_weight), (co2_mmr, co2_sw_weight)]
+    sw_absorbance = compute_absorbance(sw_gasses, rho, depth)
+    sw_transmittance = torch.pow(10.0, -sw_absorbance)
+    sw_t_cloud = torch.pow(10.0, -(sw_absorbance * 1.66))
+
+    lw_gasses = [(q, h2o_weight), (co2_mmr, co2_weight)]
+    lw_absorbance = compute_absorbance(lw_gasses, rho, depth)
+
+    cloud_thickness = hansen_cloud_thickness(tp, tt)
+    sw_cloud_albedo = (1 - torch.exp(-cloud_thickness)) * 0.7
+    lw_cloud_absorbance = cloud_thickness / math.log(10.0) + lw_absorbance
+
+    lw_emissivity = 1 - torch.pow(10.0, -lw_absorbance)
+    lw_cloud_emissivity = 1 - torch.pow(10.0, -lw_cloud_absorbance)
+
+    emittance = (constants.sb_constant * tt ** 4
+                 * ((1 - c) * lw_emissivity + c * lw_cloud_emissivity))
+    ground_emittance = constants.sb_constant * g.gt ** 4
+
+    # downwelling sweeps, top -> bottom: SW with clouds, LW with emission
+    top_sw = torch.full(p.shape, irradiance, dtype=tt.dtype, device=tt.device)
+    sw_levels, absorbed_sw, _ = _sw_cloud_sweep(
+        top_sw, sw_transmittance, sw_t_cloud, sw_cloud_albedo, c)
+    L = tt.shape[0]
+    _, lw_down_levels, lw_absorbed_dw = _lw_sweep(
+        torch.zeros_like(top_sw), emittance, lw_emissivity,
+        lw_cloud_emissivity, c, range(L - 1, -1, -1))
+
+    # ground budget (reference grey_solar.py:290-293)
+    ground_albedo = 0.1
+    ground_absorbtion = ((1 - ground_albedo) * sw_levels[0]
+                         + lw_down_levels[0])
+
+    # upwelling LW sweep, bottom -> top, from the ground's emittance
+    toa_up, _, lw_absorbed_uw = _lw_sweep(
+        ground_emittance, emittance, lw_emissivity, lw_cloud_emissivity, c,
+        range(L))
+    absorbed = absorbed_sw + lw_absorbed_dw + lw_absorbed_uw
+
+    dt_ground = (ground_absorbtion - ground_emittance) / constants.Cg / 0.1
+    dt_air = (absorbed - 2 * emittance) / (constants.Cp * rho * depth)
+    return dt_ground, dt_air, toa_up
+
+
 def basic_grey_transmittances(t_lw, t_sw, geom):
     """Per-layer transmittances ``t ** dsig`` (reference
     grey_solar.py:323-333), (L,1,1) in the geometry's dtype."""
     return t_lw ** geom.dsig, t_sw ** geom.dsig
+
+
+def basic_3_gas_absorbance(p, tp, tt, rho, q, geom):
+    """LW (H2O+CO2) and SW (empty) grey absorbances
+    (reference grey_solar.py:336-355)."""
+    dp = p * geom.dsig.to(q.dtype)
+    depth = dp / (rho * constants.G)
+    sw_absorbance = compute_absorbance([], rho, depth)
+    lw_absorbance = compute_absorbance(
+        [(q, h2o_weight), (co2_mmr, co2_weight)], rho, depth)
+    return lw_absorbance, sw_absorbance
 
 
 def ladder_constants(t_lw, t_sw, dsig_vals):

@@ -59,11 +59,6 @@ def test_cli_metrics_requires_stats():
     assert main(args + CPU) == jmain(args) == 2
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="plotting"):
-        main(SMALL + CPU + ["--plot-dir", str(tmp_path)])
-
-
 def test_cli_ring_needs_its_ranks(capsys):
     """--mesh-shape 2 in a single process: exit 2 naming the ranks it
     needs; --mesh-shape 1 is a ring of one rank."""

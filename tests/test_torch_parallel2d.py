@@ -8,7 +8,9 @@ inputs come from a numpy seed and the JAX reference is computed here, in
 the test process, at float64: the 2D steps against JAX's single-device
 core at 16x32x3 (JAX tests/test_shard2d.py: 1e-9 for 5 steps), K5's ring
 and fused4's overlap form as JAX tests/test_parallel.py holds them,
-``run_model(mesh=)`` against JAX's ``run_model``.
+``run_model(mesh=)`` against JAX's ``run_model``, and the ensemble on a
+pure 'e' mesh and on an ('e', 'y', 'x') mesh against JAX's
+``make_ensemble_run_fn``.
 """
 
 import os
@@ -557,13 +559,86 @@ def test_ensemble_matches_jax_ensemble(pool, n):
                                    rtol=1e-10)
 
 
-def test_ensemble_over_a_spatial_mesh_is_not_ported():
+ESHAPES = [(2, 2, 1), (2, 1, 2)]
+
+
+def _ensemble_members(cfg_kw, n=2, H=16, W=32, L=3):
+    """``n`` members of one JAX start, each with the random fields of its
+    own seed; (JAX geometry, members)."""
+    jcfg = JModelConfig(height=H, width=W, layers=L, dt=900.0,
+                        dtype="float64", **cfg_kw)
+    jgeom = jgeometry.gen_geometry(H, W, L, sig_func=jgeometry.manabe_sig)
+    base = jdriver.gen_model_state(jgeom, jcfg)
+    members = [base._replace(prog=base.prog._replace(**{
+        k: jnp.asarray(x) for k, x in zip(FIELDS, random_state(jgeom, k))}))
+        for k in range(n)]
+    return jcfg, jgeom, members
+
+
+@pytest.mark.parametrize("backend", ["mega4", "xla"])
+@pytest.mark.parametrize("eshape", ESHAPES)
+def test_spatial_ensemble_matches_jax_ensemble(pool, eshape, backend):
+    """Two members on an ('e', 'y', 'x') mesh of 4 ranks, each member's
+    group of ny*nx ranks running it on its spatial mesh (the fused4 ring or
+    fused2d on 'mega4', the plain core with the spectral-psum filter on
+    'xla'), equal on every rank to JAX's make_ensemble_run_fn on the same
+    hand-built mesh of its virtual devices at 1e-9, the stats per member
+    per step.  Both sides filter with the DFT: JAX's CPU FFT fails on this
+    mesh (its fft thunk refuses the sharded layout)."""
+    from gcmiipy_tpu.parallel import ensemble as jensemble
+    jcfg, jgeom, members = _ensemble_members(dict(polar_filter="dft"))
+    jmesh = Mesh(np.array(jax.devices()[:4]).reshape(eshape),
+                 ("e", "y", "x"))
+    stacked = jax.device_put(jensemble.stack_states(members),
+                             jensemble.ensemble_shardings(jmesh))
+    ref, rstats = jensemble.make_ensemble_run_fn(jgeom, jcfg, 3,
+                                                 jmesh)(stacked)
+    results = pool.run("ensemble", eshape=eshape,
+                       states_d=[state_dict(m) for m in members], height=16,
+                       width=32, layers=3, dt=900.0, steps=3,
+                       config=dict(dtype="float64", polar_filter="dft",
+                                   backend=backend))
+    for res in results:
+        _close([res[k] for k in FIELDS], ref.prog)
+        assert res["total_energy"].shape == (2, 3)
+        np.testing.assert_allclose(res["total_energy"],
+                                   np.asarray(rstats.total_energy),
+                                   rtol=BOUND)
+
+
+@pytest.mark.parametrize("backend", ["mega4", "xla"])
+@pytest.mark.parametrize("eshape", ESHAPES)
+def test_spatial_ensemble_fft_matches_single_device_members(pool, eshape,
+                                                            backend):
+    """With the FFT filter (the port's default) the spatial ensemble equals
+    the port's own single-device run of each member at 1e-9."""
+    jcfg, jgeom, members = _ensemble_members({})
+    starts = [state_dict(m) for m in members]
+    cfg = dict(dtype="float64", backend=backend)
+    results = pool.run("ensemble", eshape=eshape, states_d=starts,
+                       height=16, width=32, layers=3, dt=900.0, steps=3,
+                       config=cfg)
+    pcfg = driver.normalize_config(ModelConfig(
+        height=16, width=32, layers=3, dt=900.0, **cfg))
+    geom = driver.gen_model_geometry(pcfg, "cpu")
+    run = driver.make_run_fn(geom, pcfg, 3)
+    from gcmiipy_tpu_torch.convert import state_from_jax_numpy
+    for k, start in enumerate(starts):
+        one = run(state_from_jax_numpy(start, "cpu"))[0]
+        for res in results:
+            _close([res[f][k] for f in FIELDS], [x.numpy() for x in one.prog])
+
+
+def test_ensemble_mesh_shape_and_errors():
+    """Without a process group an ensemble mesh of shape (1, 1, 1) is one
+    device and any other shape is refused; the pure 'e' mesh's shape is
+    JAX's."""
     from gcmiipy_tpu_torch.parallel import ensemble
-    geom = port_geom(_jgeom())
-    with pytest.raises(NotImplementedError, match="ensemble_shardings"):
-        ensemble.make_ensemble_run_fn(
-            geom, ModelConfig(dtype="float64"), 1,
-            mesh_mod.make_mesh(device="cpu"))
+    one = ensemble.make_ensemble_mesh(device="cpu", shape=(1, 1, 1))
+    assert one.n == 1 and one.spatial is None
+    assert ensemble.make_ensemble_mesh(device="cpu").shape == {"e": 1}
+    with pytest.raises(ValueError, match="ranks"):
+        ensemble.make_ensemble_mesh(device="cpu", shape=(2, 2, 1))
 
 
 @pytest.fixture

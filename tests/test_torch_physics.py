@@ -95,6 +95,20 @@ def test_zenith_angle_matches_jax_and_oracle(time, decl):
         rtol=1e-14, atol=1e-15)
 
 
+def test_zenith_angle_takes_jax_positional_form():
+    """zenith_angle(longs, lats, time, geom) in JAX's positional form: the
+    unused geom in the fourth place, equal to the keyword call and to JAX."""
+    jg = _jgeom(3, 8, 12)
+    tg = port_geom(jg)
+    out = radiation.zenith_angle(tg.long, tg.lat, _t(3600.0), tg)
+    kw = radiation.zenith_angle(tg.long, tg.lat, _t(3600.0), declination=0.0)
+    ref = jradiation.zenith_angle(jnp.asarray(jg.long), jnp.asarray(jg.lat),
+                                  jnp.asarray(3600.0), jg)
+    np.testing.assert_array_equal(out.numpy(), kw.numpy())
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-14,
+                               atol=1e-15)
+
+
 def test_basic_grey_transmittances_match_jax():
     jg = _jgeom()
     out = radiation.basic_grey_transmittances(0.1, 0.9, port_geom(jg))

@@ -205,10 +205,12 @@ def task_sharded_run(mesh, state_d, height, width, layers, dt, steps,
     return {k: x.numpy() for k, x in zip(FIELDS, full.prog)}
 
 
-def task_ensemble(mesh, states_d, height, width, layers, dt, steps, config):
+def task_ensemble(mesh, states_d, height, width, layers, dt, steps, config,
+                  eshape=None):
     """``ensemble.make_ensemble_run_fn`` on an 'e' mesh of this task's
-    ranks, from the members ``states_d``; the gathered members' fields and
-    total energies."""
+    ranks (an ('e', 'y', 'x') mesh of shape ``eshape``, which every rank of
+    the pool must build), from the members ``states_d``; the gathered
+    members' fields and total energies."""
     from gcmiipy_tpu_torch.convert import state_from_jax_numpy
     from gcmiipy_tpu_torch.model import driver
     from gcmiipy_tpu_torch.model.config import ModelConfig
@@ -216,7 +218,8 @@ def task_ensemble(mesh, states_d, height, width, layers, dt, steps, config):
     cfg = driver.normalize_config(ModelConfig(
         height=height, width=width, layers=layers, dt=dt, **config))
     geom = driver.gen_model_geometry(cfg, "cpu")
-    emesh = ensemble.make_ensemble_mesh(device="cpu", group=mesh.group)
+    emesh = ensemble.make_ensemble_mesh(device="cpu", group=mesh.group,
+                                        shape=eshape)
     run = ensemble.make_ensemble_run_fn(geom, cfg, steps, emesh)
     out, stats = run(ensemble.stack_states(
         [state_from_jax_numpy(d, "cpu") for d in states_d]))
