@@ -79,6 +79,22 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            and ctu_step at 512x1024 for 20 steps; dynam_matsuno on 161
 #            cells for 50 steps; grey_solar and grey_radiation at 9x512x1024;
 #            each card run's ms by CUDA events;
+#   longrun  the reference's long integrations (gcmiipy_tpu_torch.
+#            longrun_flagship) held to the JAX package's outcome, which
+#            artifacts/longrun_energy.json records: K6 against its plain
+#            version at the long runs' grids (3x8x8, 9x24x36 over the
+#            Hansen terrain, float64); then through run_case on 'mega4'
+#            (K6 a step), float64: the bare grey physics over 6500 steps and
+#            the terrain over 3200, whose guard must trip within 10 steps of
+#            JAX's (6308, 3028), the dynamics over 14,400 steps, guard-clean
+#            with an energy drift below 1e-5, each energy trace within
+#            LONGRUN_E_REL of JAX's; run_flagship: 14,400 float32 steps of
+#            the main grid on 'stream' with the per-step physics (K7 and its
+#            epilogue), guard-clean, against its float64 first day
+#            (FLAGSHIP_E_REL, FLAGSHIP_P_REL); then the stabilised and the
+#            seasonal cases for what is left of a 120 s budget (at least
+#            2000 steps each, cuts logged); the launches of K6 and K7
+#            counted;
 #   ring     the latitude ring: 4 ranks spawned on the one card over gloo
 #            (after phase build, so that no rank builds); each holds its K6
 #            shard block (128+16 rows) and K7 shard block (k=4: 128+64 rows)
@@ -236,6 +252,36 @@ SIDEBAND_1D = dict(cells=161, dx=10.0, dt=1.0, steps=400, v=2.0)
 SIDEBAND_SW = dict(side=64, dx=300e3, dt=300.0, steps=1000)
 SIDEBAND_2D = dict(height=512, width=1024, steps=20)
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+# phase longrun: the JAX package's outcome of scripts/longrun_flagship.py
+# (CPU, float64), which a fresh JAX run reproduces to the bit
+# (tests/test_torch_longrun.py); read here, since the smoke imports no JAX
+LONGRUN_ARTIFACT = os.path.join(REPO_DIR, "artifacts", "longrun_energy.json")
+# the cases of fixed horizon: (steps run, the span of the energy trace held
+# to JAX's), the blow-up cases past JAX's trip (6308, 3028) and held to 300
+# and 128 steps before it, where the trace still changes smoothly
+LONGRUN = {"bare_physics": (6500, 6000), "terrain": (3200, 2900),
+           "dynamics": (14400, 14400)}
+# the stable cases: as many steps as the phase's budget leaves, at least
+# LONGRUN_STABLE_MIN, of JAX's 14,400 and 17,520
+LONGRUN_STABLE = ("stabilized", "seasonal")
+LONGRUN_STABLE_MIN, LONGRUN_BUDGET_S = 2000, 120.0
+# the guard's first bad step against JAX's; the dynamics' energy drift
+# (the bound of tests/test_harness_extras.py:85)
+LONGRUN_BLOWN_TOL, LONGRUN_DRIFT = 10, 1e-5
+# the energy trace against JAX's over its span, of the trace's scale: about
+# 150 times the largest difference of the port's float64 on the CPU from
+# JAX's over these spans (tests/longrun_rehearsal.py: 9.7e-14, the bare
+# physics to step 6000; 2.8e-15 the terrain to 2900; below 2e-15 the
+# others), for the card's rounding (pow, sin, the FFT filter against the
+# banded DFT) carried over thousands of steps
+LONGRUN_E_REL = 1.5e-11
+# the flagship long run: float32 steps on 'stream', and its float64 day;
+# float32 against float64 at the day's end, the energy trace and the
+# global-mean surface pressure: 10 times the CPU rehearsal's worst at 9
+# layers, 16 and 64 rows of 128 (tests/longrun_rehearsal.py flagship: 6.0e-6
+# and 1.2e-6), the float32 state's rounding carried over 2880 steps
+FLAGSHIP_STEPS, FLAGSHIP_DAY = 14400, 2880
+FLAGSHIP_E_REL, FLAGSHIP_P_REL = 6e-5, 1.2e-5
 
 
 def log(phase, msg):
@@ -1868,6 +1914,168 @@ def phase_sideband(device, card):
     log("sideband", "the CPU references, host seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in cpu_s.items()))
     return ms
+
+
+def _longrun_geom_checks(device):
+    """K6 against its plain version after one call at the long runs' grids
+    (float64): 3x8x8, narrower than one 8x32 tile and one tile row, the
+    general FFT at a 5-wavenumber row; 9x24x36 over the Hansen terrain."""
+    from gcmiipy_tpu_torch import longrun_flagship as lr
+    from gcmiipy_tpu_torch.ops.mega_step import MegaStep, mega_step_ref
+    worst = 0.0
+    for name in ("dynamics", "terrain"):
+        kw = lr.case_args(*lr.CASES[lr.CASE_NAMES.index(name)], 1)
+        geom = lr.case_geometry(kw["grid"], kw["terrain"], "float64", device)
+        state = random_state(geom, 2, device, torch.float64)
+        for q_limiter in (False, True):
+            step = MegaStep(geom, kw["dt"], coriolis=True,
+                            q_limiter=q_limiter)
+            out = step(*state)
+            torch.cuda.synchronize()
+            plain = {label: mega_step_ref(*state, kw["dt"], geom, step.consts,
+                                         coriolis=True, q_limiter=q_limiter,
+                                         filter_ref=filter_ref)
+                     for label, filter_ref in (
+                         ("FFT plan", fft_plan(step.consts)),
+                         ("banded DFT", None))}
+            if not all(torch.isfinite(a).all() for a in out):
+                fail("longrun", f"mega_step {kw['grid']} output not finite")
+            tag = (f"longrun: mega_step {tuple(kw['grid'])} float64 "
+                   f"terrain={kw['terrain']} q_limiter={q_limiter}")
+            rel, _ = held_to_plain(tag, out, plain, MEGA_REL[torch.float64],
+                                   BANDED_REL64)
+            worst = max(worst, rel)
+    return worst
+
+
+def phase_longrun(device, card):
+    """The reference's long integrations on the card through
+    ``longrun_flagship``, each held to the JAX package's outcome in
+    LONGRUN_ARTIFACT: K6 at its long runs' grids against its plain version;
+    the bare physics to 6500 steps and the terrain to 3200 (the guard trips
+    within LONGRUN_BLOWN_TOL of JAX's step), the dynamics over 14,400 steps
+    (guard-clean, energy drift below LONGRUN_DRIFT), each energy trace
+    within LONGRUN_E_REL of JAX's over LONGRUN's span; the flagship,
+    14,400 float32 steps on 'stream' (K7 and its epilogue), guard-clean and
+    within FLAGSHIP_E_REL / FLAGSHIP_P_REL of its float64 day; then the
+    stabilised and seasonal cases for as many steps as LONGRUN_BUDGET_S
+    leaves (at least LONGRUN_STABLE_MIN), guard-clean and within
+    LONGRUN_E_REL.  The launches of K6 and K7 are counted and logged."""
+    from gcmiipy_tpu_torch import longrun_flagship as lr
+    from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
+    from gcmiipy_tpu_torch.ops.mega_step import mega_step
+    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_tile, rest_stencil
+    from gcmiipy_tpu_torch.ops.stream_steps import column_physics, stream_steps
+    t_phase = time.perf_counter()
+    with open(LONGRUN_ARTIFACT) as fh:
+        jax_recs = dict(zip(lr.CASE_NAMES, json.load(fh)["results"]))
+    worst = _longrun_geom_checks(device)
+    log("longrun", f"mega_step at the long runs' grids ok, max rel held "
+                   f"{worst:.3e}")
+    kernels = (mega_step, stream_steps, fft_filter, rest_stencil, pgf_tile,
+               column_physics)
+    summary = {}
+
+    def case(name, steps, compared):
+        kw = lr.case_args(*lr.CASES[lr.CASE_NAMES.index(name)], steps)
+        kw["steps"] = steps
+        jrec = jax_recs[name]
+        rec, counts = _counted(kernels, lambda: lr.run_case(
+            device=device, backend="mega4", **kw))
+        n = min(compared // lr.TRACE_EVERY + 1, len(rec["energy_trace"]))
+        e_rel = lr.trace_rel(rec["energy_trace"][:n], jrec["energy_trace"][:n])
+        ke_rel = lr.trace_rel(rec["ke_trace"][:n], jrec["ke_trace"][:n])
+        want = [steps, 0, 2 * steps, 2 * steps, 2 * steps, 0]
+        log("longrun", f"{name} {tuple(kw['grid'])} dt={kw['dt']:g} float64 "
+                       f"mega4, {steps} steps in {rec['walltime_s']:.2f}s "
+                       f"({1e3 * rec['walltime_s'] / steps:.3f} ms/step): ok "
+                       f"{rec['ok']} blown_step {rec['blown_step']} (JAX "
+                       f"{jrec['blown_step']}), energy trace against JAX's to "
+                       f"step {compared} rel {e_rel:.3e} (< {LONGRUN_E_REL:g}),"
+                       f" ke trace rel {ke_rel:.3e} (logged), energy drift "
+                       f"{rec['energy_max_rel_drift']:.3e}, p range "
+                       f"{rec['p_range_pa'][0]:.1f}-{rec['p_range_pa'][1]:.1f}"
+                       f" Pa; launches mega_step {counts[0]} fft_filter "
+                       f"{counts[2]} rest_stencil {counts[3]} pgf_tile "
+                       f"{counts[4]}")
+        if counts != want:
+            fail("longrun", f"{name} launched {counts}, expected {want}")
+        if not rec["p_finite"] or not e_rel < LONGRUN_E_REL:
+            fail("longrun", f"{name}: p finite {rec['p_finite']}, energy "
+                            f"trace rel {e_rel:.3e}")
+        if jrec["ok"] or jrec["blown_step"] >= steps:
+            if not rec["ok"]:
+                fail("longrun", f"{name}: the guard tripped at step "
+                                f"{rec['blown_step']}; JAX's stayed clean")
+        elif rec["ok"] or abs(rec["blown_step"] - jrec["blown_step"]) \
+                > LONGRUN_BLOWN_TOL:
+            fail("longrun", f"{name}: blown_step {rec['blown_step']}, JAX's "
+                            f"{jrec['blown_step']} +- {LONGRUN_BLOWN_TOL}")
+        summary[name] = dict(steps=steps, s=rec["walltime_s"])
+        return rec
+
+    for name, (steps, compared) in LONGRUN.items():
+        rec = case(name, steps, compared)
+        if name == "dynamics" and not (
+                rec["energy_max_rel_drift"] < LONGRUN_DRIFT):
+            fail("longrun", f"dynamics: energy drift "
+                            f"{rec['energy_max_rel_drift']:.3e} (< "
+                            f"{LONGRUN_DRIFT:g})")
+
+    steps = FLAGSHIP_STEPS
+    rec, counts = _counted(kernels, lambda: lr.run_flagship(
+        steps, device=device, check_steps=FLAGSHIP_DAY))
+    day = rec["float64_day"]
+    k = rec["trace_every"]
+    total = steps + FLAGSHIP_DAY
+    want = [0, total // k, 2 * total, 2 * total, 2 * total, total]
+    log("longrun", f"flagship {tuple(rec['grid'])} dt={rec['dt']:g} "
+                   f"stream+physics: "
+                   f"float32 {steps} steps in {rec['walltime_s']:.2f}s "
+                   f"({1e3 * rec['walltime_s'] / steps:.4f} ms/step), ok "
+                   f"{rec['ok']}, energy drift "
+                   f"{rec['energy_max_rel_drift']:.3e}, global-mean p "
+                   f"{rec['p_mean_pa'][0]:.3f} -> {rec['p_mean_pa'][-1]:.3f} "
+                   f"Pa (drift {rec['p_mean_rel_drift']:.3e}); float64 "
+                   f"{FLAGSHIP_DAY} steps in {day['walltime_s']:.2f}s, ok "
+                   f"{day['ok']}; float32 against float64 at step "
+                   f"{FLAGSHIP_DAY}: energy trace rel "
+                   f"{day['energy_max_rel_diff']:.3e} (< {FLAGSHIP_E_REL:g}),"
+                   f" global-mean p rel {day['p_mean_rel_diff']:.3e} (< "
+                   f"{FLAGSHIP_P_REL:g}); launches stream_steps {counts[1]} "
+                   f"column_physics {counts[5]} fft_filter {counts[2]} "
+                   f"rest_stencil {counts[3]} pgf_tile {counts[4]}")
+    if counts != want:
+        fail("longrun", f"flagship launched {counts}, expected {want}")
+    if not (rec["ok"] and rec["p_finite"] and day["ok"]
+            and day["energy_max_rel_diff"] < FLAGSHIP_E_REL
+            and day["p_mean_rel_diff"] < FLAGSHIP_P_REL):
+        fail("longrun", "flagship: guard tripped or outside its bounds")
+    summary["flagship"] = dict(steps=steps, s=rec["walltime_s"])
+
+    # the stable cases share what is left of the budget, each at least
+    # LONGRUN_STABLE_MIN steps and at most JAX's horizon; the first is
+    # sized by the terrain case's ms a step (more work a step than either),
+    # the second by the first's
+    per_step = summary["terrain"]["s"] / summary["terrain"]["steps"]
+    for i, name in enumerate(LONGRUN_STABLE):
+        remaining = LONGRUN_BUDGET_S - (time.perf_counter() - t_phase)
+        horizon = jax_recs[name]["steps"]
+        share = len(LONGRUN_STABLE) - i
+        steps = int(remaining / share / per_step) // 16 * 16
+        steps = max(LONGRUN_STABLE_MIN, min(steps, horizon))
+        log("longrun", f"{name}: {steps} of JAX's {horizon} steps "
+                       f"({remaining:.1f}s of the budget left, "
+                       f"{1e3 * per_step:.3f} ms a step expected)"
+                       + ("; cut to fit the budget" if steps < horizon
+                          else ""))
+        case(name, steps, steps)
+        per_step = summary[name]["s"] / steps
+    took = time.perf_counter() - t_phase
+    log("longrun", f"phase {took:.1f}s (budget {LONGRUN_BUDGET_S:g}s) on "
+                   f"{card}; " + ", ".join(
+                       f"{k} {v['steps']} steps {v['s']:.2f}s"
+                       for k, v in summary.items()))
 
 
 def free_port():
@@ -3521,6 +3729,7 @@ def main():
     surface = phase_surface(device)
     launches.update(phase_services(device))
     phase_sideband(device, card)
+    phase_longrun(device, card)
     ring = phase_ring(device)
     m2d = phase_mesh2d(device)
     rows = phase_timing(device, launches, max_abs, geom, start, surface)

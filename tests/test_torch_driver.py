@@ -210,7 +210,8 @@ def _port_sources():
 
 def test_port_sources_import_no_jax():
     """AST scan: no module of the port, not chip_smoke.py and not
-    bench_torch.py names jax or the JAX package in an import."""
+    bench_torch.py names jax, the JAX package or its scripts in an
+    import."""
     offenders = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
@@ -221,7 +222,8 @@ def test_port_sources_import_no_jax():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 names = [node.module]
             for n in names:
-                if n.split(".")[0] in ("jax", "jaxlib", "gcmiipy_tpu"):
+                if n.split(".")[0] in ("jax", "jaxlib", "gcmiipy_tpu",
+                                       "scripts"):
                     offenders.append(f"{path}: {n}")
     assert len(_port_sources()) > 15
     assert not offenders, offenders

@@ -396,3 +396,120 @@ def test_run_guarded_makes_no_host_read(monkeypatch):
         collect=lambda s: s[2].max())
     monkeypatch.undo()
     assert bool(ok) and hist.shape == (20,)
+
+
+def _pytree_cases():
+    """A 16-cell float64 state of three fields and the 1D FTCS/upwind step
+    over each: numpy fields, the JAX and the port steps of one field."""
+    rng = np.random.default_rng(16)
+    fields = [rng.uniform(0.0, 1.0, 16) for _ in range(3)]
+    v = np.full(16, 10.0)
+
+    def jfield(q, scheme="ft_upwind"):
+        return getattr(jsch, scheme)(0.1, 10.0, jnp.asarray(v), q)
+
+    def field(q, scheme="ft_upwind"):
+        return getattr(sch, scheme)(0.1, 10.0, torch.as_tensor(v), q)
+
+    return fields, jfield, field
+
+
+def _tree_close(got, ref, rel):
+    """The same structure (types, dict keys) and leaves within ``rel``."""
+    if isinstance(ref, dict):
+        assert type(got) is dict and list(got) == list(ref)
+        for key in ref:
+            _tree_close(got[key], ref[key], rel)
+    elif isinstance(ref, (tuple, list)):
+        assert type(got) is type(ref) and len(got) == len(ref)
+        for a, b in zip(got, ref):
+            _tree_close(a, b, rel)
+    else:
+        _close(got, ref, rel)
+
+
+@pytest.mark.parametrize("case", ["list_state", "dict_state",
+                                  "tuple_collect"])
+def test_run_guarded_takes_any_pytree_like_jax(case):
+    """A list state, a dict state (keys out of sorted order, so that the
+    default guarded leaf is the first in sorted order, as
+    ``jax.tree.leaves`` picks it) and a ``collect`` that returns a tuple
+    and a dict: 3 steps at float64, the same final state, flag and stacked
+    history as JAX's ``run_guarded`` (1e-12)."""
+    fields, jfield, field = _pytree_cases()
+    if case == "dict_state":
+        def wrap(xs, arr):
+            return {"z": arr(xs[0]), "b": arr(xs[1]), "m": arr(xs[2])}
+
+        def jstep(s):
+            return {k: jfield(x) for k, x in s.items()}
+
+        def step(s):
+            return {k: field(x) for k, x in s.items()}
+
+        collect = None
+    else:
+        def wrap(xs, arr):
+            return [arr(xs[0]), (arr(xs[1]), arr(xs[2]))]
+
+        def jstep(s):
+            return [jfield(s[0]), (jfield(s[1][0]), jfield(s[1][1]) * 0.5)]
+
+        def step(s):
+            return [field(s[0]), (field(s[1][0]), field(s[1][1]) * 0.5)]
+
+        collect = None
+        if case == "tuple_collect":
+            def collect(s):
+                return (s[0].sum(), {"y": s[1][1], "x": s[1][0].max()})
+
+    js, jok, jhist = jharness.run_guarded(
+        jstep, wrap(fields, jnp.asarray), 3, collect=collect)
+    s, ok, hist = harness.run_guarded(
+        step, wrap(fields, torch.as_tensor), 3, collect=collect)
+    assert ok.dtype == torch.bool and ok.dim() == 0
+    assert bool(ok) == bool(jok) is True
+    _tree_close(s, js, REL)
+    if collect is None:
+        assert hist is None and jhist is None
+    else:
+        assert hist[1]["y"].shape == (3, 16) and hist[0].shape == (3,)
+        _tree_close(hist, jhist, REL)
+
+
+def test_run_guarded_dict_state_freezes_at_jax_step():
+    """A dict state whose first key in sorted order ('b') blows up under
+    FTCS while the first inserted ('z') stays smooth: the guard watches
+    'b', as JAX's does, trips, and freezes at JAX's step (the collected
+    history), with the same final state (1e-12)."""
+    fields, jfield, field = _pytree_cases()
+
+    def jstep(s):
+        return {"z": jfield(s["z"]), "b": jfield(s["b"], "ftcs")}
+
+    def step(s):
+        return {"z": field(s["z"]), "b": field(s["b"], "ftcs")}
+
+    def collect(s):
+        return {"b": s["b"], "z": s["z"].sum()}
+
+    steps = 80
+    js, jok, jhist = jharness.run_guarded(
+        jstep, {"z": jnp.asarray(fields[0]), "b": jnp.asarray(fields[1])},
+        steps, variation_slack=0.5, collect=collect)
+    s, ok, hist = harness.run_guarded(
+        step, {"z": torch.as_tensor(fields[0]),
+               "b": torch.as_tensor(fields[1])},
+        steps, variation_slack=0.5, collect=collect)
+
+    def first_frozen(h):
+        h = np.asarray(h)
+        same = np.all(h[1:] == h[:-1], axis=1)
+        return int(np.argmax(same)) + 1 if same.any() else None
+
+    assert not bool(jok) and not bool(ok)
+    frozen = first_frozen(jhist["b"])
+    assert frozen is not None and 1 < frozen < steps
+    assert first_frozen(hist["b"].numpy()) == frozen
+    _tree_close(s, js, REL)
+    _tree_close(hist, jhist, REL)
