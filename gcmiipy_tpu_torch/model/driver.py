@@ -35,6 +35,7 @@ from gcmiipy_tpu_torch.diagnostics import any_nan
 from gcmiipy_tpu_torch.dynamics import core25d, energy, fused
 from gcmiipy_tpu_torch.grid import geometry, topography
 from gcmiipy_tpu_torch.model.config import ModelConfig, check_ported
+from gcmiipy_tpu_torch.model.observability import span
 from gcmiipy_tpu_torch.model.state import (
     GroundVars, ModelState, PrognosticVars, gen_initial_conditions)
 from gcmiipy_tpu_torch.ops import polar_filter, shapiro, stream_steps
@@ -215,22 +216,24 @@ def solar_timestep(t, p, g, dt, utc, geom, config, q=None):
     if config.land_cover != "none":
         f_land = geom.land_fraction.to(t.dtype)
         albedo = config.albedo * (1.0 - f_land) + config.albedo_land * f_land
-    if config.radiation == "4band":
-        if q is None:
-            raise ValueError("radiation='4band' needs the humidity field "
-                             "q (pass it to solar_timestep)")
-        dt_air, dt_ground = radiation.four_band_radiation(
-            p, tp, tt, q, g.gt, config.t_sw, albedo, utc, geom,
-            declination=declination)
-    else:
-        dt_air, dt_ground = radiation.basic_grey_radiation(
-            p, tp, tt, g.gt, config.t_lw, config.t_sw, albedo, utc,
-            geom, declination=declination)
-    gt_n = g.gt + dt_ground * dt
-    tt_n = tt + dt_air * dt
+    if config.radiation == "4band" and q is None:
+        raise ValueError("radiation='4band' needs the humidity field "
+                         "q (pass it to solar_timestep)")
+    with span("gcm.physics.radiation"):
+        if config.radiation == "4band":
+            dt_air, dt_ground = radiation.four_band_radiation(
+                p, tp, tt, q, g.gt, config.t_sw, albedo, utc, geom,
+                declination=declination)
+        else:
+            dt_air, dt_ground = radiation.basic_grey_radiation(
+                p, tp, tt, g.gt, config.t_lw, config.t_sw, albedo, utc,
+                geom, declination=declination)
+        gt_n = g.gt + dt_ground * dt
+        tt_n = tt + dt_air * dt
     if config.convection:
-        tt_n = convection.convective_adjustment(tt_n, tp,
-                                                p * geom.dsig.to(t.dtype))
+        with span("gcm.physics.convection"):
+            tt_n = convection.convective_adjustment(
+                tt_n, tp, p * geom.dsig.to(t.dtype))
     t_n = tt_n * exner_inv
     return t_n, GroundVars(gt_n, g.gw, g.snow, g.ice)
 
@@ -246,24 +249,27 @@ def physics_extras(prog: PrognosticVars, g: GroundVars, utc, geom, config,
     start of the triggering dynamics step (the reference's call order,
     no_limits_2_5d.py:97 / :231-232)."""
     p, u, v, t, q = prog
-    if config.drag_tau > 0:
-        f = 1.0 / (1.0 + dt_eff / config.drag_tau)
-        u = torch.cat([u[:1] * f, u[1:]], dim=0)
-        v = torch.cat([v[:1] * f, v[1:]], dim=0)
-    if config.physics:
-        t, g = solar_timestep(t, p, g, dt_eff, utc, geom, config, q=q)
-        if config.evaporation:
-            tt = thermo.to_true_temp(
-                t, p * geom.sig.to(t.dtype) + geom.ptop.to(t.dtype))
-            land = (geom.land_fraction if config.land_cover != "none"
-                    else None)
-            q, gt_n, gw_n = evaporation.evaporation_step(
-                p, q, u, v, tt, g.gt, g.gw, dt_eff, geom,
-                land_fraction=land)
+    with span("gcm.physics"):
+        if config.drag_tau > 0:
+            f = 1.0 / (1.0 + dt_eff / config.drag_tau)
+            u = torch.cat([u[:1] * f, u[1:]], dim=0)
+            v = torch.cat([v[:1] * f, v[1:]], dim=0)
+        if config.physics:
+            t, g = solar_timestep(t, p, g, dt_eff, utc, geom, config, q=q)
+        if config.physics and config.evaporation:
+            with span("gcm.physics.evaporation"):
+                tt = thermo.to_true_temp(
+                    t, p * geom.sig.to(t.dtype) + geom.ptop.to(t.dtype))
+                land = (geom.land_fraction if config.land_cover != "none"
+                        else None)
+                q, gt_n, gw_n = evaporation.evaporation_step(
+                    p, q, u, v, tt, g.gt, g.gw, dt_eff, geom,
+                    land_fraction=land)
             g = g._replace(gt=gt_n, gw=gw_n)
-        if config.precipitation:
-            t, q, gw_n = condensation.condensation_step(
-                p, t, q, g.gw, geom, rh_crit=config.rh_crit)
+        if config.physics and config.precipitation:
+            with span("gcm.physics.condensation"):
+                t, q, gw_n = condensation.condensation_step(
+                    p, t, q, g.gw, geom, rh_crit=config.rh_crit)
             g = g._replace(gw=gw_n)
     return PrognosticVars(p, u, v, t, q), g
 
@@ -306,11 +312,12 @@ def apply_cadenced_shapiro(prog, step_next, geom, config, granularity=1):
     due = step_next % config.shapiro_every < granularity
     if isinstance(step_next, int) and not due:
         return prog
-    p, t = shapiro.filter_prognostics(
-        prog.p, prog.t, order=config.shapiro_order,
-        fields=config.shapiro_fields, slp=config.shapiro_slp, geom=geom)
-    if not isinstance(step_next, int):
-        p, t = torch.where(due, p, prog.p), torch.where(due, t, prog.t)
+    with span("gcm.shapiro"):
+        p, t = shapiro.filter_prognostics(
+            prog.p, prog.t, order=config.shapiro_order,
+            fields=config.shapiro_fields, slp=config.shapiro_slp, geom=geom)
+        if not isinstance(step_next, int):
+            p, t = torch.where(due, p, prog.p), torch.where(due, t, prog.t)
     return prog._replace(p=p, t=t)
 
 
@@ -326,14 +333,25 @@ def full_timestep(state: ModelState, geom, config, filter_fn,
     if dynamics_step is None:
         dynamics_step = make_dynamics_step(geom, config, filter_fn)
     prog, g, utc, step = state
-    prog = PrognosticVars(*dynamics_step(*prog))
+    with span("gcm.dynamics"):
+        prog = PrognosticVars(*dynamics_step(*prog))
     step_next = step + 1 if host_step is None else host_step + 1
-    if ring is None:
-        prog = apply_cadenced_shapiro(prog, step_next, geom, config)
-        prog, g = apply_cadenced_extras(prog, g, utc, step_next, geom, config)
-    else:
-        prog, g = ring.cadenced(prog, g, utc, step_next)
+    if _has_cadenced(config):
+        with span("gcm.extras"):
+            if ring is None:
+                prog = apply_cadenced_shapiro(prog, step_next, geom, config)
+                prog, g = apply_cadenced_extras(prog, g, utc, step_next,
+                                                geom, config)
+            else:
+                prog, g = ring.cadenced(prog, g, utc, step_next)
     return ModelState(prog, g, utc + config.dt, step + 1)
+
+
+def _has_cadenced(config):
+    """Whether ``config`` runs extras or the Shapiro filter besides the
+    dynamics."""
+    return (config.physics or config.drag_tau > 0
+            or config.shapiro_every > 0)
 
 
 def collect_stats(state: ModelState, geom) -> StepStats:
@@ -558,22 +576,27 @@ def make_run_fn(geom, config, timesteps, mesh=None, start_step=0):
         cadenced = (((config.drag_tau > 0 or config.physics)
                      and config.physics_every > 1)
                     or config.shapiro_every > 1)
-        step0 = int(state.step) if cadenced else None
+        step0 = None
+        if cadenced:
+            with span("gcm.sync"):
+                step0 = int(state.step)
         for step_idx in range(timesteps):
             new_state = full_timestep(
                 state, geom, config, filter_fn, dynamics_step,
                 None if step0 is None else step0 + step_idx, ring=ring)
             if config.guard:
-                bad = bad_of(new_state)
-                advance = ok & ~bad
-                state = _where_state(advance, new_state, state)
-                blown = torch.where(ok & bad,
-                                    torch.full_like(blown, step_idx), blown)
-                ok = advance
+                with span("gcm.guard"):
+                    bad = bad_of(new_state)
+                    advance = ok & ~bad
+                    state = _where_state(advance, new_state, state)
+                    blown = torch.where(
+                        ok & bad, torch.full_like(blown, step_idx), blown)
+                    ok = advance
             else:
                 state = new_state
             if config.stats:
-                stats.append(stats_of(state))
+                with span("gcm.stats"):
+                    stats.append(stats_of(state))
         if config.guard:
             return state, _stack_stats(stats), GuardInfo(ok, blown)
         return state, _stack_stats(stats)
@@ -590,9 +613,7 @@ def _with_alignment_head(geom, config, timesteps, K, make_rest, start_step,
     Shapiro filter run at a cadence, ``head = (-start_step) % K`` steps run
     on the per-step 'mega4' path first, then ``make_rest(timesteps -
     head)``, which starts aligned.  Returns None when no head is needed."""
-    cadenced = (config.physics or config.drag_tau > 0
-                or config.shapiro_every > 0)
-    head = (-start_step) % K if cadenced else 0
+    head = (-start_step) % K if _has_cadenced(config) else 0
     if not head:
         return None
     head = min(head, timesteps)
@@ -606,7 +627,9 @@ def _with_alignment_head(geom, config, timesteps, K, make_rest, start_step,
             return out
         if config.guard:
             state, stats_h, gi = out
-            if not bool(gi.ok):
+            with span("gcm.sync"):
+                head_ok = bool(gi.ok)
+            if not head_ok:
                 return out
             state, stats_r, gi = rest_run(state)
             blown = torch.where(gi.blown_step >= 0, gi.blown_step + head,
@@ -790,29 +813,31 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
                 (has_shapiro and host_step % config.shapiro_every < k)
                 or (has_extras and host_step % config.physics_every < k)):
             return carry
-        prog = PrognosticVars(*stream_steps.unpack_state(S[0], L))
-        prog = apply_cadenced_shapiro(prog, step_now, geom, config,
-                                      granularity=k)
-        if has_extras:
-            # utc at the start of the cadence-triggering step, as the
-            # per-step path passes it
-            prog, g = apply_cadenced_extras(
-                prog, g, utc - config.dt, step_now, geom, config,
-                granularity=k)
-        if p_changed:
-            S[0, 0].copy_(prog.p)
-        if config.drag_tau > 0:
-            S[0, 1].copy_(prog.u[0])
-            S[0, 1 + L].copy_(prog.v[0])
-        if t_changed:
-            S[0, 1 + 2 * L:1 + 3 * L].copy_(prog.t)
-        if q_changed:
-            S[0, 1 + 3 * L:1 + 4 * L].copy_(prog.q)
+        with span("gcm.extras"):
+            prog = PrognosticVars(*stream_steps.unpack_state(S[0], L))
+            prog = apply_cadenced_shapiro(prog, step_now, geom, config,
+                                          granularity=k)
+            if has_extras:
+                # utc at the start of the cadence-triggering step, as the
+                # per-step path passes it
+                prog, g = apply_cadenced_extras(
+                    prog, g, utc - config.dt, step_now, geom, config,
+                    granularity=k)
+            if p_changed:
+                S[0, 0].copy_(prog.p)
+            if config.drag_tau > 0:
+                S[0, 1].copy_(prog.u[0])
+                S[0, 1 + L].copy_(prog.v[0])
+            if t_changed:
+                S[0, 1 + 2 * L:1 + 3 * L].copy_(prog.t)
+            if q_changed:
+                S[0, 1 + 3 * L:1 + 4 * L].copy_(prog.q)
         return S, g, utc, step
 
     def advance_chunk(carry, k, host_step):
         S, g, utc, step = carry
-        multi(S, utc, k)
+        with span("gcm.dynamics"):
+            multi(S, utc, k)
         return chunk_extras((S, g, utc + k * config.dt, step + k), k,
                             None if host_step is None else host_step + k)
 
@@ -832,14 +857,18 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
                 state.ground, state.utc, state.step)
 
     def stats_of(carry):
-        return collect_stats(to_model_state(carry), geom)
+        with span("gcm.stats"):
+            return collect_stats(to_model_state(carry), geom)
 
     def host_steps(state):
         """``at(n)``: the step counter after n steps of the run, on the
         host, when the extras key off it (read once a run), else None.  A
         call the guard discards may run off it: its state is not kept."""
-        step0 = int(state.step) if has_extras or has_shapiro else None
-        return lambda n: None if step0 is None else step0 + n
+        if not (has_extras or has_shapiro):
+            return lambda n: None
+        with span("gcm.sync"):
+            step0 = int(state.step)
+        return lambda n: step0 + n
 
     def run(state):
         carry = pack_initial(state)
@@ -862,16 +891,18 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
         the state freezes at the last good call once a call ends bad."""
         inner, ok, blown = carry
         S, g, utc, step = inner
-        saved = S[0].clone()
+        with span("gcm.guard"):
+            saved = S[0].clone()
         new = chunk_fn(inner)
-        bad = state_bad(to_model_state(new), config)
-        advance = ok & ~bad
-        S[0].copy_(torch.where(advance, S[0], saved))
-        inner = (S, _pick(advance, new[1], g),
-                 torch.where(advance, new[2], utc),
-                 torch.where(advance, new[3], step))
-        blown = torch.where(ok & bad, torch.full_like(blown, chunk_start),
-                            blown)
+        with span("gcm.guard"):
+            bad = state_bad(to_model_state(new), config)
+            advance = ok & ~bad
+            S[0].copy_(torch.where(advance, S[0], saved))
+            inner = (S, _pick(advance, new[1], g),
+                     torch.where(advance, new[2], utc),
+                     torch.where(advance, new[3], step))
+            blown = torch.where(ok & bad,
+                                torch.full_like(blown, chunk_start), blown)
         return inner, advance, blown
 
     def run_guarded(state):
@@ -965,21 +996,27 @@ def _make_stream_ring_run_fn(geom, config, timesteps, mesh, start_step=0):
                                     warn_degrade=False) if tail_odd
                  else None)
     ring = _Ring(mesh, geom, config)
-    cadenced = (config.physics or config.drag_tau > 0
-                or config.shapiro_every > 0)
+    cadenced = _has_cadenced(config)
 
     def advance_chunk(state, adv_k, k, host_step):
-        prog = PrognosticVars(*adv_k(*state.prog))
+        with span("gcm.dynamics"):
+            prog = PrognosticVars(*adv_k(*state.prog))
         utc = state.utc + k * config.dt
         # the extras see the clock at the start of the call's last step, as
         # on one device
-        prog, g = ring.cadenced(prog, state.ground, utc - config.dt,
-                                host_step + k, granularity=k)
+        g = state.ground
+        if cadenced:
+            with span("gcm.extras"):
+                prog, g = ring.cadenced(prog, g, utc - config.dt,
+                                        host_step + k, granularity=k)
         return ModelState(prog, g, utc, state.step + k)
 
     def chunks(state):
         """(chunk start, its function) of the run, in order."""
-        at = int(state.step) if cadenced else 0
+        at = 0
+        if cadenced:
+            with span("gcm.sync"):
+                at = int(state.step)
         out = [(idx * K, lambda s, i=idx: advance_chunk(s, adv, K, at + i * K))
                for idx in range(n_chunks)]
         if rem_even:
@@ -997,7 +1034,8 @@ def _make_stream_ring_run_fn(geom, config, timesteps, mesh, start_step=0):
         for n, (_, fn) in enumerate(todo):
             state = fn(state)
             if config.stats and (n < n_chunks or n == len(todo) - 1):
-                stats.append(ring.stats(state))
+                with span("gcm.stats"):
+                    stats.append(ring.stats(state))
         return state, _stack_stats(stats)
 
     def run_guarded(state):
@@ -1006,14 +1044,16 @@ def _make_stream_ring_run_fn(geom, config, timesteps, mesh, start_step=0):
         blown = torch.full((), -1, dtype=torch.int32, device=mesh.device)
         for start, fn in chunks(state):
             new = fn(state)
-            bad = ring.bad(new)
-            advance = ok & ~bad
-            state = _where_state(advance, new, state)
-            blown = torch.where(ok & bad, torch.full_like(blown, start),
-                                blown)
-            ok = advance
+            with span("gcm.guard"):
+                bad = ring.bad(new)
+                advance = ok & ~bad
+                state = _where_state(advance, new, state)
+                blown = torch.where(ok & bad, torch.full_like(blown, start),
+                                    blown)
+                ok = advance
             if config.stats:
-                stats.append(ring.stats(state))
+                with span("gcm.stats"):
+                    stats.append(ring.stats(state))
         return state, _stack_stats(stats), GuardInfo(ok, blown)
 
     out = run_guarded if config.guard else run

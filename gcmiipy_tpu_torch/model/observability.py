@@ -1,14 +1,13 @@
-"""Tracing, step timing and the metrics log.
+"""Tracing, the program's spans and the metrics log.
 
 Port of ``gcmiipy_tpu/model/observability.py``:
 
 * :func:`trace`: a ``torch.profiler`` context around a block that writes a
   Chrome trace (``trace.json``) into ``logdir``;
-* :class:`MetricsLogger`: appends step metrics as JSON lines;
-* :func:`throughput`: grid-point updates per second;
-* :class:`StepTimer`: time per step with warm-up discarded, timed with CUDA
-  events on a card (read once, at :attr:`StepTimer.mean`) and with the
-  host's clock otherwise.
+* :func:`span`: a named range of the program's own work (``gcm.*``) while
+  a profiler records, and nothing otherwise; :func:`span_totals` reads
+  what the spans recorded;
+* :class:`MetricsLogger`: appends step metrics as JSON lines.
 """
 
 import contextlib
@@ -18,6 +17,59 @@ import tempfile
 import time
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+# a range on the profiler's clock with the scope of an operator, not of a
+# user annotation: the profiler copies annotations onto the device's
+# timeline, where they would read as device work
+_RANGE = torch._C._profiler._RecordFunctionFast
+# name -> [count, host seconds]
+_TOTALS = {}
+
+
+class _Span:
+    """One recorded span: the profiler's range and the host's time."""
+
+    __slots__ = ("name", "range", "t0")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.range = _RANGE(self.name)
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        totals = _TOTALS.setdefault(self.name, [0, 0.0])
+        totals[0] += 1
+        totals[1] += time.perf_counter() - self.t0
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name):
+    """``with span("gcm.physics"):`` around a block of the program's work.
+    While a profiler records on this thread it is a range on the
+    profiler's clock (which names the host's work in the trace and links
+    the kernels launched inside it), and it adds to :func:`span_totals`;
+    otherwise it is one shared context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return _Span(name)
+    return _NO_SPAN
+
+
+def span_totals(reset=False):
+    """``{name: {count, host_s}}`` of the spans recorded under a profiler
+    since the last reset: how many, and the host's seconds inside them.
+    ``reset`` empties the totals once read, so that the next reading holds
+    only what is profiled after it."""
+    out = {name: {"count": count, "host_s": host}
+           for name, (count, host) in _TOTALS.items()}
+    if reset:
+        _TOTALS.clear()
+    return out
 
 
 @contextlib.contextmanager
@@ -56,53 +108,3 @@ class MetricsLogger:
         if self._fh:
             self._fh.close()
             self._fh = None
-
-
-def throughput(points, seconds):
-    """Grid-point updates per second."""
-    return points / seconds if seconds > 0 else float("inf")
-
-
-class StepTimer:
-    """Seconds per step with the first ``skip`` steps discarded: ``with
-    timer:`` around each step.  With a CUDA ``device`` each step is timed
-    by a pair of CUDA events on the current stream, so no step waits for
-    the card; :attr:`times` synchronises once and reads them."""
-
-    def __init__(self, skip=1, device=None):
-        self.skip = skip
-        self.cuda = device is not None and torch.device(device).type == "cuda"
-        self._times, self._events = [], []
-        self._t0 = None
-
-    def __enter__(self):
-        if self.cuda:
-            self._t0 = torch.cuda.Event(enable_timing=True)
-            self._t0.record()
-        else:
-            self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.skip > 0:
-            self.skip -= 1
-        elif self.cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self._events.append((self._t0, end))
-        else:
-            self._times.append(time.perf_counter() - self._t0)
-        return False
-
-    @property
-    def times(self):
-        if self._events:
-            torch.cuda.synchronize()
-            self._times += [a.elapsed_time(b) / 1e3 for a, b in self._events]
-            self._events = []
-        return self._times
-
-    @property
-    def mean(self):
-        times = self.times
-        return sum(times) / len(times) if times else float("nan")

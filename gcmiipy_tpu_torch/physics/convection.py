@@ -10,6 +10,7 @@ unstable pair moves to the critical profile
 import torch
 
 from gcmiipy_tpu_torch import constants
+from gcmiipy_tpu_torch.model.observability import span
 
 CRITICAL_LAPSE = 0.0065  # K/m (Manabe & Strickler 1964)
 
@@ -57,6 +58,9 @@ def convective_adjustment(tt, tp, dp, critical_lapse=CRITICAL_LAPSE,
                                                       layers[k + 1])
             if adaptive:
                 touched = touched | unstable.any()
-        if adaptive and not bool(touched):
-            break
+        if adaptive:
+            with span("gcm.sync"):
+                converged = not bool(touched)
+            if converged:
+                break
     return torch.stack(layers, dim=0)

@@ -23,6 +23,15 @@ cycle and the Shapiro filter, the physics every 2nd step) through
 K7 calls of 2 steps with the extras and the filter between them.  With
 ``--trace-dir`` it also writes a Chrome trace per backend there.
 
+The line's ``spans`` give, for each of the program's own spans
+(``gcm.dynamics``, ``gcm.physics.convection``, ``gcm.sync``, ...:
+:func:`model.observability.span`), its calls, host ms and device ms a
+step, the device ms being that of the work launched inside it; with
+``--surface`` they split the plain physics by module and count the
+convection's sweeps (``gcm.sync``).  The device side's copies of user
+annotations (``record_function`` ranges) are not kernels, and
+:func:`kernel_ms` and the breakdown leave them out.
+
 In the breakdown a half step of 'mega4', 'mega' and 'stream' shows three
 launches: the pgf tile (``gcm::pgf_tile<float>``, also K3's one launch in
 'v2'), the filter (``gcm::fft_filter_pow2<float, 1024>``) and the rest
@@ -54,6 +63,8 @@ from gcmiipy_tpu_torch.ops import stream_steps
 # convection and a two-day surface drag
 PHYSICS = dict(physics=True, physics_every=1, convection=True,
                drag_tau=2 * 86400.0)
+# the program's spans (model.observability.span) start with it
+SPAN_PREFIX = "gcm."
 # the surface configuration (chip_smoke.py's Config S)
 SURFACE = dict(topography="hansen", land_cover="hansen", physics=True,
                convection=True, radiation="4band", evaporation=True,
@@ -68,6 +79,14 @@ def _device_us(event):
     return 0.0
 
 
+def _on_device(event):
+    """Whether a profiler event is device work: on the device, and not the
+    device side's copy of a user annotation or a program span."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False)
+            and not event.key.startswith(SPAN_PREFIX))
+
+
 def kernel_ms(fn, calls=20):
     """Device ms a call of each kernel that ``fn`` launches, by kernel
     name (:func:`_kernel_name`), from ``torch.profiler``
@@ -80,8 +99,47 @@ def kernel_ms(fn, calls=20):
             fn()
         torch.cuda.synchronize()
     return {_kernel_name(e.key): _device_us(e) / 1e3 / calls
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+            for e in prof.key_averages() if _on_device(e)}
+
+
+def _merged(intervals):
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def span_table(events, steps):
+    """``{name: {calls, host_ms, device_ms}}`` a step of the program's
+    spans among a profiler's ``events()``: their count, the union of their
+    host ranges, and the device time of the work whose launch (the CUDA
+    runtime call of the same correlation id) lies inside them."""
+    launches, spans, work = {}, {}, []
+    for e in events:
+        rng = (e.time_range.start, e.time_range.end)
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if _on_device(e):
+                work.append((rng, e.id))
+        elif e.name.startswith(SPAN_PREFIX):
+            spans.setdefault(e.name, []).append(rng)
+        elif e.name.startswith("cu"):
+            launches[e.id] = rng[0]
+    table = {}
+    for name, ranges in sorted(spans.items()):
+        merged = _merged(ranges)
+
+        def inside(t):
+            return any(s <= t < e for s, e in merged)
+        device = _merged([rng for rng, i in work
+                          if i in launches and inside(launches[i])])
+        table[name] = {
+            "calls": len(ranges) / steps,
+            "host_ms": sum(e - s for s, e in merged) / 1e3 / steps,
+            "device_ms": sum(e - s for s, e in device) / 1e3 / steps}
+    return table
 
 
 def _kernel_name(key):
@@ -174,8 +232,7 @@ def profile_backend(backend, height, width, layers, dt, steps, device,
     # the device-side events themselves (kernels, copies), not the host ops
     # that launched them, so no time is counted twice
     kernels = [(e.key, _device_us(e) / 1e3 / steps, e.count // steps)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               for e in prof.key_averages() if _on_device(e)]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     return {
@@ -187,6 +244,7 @@ def profile_backend(backend, height, width, layers, dt, steps, device,
         "kernels_per_step": sum(k[2] for k in kernels),
         "top": [{"name": n[:80], "ms_per_step": ms, "calls_per_step": c}
                 for n, ms, c in kernels[:top]],
+        "spans": span_table(prof.events(), steps),
     }
 
 

@@ -297,14 +297,7 @@ def test_blown_checkpointed_run_stamps_the_last_good_step(tmp_path):
     assert os.listdir(tmp_path / "jax") == ["step_0000000000"]
 
 
-def test_throughput_and_step_timer(tmp_path):
-    assert observability.throughput(10.0, 2.0) == 5.0
-    assert observability.throughput(1.0, 0.0) == float("inf")
-    timer = observability.StepTimer(skip=1)
-    for _ in range(3):
-        with timer:
-            sum(range(1000))
-    assert len(timer.times) == 2 and timer.mean > 0
+def test_trace_writes_a_chrome_trace(tmp_path):
     with observability.trace(str(tmp_path)):
         torch.ones(4) + 1
     assert os.path.exists(tmp_path / "trace.json")
