@@ -1,21 +1,21 @@
 import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  # noqa: E401,E702
 # Smoke run of the PyTorch port (gcmiipy_tpu_torch) on one NVIDIA GPU.
 #
-#     python3 chip_smoke.py
+#     python3 chip_smoke.py [convection]
 #
 # Phases, one log line each (with elapsed seconds); any failure exits
 # non-zero and prints no result:
 #   device   the card's name and power limit (nvidia-smi) and torch's name;
 #   build    nvcc builds the kernel sources of the paths (csrc/fused_parts.cu,
 #            csrc/mega_step.cu, csrc/stream_steps.cu, csrc/pgf_rest.cu,
-#            csrc/mega_half.cu and csrc/fft_filter.cu, all at once, each
-#            into a library and, where its code calls power, a float64
-#            library of its own, ops/cuda_lib.py) and prints ptxas' counts
-#            (from the log kept beside a library found built), failing if
-#            the pgf tile, the column-physics epilogue, the rest tile
-#            (tile_stencil<T, RestOut>), K1's tiled launch (tile_stencil<T,
-#            PartsOut>) or K1's column pass spills or keeps a per-layer
-#            array on its stack;
+#            csrc/mega_half.cu, csrc/fft_filter.cu and csrc/convection.cu,
+#            all at once, each into a library and, where its code calls
+#            power, a float64 library of its own, ops/cuda_lib.py) and
+#            prints ptxas' counts (from the log kept beside a library found
+#            built), failing if the pgf tile, the column-physics epilogue,
+#            the rest tile (tile_stencil<T, RestOut>), K1's tiled launch
+#            (tile_stencil<T, PartsOut>), K1's column pass or the adaptive
+#            convection spills or keeps a per-layer array on its stack;
 #   kernels  each kernel against its plain PyTorch version on the card: the
 #            FFT filter stage (fft_filter, against its plain version and
 #            the TPU kernels' banded DFT form), K1 (fused_parts), K6
@@ -29,6 +29,12 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            K7), K1 and K1's column pass alone (pgf_column) must, at the
 #            main path's shape and on four edge grids at both types; K7's
 #            column-physics epilogue alone (column_physics);
+#            the adaptive convection's kernel (ops/convection.py) against
+#            its plain loop on the card, to the bit (phase_convection, run
+#            last, after timing; its row takes phase surface's count of the
+#            kernel's launches; `python3 chip_smoke.py convection` runs
+#            device, build and it alone, and prints its row without a
+#            launch count);
 #   main     each path with its launch counts set to 0 just before it and
 #            read just after: run_model(512, 1024, 9, 30.0, 20, guard=True)
 #            with backend='fused' (K1) and backend='mega4' (K6), held against
@@ -54,8 +60,9 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            'stream' (K7 calls of 2 steps, the extras and the filter
 #            between calls) and 'mega4' (K6), held against each other, the
 #            plain core (xla with the DFT filter) and 'mega' (K5), with the
-#            launches counted and rain required; Config T, the grey
-#            per-step physics over the terrain in K7's epilogue, against
+#            launches counted (the adaptive convection's kernel one a
+#            physics call, every 2nd step) and rain required; Config T, the
+#            grey per-step physics over the terrain in K7's epilogue, against
 #            mega4 with the plain physics after 4 and 20 steps; Config W,
 #            Config S without the land cover on mega4, whose global water
 #            (atmosphere and ground) must change by less than 1e-5;
@@ -200,7 +207,7 @@ STREAM_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
 # few steps: the bound of scripts/tpu_parity.py's gate 6b (:329-360)
 PHYSICS_REL = 4e-4
 SOURCES = ("fused_parts", "mega_step", "stream_steps", "pgf_rest", "mega_half",
-           "fft_filter")
+           "fft_filter", "convection")
 # The flagship bench grid at its full width.  dt is bench.py's for this grid:
 # at 512 latitude rows dt=900 breaks the meridional CFL limit (the polar
 # filter acts zonally only), and the guard stops the run at step 1-2, in the
@@ -398,6 +405,8 @@ REDESIGNED = (
      "tile_stencilIfNS_8PartsOutIfEEEEv", "tile_stencilIdNS_8PartsOutIdEEEEv"),
     ("column_pass (K1)", "fused_parts", "column_passIfEEv",
      "column_passIdEEv"),
+    ("column_convection", "convection", "column_convectionIfEEv",
+     "column_convectionIdEEv"),
 )
 
 
@@ -928,6 +937,91 @@ def phase_kernels_physics(device):
     return main_abs
 
 
+def convection_field(shape, dtype, device, seed=3):
+    """(tt, tp, dp) of the adaptive convection on the Manabe ladder: warm,
+    noisy lower layers (many superadiabatic pairs, up to 2L sweeps) in
+    every other column, isothermal columns (no unstable pair) between."""
+    from gcmiipy_tpu_torch.grid import geometry
+    L, H, W = shape
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 dtype=torch.float64, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    p = 1e5 * (1 + 0.01 * torch.randn((H, W), generator=g,
+                                      dtype=torch.float64))
+    tt = 280.0 + 8.0 * torch.randn((L, H, W), generator=g,
+                                   dtype=torch.float64)
+    tt[:3] += torch.tensor([40.0, 20.0, 8.0], dtype=torch.float64)[:, None,
+                                                                    None]
+    tt[:, :, 1::2] = 250.0
+    tp = p * geom.sig.reshape(L, 1, 1) + geom.ptop
+    dp = p * geom.dsig.reshape(L, 1, 1)
+    return tuple(x.to(dtype=dtype, device=device) for x in (tt, tp, dp))
+
+
+def phase_convection(device, launches=None):
+    """The adaptive convection's kernel (ops/convection.py, one launch a
+    call) against its plain loop run on the card (``on_card`` turned off:
+    a host read a sweep), to the bit at float32 and float64 on the main
+    grid and on GCM-II's 9x24x36, with its largest sweep count the plain
+    loop's sweeps; then the main grid's float32 call timed against the
+    plain loop.  Returns the kernels table's row, with ``launches``: the
+    kernel's launches on the main path (phase surface's count; None where
+    it did not run)."""
+    from gcmiipy_tpu_torch.ops import convection as cv
+    from gcmiipy_tpu_torch.physics.convection import convective_adjustment
+    from gcmiipy_tpu_torch.step_profile import kernel_ms
+
+    def plain(tt, tp, dp):
+        saved, cv.on_card = cv.on_card, lambda tt: False
+        try:
+            return convective_adjustment(tt, tp, dp)
+        finally:
+            cv.on_card = saved
+
+    def plain_sweeps(tt, tp, dp):
+        """The plain loop's field and its sweeps (a host read each)."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = plain(tt, tp, dp)
+        return out, sum(e.name == "aten::_local_scalar_dense"
+                        for e in prof.events())
+
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    for shape in (main_shape, (9, 24, 36)):
+        for dtype in (torch.float32, torch.float64):
+            tt, tp, dp = convection_field(shape, dtype, device)
+            ref, sweeps = plain_sweeps(tt, tp, dp)
+            cv.sweeps_max(device, reset=True)
+            before = cv.column_adjustment.launches
+            out = convective_adjustment(tt, tp, dp)
+            most = cv.sweeps_max(device, reset=True)
+            tag = (f"convection {shape} {str(dtype)[6:]}: {sweeps} sweeps "
+                   f"of the plain loop, {most} the most a column ran")
+            if cv.column_adjustment.launches != before + 1:
+                fail("kernels", f"{tag}: launched "
+                                f"{cv.column_adjustment.launches - before} "
+                                "times")
+            if not torch.equal(out, ref) or most != sweeps:
+                fail("kernels", f"{tag}: differs from the plain loop by "
+                                f"{abs_err([out], [ref]):.3e}")
+            log("kernels", f"{tag}, equal to the bit")
+    tt, tp, dp = convection_field(main_shape, torch.float32, device)
+    call = lambda: convective_adjustment(tt, tp, dp)  # noqa: E731
+    ms = cuda_ms(call, 50)
+    plain_ms = cuda_ms(lambda: plain(tt, tp, dp), 10)
+    L, H, W = main_shape
+    # the call reads tt, tp and dp and writes its result; the launch alone
+    # reads tt, dp and the two tables and writes the result
+    nbytes, launch_bytes = 4 * L * H * W * 4, (5 * L - 2) * H * W * 4
+    log("timing", f"convection launch alone: {launch_bytes / 1e6:.1f} MB -> "
+                  f"{1e3 * launch_bytes / HBM_BYTES_PER_S:.4f} ms")
+    return _row("column_convection", "gcmiipy_tpu_torch/csrc/convection.cu",
+                "none (gcmiipy_tpu/physics/convection.py, lax.while_loop)",
+                launches, 0.0, ms, plain_ms, nbytes, {},
+                None, f"convection {main_shape} float32",
+                launch_ms=kernel_ms(call))
+
+
 def phase_kernels_k3k4(device):
     """K3 and K4 (one launch of the rest tile, aflux in its prologue)
     against their plain versions: float32 at the main path's shape (flat;
@@ -1436,19 +1530,23 @@ def phase_surface(device):
     (TERRAIN): grey physics at physics_every=1 over the terrain on 'stream',
     where K7's epilogue runs the physics, against mega4 with the per-step
     physics in plain PyTorch.  Config W: Config S without the land cover on
-    mega4, its global water at steps 0 and 20.  Returns the geometry and
-    start of Config S, for phase timing."""
+    mega4, its global water at steps 0 and 20.  The adaptive convection's
+    kernel is counted with the others: one launch a plain physics call
+    (none where K7's epilogue runs the physics).  Returns the geometry and
+    start of Config S, for phase timing, and the convection kernel's
+    launches in Config S's 20 steps on 'stream'."""
     from gcmiipy_tpu_torch.diagnostics import global_water
     from gcmiipy_tpu_torch.model.driver import gen_model_geometry
+    from gcmiipy_tpu_torch.ops.convection import column_adjustment
     from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
     from gcmiipy_tpu_torch.ops.mega_half import mega_half
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
     from gcmiipy_tpu_torch.ops.pgf_rest import pgf_tile, rest_stencil
     from gcmiipy_tpu_torch.ops.stream_steps import column_physics, stream_steps
     kernels = (stream_steps, mega_step, mega_half, fft_filter, rest_stencil,
-               pgf_tile, column_physics)
+               pgf_tile, column_physics, column_adjustment)
     names = ("stream_steps", "mega_step", "mega_half", "fft_filter",
-             "rest_stencil", "pgf_tile", "column_physics")
+             "rest_stencil", "pgf_tile", "column_physics", "column_adjustment")
     n = MAIN["steps"]
     config = _config("stream", **SURFACE)
     geom = gen_model_geometry(config, device)
@@ -1473,19 +1571,24 @@ def phase_surface(device):
                             f"expected {want}")
         return out
 
+    # the adaptive convection: one launch a physics call, every 2nd step
     runs = {}
     for steps in (2, n):
         # K = 2: one K7 call a 2 steps, the extras and the filter between
         runs["stream", steps] = counted("S", "stream", steps, dict(
             stream_steps=steps // 2, fft_filter=2 * steps,
-            rest_stencil=2 * steps, pgf_tile=2 * steps))
+            rest_stencil=2 * steps, pgf_tile=2 * steps,
+            column_adjustment=steps // 2))
+        if steps == n:
+            convection_launches = column_adjustment.launches
         runs["mega4", steps] = counted("S", "mega4", steps, dict(
             mega_step=steps, fft_filter=2 * steps, rest_stencil=2 * steps,
-            pgf_tile=2 * steps))
-        runs["xla", steps] = counted("S", "xla", steps, {}, "dft")
+            pgf_tile=2 * steps, column_adjustment=steps // 2))
+        runs["xla", steps] = counted("S", "xla", steps, dict(
+            column_adjustment=steps // 2), "dft")
     mega_n = counted("S", "mega", n, dict(
         mega_half=2 * n, fft_filter=2 * n, rest_stencil=2 * n,
-        pgf_tile=2 * n))
+        pgf_tile=2 * n, column_adjustment=n // 2))
     gw0 = start.ground.gw
     rained = int((runs["mega4", n][6] > gw0).sum())
     dried = int((runs["mega4", n][6] < gw0).sum())
@@ -1531,7 +1634,8 @@ def phase_surface(device):
         runs["T mega4", steps] = counted(
             "T", "mega4", steps, dict(
                 mega_step=steps, fft_filter=2 * steps, rest_stencil=2 * steps,
-                pgf_tile=2 * steps), cfg=TERRAIN, state=t_start, g=t_geom)
+                pgf_tile=2 * steps, column_adjustment=steps), cfg=TERRAIN,
+            state=t_start, g=t_geom)
     moved = (f"the run moved p by "
              f"{float((runs['T mega4', n][0] - t_start.prog.p).abs().max()):.3e}"
              f" Pa, the ground temperature by "
@@ -1548,8 +1652,8 @@ def phase_surface(device):
     from gcmiipy_tpu_torch.model.state import (
         GroundVars, ModelState, PrognosticVars)
     w_out = counted("W", "mega4", n, dict(
-        mega_step=n, fft_filter=2 * n, rest_stencil=2 * n, pgf_tile=2 * n),
-        cfg=w_cfg, state=w_start, g=w_geom)
+        mega_step=n, fft_filter=2 * n, rest_stencil=2 * n, pgf_tile=2 * n,
+        column_adjustment=n // 2), cfg=w_cfg, state=w_start, g=w_geom)
     w_end = ModelState(PrognosticVars(*w_out[:5]), GroundVars(
         w_out[5], w_out[6], w_start.ground.snow, w_start.ground.ice),
         w_start.utc, w_start.step)
@@ -1562,7 +1666,7 @@ def phase_surface(device):
                    f"moved by {float((w_out[6] - w_start.ground.gw).abs().max()):.3e} m")
     if not abs(change) < WATER_REL:
         fail("surface", "Config W does not conserve its water")
-    return geom, start
+    return (geom, start), convection_launches
 
 
 def phase_services(device):
@@ -1960,8 +2064,10 @@ def phase_longrun(device, card):
     within FLAGSHIP_E_REL / FLAGSHIP_P_REL of its float64 day; then the
     stabilised and seasonal cases for as many steps as LONGRUN_BUDGET_S
     leaves (at least LONGRUN_STABLE_MIN), guard-clean and within
-    LONGRUN_E_REL.  The launches of K6 and K7 are counted and logged."""
+    LONGRUN_E_REL.  The launches of K6 and K7 are counted and logged, and
+    so are the adaptive convection's (one a plain physics call)."""
     from gcmiipy_tpu_torch import longrun_flagship as lr
+    from gcmiipy_tpu_torch.ops.convection import column_adjustment
     from gcmiipy_tpu_torch.ops.fft_filter import fft_filter
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
     from gcmiipy_tpu_torch.ops.pgf_rest import pgf_tile, rest_stencil
@@ -1973,7 +2079,7 @@ def phase_longrun(device, card):
     log("longrun", f"mega_step at the long runs' grids ok, max rel held "
                    f"{worst:.3e}")
     kernels = (mega_step, stream_steps, fft_filter, rest_stencil, pgf_tile,
-               column_physics)
+               column_physics, column_adjustment)
     summary = {}
 
     def case(name, steps, compared):
@@ -1997,8 +2103,8 @@ def phase_longrun(device, card):
                        f"{rec['p_range_pa'][0]:.1f}-{rec['p_range_pa'][1]:.1f}"
                        f" Pa; launches mega_step {counts[0]} fft_filter "
                        f"{counts[2]} rest_stencil {counts[3]} pgf_tile "
-                       f"{counts[4]}")
-        if counts != want:
+                       f"{counts[4]} column_adjustment {counts[6]}")
+        if counts[:6] != want:
             fail("longrun", f"{name} launched {counts}, expected {want}")
         if not rec["p_finite"] or not e_rel < LONGRUN_E_REL:
             fail("longrun", f"{name}: p finite {rec['p_finite']}, energy "
@@ -2028,7 +2134,7 @@ def phase_longrun(device, card):
     day = rec["float64_day"]
     k = rec["trace_every"]
     total = steps + FLAGSHIP_DAY
-    want = [0, total // k, 2 * total, 2 * total, 2 * total, total]
+    want = [0, total // k, 2 * total, 2 * total, 2 * total, total, 0]
     log("longrun", f"flagship {tuple(rec['grid'])} dt={rec['dt']:g} "
                    f"stream+physics: "
                    f"float32 {steps} steps in {rec['walltime_s']:.2f}s "
@@ -3711,6 +3817,12 @@ def timing_k345(launches, max_abs, geom, prog):
 def main():
     card, kind = phase_device()
     device = torch.device("cuda", 0)
+    if sys.argv[1:] == ["convection"]:
+        # the adaptive convection's kernel alone: build, check, time
+        phase_build()
+        print(card, flush=True)
+        print(json.dumps({"kernels": [phase_convection(device)]}), flush=True)
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -3726,7 +3838,7 @@ def main():
     launches, geom, start, max_abs["k2"], runs = phase_main(device)
     launches.update(phase_main_stream(device, geom, start))
     launches.update(phase_main_mega_v2(device, geom, start, runs))
-    surface = phase_surface(device)
+    surface, convection_launches = phase_surface(device)
     launches.update(phase_services(device))
     phase_sideband(device, card)
     phase_longrun(device, card)
@@ -3735,6 +3847,9 @@ def main():
     rows = phase_timing(device, launches, max_abs, geom, start, surface)
     rows += timing_shards(device, ring)
     rows += timing_mesh2d(device, m2d)
+    # last: torch.profiler sessions opened before phases longrun to mesh2d
+    # lose the device events of phase timing's (PERF.md)
+    rows.append(phase_convection(device, convection_launches))
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

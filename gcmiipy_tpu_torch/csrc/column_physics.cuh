@@ -23,8 +23,8 @@
 // The column's work: the Exner factor, the true temperature and the
 // grey-radiation ladder (the emission of each layer, the downward and
 // upward absorption sweeps), the ground's budget, then the adjustment
-// sweeps over the layer pairs (physics/convection.py), and the drag on
-// layer 0 of u and v.
+// sweeps over the layer pairs (physics/convection.py, one sweep of
+// convection_sweep.cuh each), and the drag on layer 0 of u and v.
 //
 // The clock of step s is utc0 + s*dt in the working type, utc0 read from
 // the state's 0-dim tensor in device memory (no host read).  The ground
@@ -47,6 +47,7 @@
 
 #pragma once
 
+#include "convection_sweep.cuh"
 #include "gcm_stencil.cuh"
 
 namespace gcm {
@@ -198,26 +199,11 @@ __global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a) 
   // fixed-sweep convective adjustment, bottom-up over the layer pairs
   if (convect) {
     const T rd = T(c[kRd]), inv_g = one / T(c[kG]), lapse = T(c[kLapse]);
-    for (int sw = 0; sw < sweeps; ++sw) {
-      T t_dn = at(kTt, 0);
-      T m_dn = p * row(kDsig, 0);
-      for (int k = 0; k + 1 < L; ++k) {
-        const T t_up = at(kTt, k + 1);
-        const T m_up = p * row(kDsig, k + 1);
-        const T tbar = T(0.5) * (t_dn + t_up);
-        const T dz = ((rd * tbar) * inv_g) * at(kLr, k);
-        const T D = lapse * dz;
-        if (t_up < t_dn - D) {
-          const T t_dn_new = ((m_dn * t_dn + m_up * t_up) + m_up * D) * at(kIm, k);
-          at(kTt, k) = t_dn_new;
-          t_dn = t_dn_new - D;
-          at(kTt, k + 1) = t_dn;
-        } else {
-          t_dn = t_up;
-        }
-        m_dn = m_up;
-      }
-    }
+    auto tt = [&](int k) -> T& { return at(kTt, k); };
+    auto m = [&](int k) { return p * row(kDsig, k); };
+    auto lr = [&](int k) { return at(kLr, k); };
+    auto im = [&](int k) { return at(kIm, k); };
+    for (int sw = 0; sw < sweeps; ++sw) convection_sweep(L, rd, inv_g, lapse, tt, m, lr, im);
   }
   for (int k = 0; k < L; ++k) a.t[k * HW + col] = at(kTt, k) * at(kEx, k);
 

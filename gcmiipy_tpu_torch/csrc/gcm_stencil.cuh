@@ -19,10 +19,9 @@
 #include <math.h>
 #include <stddef.h>
 
-namespace gcm {
+#include "gcm_limits.cuh"
 
-constexpr int kMaxLayers = 32;
-constexpr int kBlock = 128;
+namespace gcm {
 
 __device__ __forceinline__ float power(float x, float y) { return powf(x, y); }
 #ifdef GCM_POW_LINKED
@@ -75,10 +74,6 @@ Params<T> make_params(void* const* in, void* const* geo, int L, int H, int W,
   a.cp = T(c[4]); a.g = T(c[5]); a.inv_p0 = T(c[6]); a.two_omega = T(c[7]);
   a.coriolis = coriolis; a.q_limiter = q_limiter;
   return a;
-}
-
-inline bool bad_shape(int L, int H, int W) {
-  return L < 1 || L > kMaxLayers || H < 1 || H > 65535 || W < 1;
 }
 
 // aflux (core25d.aflux) on column (j,i): the convergence of the filtered

@@ -427,9 +427,9 @@ class _Ring:
       row, filtered and cut back (cadence steps only); the extras run on
       the block padded by one cell on both axes (the evaporation's wind
       also averages u with the column to the left), then trimmed.  The
-      adaptive convection reads a flag on the host per sweep, per rank:
-      ranks may sweep different times (a sweep over a converged column is
-      the identity) and no collective waits on it.
+      adaptive convection is column-local: on a card each rank's columns
+      stop sweeping on their own, in one launch with no host read, and no
+      collective waits on it.
     """
 
     def __init__(self, mesh, geom, config):

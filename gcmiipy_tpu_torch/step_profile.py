@@ -27,10 +27,13 @@ The line's ``spans`` give, for each of the program's own spans
 (``gcm.dynamics``, ``gcm.physics.convection``, ``gcm.sync``, ...:
 :func:`model.observability.span`), its calls, host ms and device ms a
 step, the device ms being that of the work launched inside it; with
-``--surface`` they split the plain physics by module and count the
-convection's sweeps (``gcm.sync``).  The device side's copies of user
-annotations (``record_function`` ranges) are not kernels, and
-:func:`kernel_ms` and the breakdown leave them out.
+``--surface`` they split the plain physics by module.  Its
+``convection_sweeps_max`` is the most sweeps any column of the adaptive
+convection's kernel ran over the timed steps
+(``ops/convection.sweeps_max``, read once after them; 0 where the kernel
+did not run).  The device side's copies of user annotations
+(``record_function`` ranges) are not kernels, and :func:`kernel_ms` and
+the breakdown leave them out.
 
 In the breakdown a half step of 'mega4', 'mega' and 'stream' shows three
 launches: the pgf tile (``gcm::pgf_tile<float>``, also K3's one launch in
@@ -57,7 +60,7 @@ from gcmiipy_tpu_torch.grid import geometry
 from gcmiipy_tpu_torch.model import driver
 from gcmiipy_tpu_torch.model.config import ModelConfig
 from gcmiipy_tpu_torch.model.state import moist_start
-from gcmiipy_tpu_torch.ops import stream_steps
+from gcmiipy_tpu_torch.ops import convection, stream_steps
 
 # the per-step physics of the main path: grey radiation every step,
 # convection and a two-day surface drag
@@ -216,10 +219,12 @@ def profile_backend(backend, height, width, layers, dt, steps, device,
         advance = _stepper(backend, geom, config, steps)
     advance()
     torch.cuda.synchronize()
+    convection.sweeps_max(device, reset=True)
     t = time.perf_counter()
     advance()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t) / steps
+    sweeps = convection.sweeps_max(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         advance()
@@ -245,6 +250,7 @@ def profile_backend(backend, height, width, layers, dt, steps, device,
         "top": [{"name": n[:80], "ms_per_step": ms, "calls_per_step": c}
                 for n, ms, c in kernels[:top]],
         "spans": span_table(prof.events(), steps),
+        "convection_sweeps_max": sweeps,
     }
 
 

@@ -18,7 +18,10 @@ host's ``pow``, its one library function.  The column-physics epilogue alone is 
 within 1e-14 (float64) and 1e-6 (float32) of each field's scale: its
 ``pow``, ``log``, ``sin`` and ``cos`` are the host's.  The launches of the
 pgf tile, the rest stencil and the epilogue are counted where the C
-entries make them.
+entries make them.  The adaptive convection's kernel equals its plain
+loop to the bit at both types, with the plain version's ``x / c`` made
+the card's ``x * (1/c)`` (``card_division``), and keeps its largest
+sweep count where the plain loop's host reads count its sweeps.
 """
 
 import shutil
@@ -33,10 +36,13 @@ from gcmiipy_tpu_torch.model.state import random_prognostics
 from gcmiipy_tpu_torch.ops import fused_parts as fp
 from gcmiipy_tpu_torch.ops import mega_step as ms
 from gcmiipy_tpu_torch.ops import pgf_rest as pr
+from gcmiipy_tpu_torch.ops import convection as cv
 from gcmiipy_tpu_torch.ops import polar_filter
 from gcmiipy_tpu_torch.ops import stream_steps as ss
 from gcmiipy_tpu_torch.ops.fft_filter import fft_filter_ref
-from torch_host_emulation import host_pow, kernels_on_cpu, rewrite_launches
+from gcmiipy_tpu_torch.physics import convection
+from torch_host_emulation import (card_division, host_pow, kernels_on_cpu,
+                                  rewrite_launches)
 
 torch.set_num_threads(1)
 
@@ -460,3 +466,67 @@ def test_mega_half_shard_source_matches_plain_version(build_dir, shard):
         assert torch.equal(a[..., 8:16, :],
                            b[..., shard * 8:(shard + 1) * 8, :])
     assert bool((out[2][:, rows == 31] == 0).all())
+
+
+def _convection_field(kind):
+    """(tt, tp, dp) float64 of one kind: ``unstable`` is
+    tests/test_torch_physics.py's _unstable_column(3) (a warm, noisy lower
+    column: many superadiabatic pairs); ``stable`` is isothermal with
+    noise well below any pair's critical difference; ``mixed`` alternates
+    columns that run the full 2L sweeps (a lapse of 15 K a layer) with
+    isothermal ones that need none, over two blocks of columns (140)."""
+    L, H, W = (9, 3, 140) if kind == "mixed" else (9, 4, 5)
+    geom = _geom((L, H, W), False)
+    sig, dsig = geom.sig.reshape(L, 1, 1), geom.dsig.reshape(L, 1, 1)
+    rng = np.random.default_rng(3)
+    p = torch.as_tensor(1e5 * (1 + 0.01 * rng.standard_normal((H, W))))
+    tt = 280.0 + 8.0 * rng.standard_normal((L, H, W))
+    if kind == "unstable":
+        tt[:3] += np.array([40.0, 20.0, 8.0])[:, None, None]
+    elif kind == "stable":
+        tt = 250.0 + 0.05 * rng.standard_normal((L, H, W))
+    else:
+        tt = np.full((L, H, W), 250.0)
+        tt[:, :, ::3] = (300.0 - 15.0 * np.arange(L))[:, None, None]
+    return torch.as_tensor(tt), p * sig + geom.ptop, p * dsig
+
+
+def _plain_adaptive(tt, tp, dp):
+    """The plain adaptive loop's field and its sweeps (its host reads,
+    one a sweep)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = convection.convective_adjustment(tt, tp, dp)
+    return out, sum(e.name == "aten::_local_scalar_dense"
+                    for e in prof.events())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["unstable", "stable", "mixed"])
+def test_convection_source_equals_plain_adaptive_version_to_the_bit(
+        build_dir, kind, dtype):
+    """The adaptive convection's kernel (one launch, each column stopping
+    after its own first stable sweep) against the plain loop (stopping
+    after the first sweep that changed no column): the same field to the
+    bit, its largest sweep count the plain loop's sweeps; a stable field
+    comes back unchanged, and in the mixed one the steep columns run all
+    2L sweeps while the isothermal ones keep their values."""
+    tt, tp, dp = (x.to(dtype) for x in _convection_field(kind))
+    with card_division():
+        ref, sweeps = _plain_adaptive(tt, tp, dp)
+        cv.sweeps_max("cpu", reset=True)
+        before = cv.column_adjustment.launches
+        with kernels_on_cpu(build_dir):
+            out = convection.convective_adjustment(tt, tp, dp)
+    assert cv.column_adjustment.launches == before + 1
+    assert torch.equal(out, ref)
+    assert cv.sweeps_max("cpu", reset=True) == sweeps
+    if kind == "stable":
+        assert sweeps == 1 and torch.equal(out, tt)
+    else:
+        assert not torch.equal(out, tt)
+    if kind == "mixed":
+        assert sweeps == 2 * tt.shape[0]
+        keep = torch.ones(tt.shape[-1], dtype=torch.bool)
+        keep[::3] = False
+        assert torch.equal(out[..., keep], tt[..., keep])

@@ -15,7 +15,9 @@ their stages).  The card's own ``pow`` and ``sin``, its memory model and
 anything about speed only a card shows.  Inside :func:`host_pow` a plain
 version's ``x ** c`` calls the C library's ``pow``/``powf``, which the
 emulated kernels call, so that a kernel and its plain version can be held
-to the bit where ``pow`` is the only function they share.
+to the bit where ``pow`` is the only function they share; inside
+:func:`card_division` a plain version's ``x / c`` is ``x * (1/c)``, as
+PyTorch computes it on CUDA and the kernels compute it.
 """
 
 import contextlib
@@ -30,11 +32,12 @@ import types
 
 import torch
 
-from gcmiipy_tpu_torch.ops import (cuda_lib, fused_parts, mega_half, mega_step,
-                                   pgf_rest, stream_steps)
+from gcmiipy_tpu_torch.ops import (convection, cuda_lib, fused_parts, mega_half,
+                                   mega_step, pgf_rest, stream_steps)
 
 # the wrappers that choose their plain version by on_cpu
-WRAPPERS = (fused_parts, pgf_rest, mega_step, mega_half, stream_steps)
+WRAPPERS = (fused_parts, pgf_rest, mega_step, mega_half, stream_steps,
+            convection)
 
 # Stands in for cuda_runtime.h and cuda_pipeline.h.
 HEADER = r"""
@@ -43,6 +46,7 @@ HEADER = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __device__
@@ -68,6 +72,25 @@ inline std::barrier<>* emu_barrier = nullptr;
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// a warp's max, where every thread of the block calls it together
+inline int emu_lanes[1024];
+inline int __reduce_max_sync(unsigned, int v) {
+  const unsigned t = threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
+  const unsigned n = blockDim.x * blockDim.y * blockDim.z;
+  emu_lanes[t] = v;
+  __syncthreads();
+  int m = v;
+  for (unsigned l = t & ~31u; l < (t | 31u) + 1 && l < n; ++l) m = m < emu_lanes[l] ? emu_lanes[l] : m;
+  __syncthreads();
+  return m;
+}
+inline std::mutex emu_atomic;
+inline int atomicMax(int* p, int v) {
+  std::lock_guard<std::mutex> hold(emu_atomic);
+  const int old = *p;
+  if (v > old) *p = v;
+  return old;
+}
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
@@ -226,6 +249,27 @@ def kernels_on_cpu(build_dir, flags=()):
 _LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
 _LIBM.pow.restype, _LIBM.pow.argtypes = ctypes.c_double, [ctypes.c_double] * 2
 _LIBM.powf.restype, _LIBM.powf.argtypes = ctypes.c_float, [ctypes.c_float] * 2
+
+
+@contextlib.contextmanager
+def card_division():
+    """Within the block, ``tensor / c`` with a Python float ``c`` on a
+    float32 or float64 CPU tensor is ``tensor * (1/c)``, the reciprocal
+    formed in double and rounded to the tensor's type, as PyTorch computes
+    it on CUDA (measured on an H100), where on the CPU it divides."""
+    div = torch.Tensor.__truediv__
+
+    def card_div(x, c):
+        if (not isinstance(c, float) or x.device.type != "cpu"
+                or x.dtype not in (torch.float32, torch.float64)):
+            return div(x, c)
+        return x * torch.tensor(1.0 / c, dtype=x.dtype)
+
+    torch.Tensor.__truediv__ = card_div
+    try:
+        yield
+    finally:
+        torch.Tensor.__truediv__ = div
 
 
 @contextlib.contextmanager
