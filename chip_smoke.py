@@ -1,7 +1,7 @@
 import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  # noqa: E401,E702
 # Smoke run of the PyTorch port (gcmiipy_tpu_torch) on one NVIDIA GPU.
 #
-#     python3 chip_smoke.py [convection]
+#     python3 chip_smoke.py [convection | kernels]
 #
 # Phases, one log line each (with elapsed seconds); any failure exits
 # non-zero and prints no result:
@@ -34,7 +34,22 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            last, after timing; its row takes phase surface's count of the
 #            kernel's launches; `python3 chip_smoke.py convection` runs
 #            device, build and it alone, and prints its row without a
-#            launch count);
+#            launch count); on DEEP_GRIDS beside the others, where the
+#            pgf tile, the rest tile, K1's tiled launch, the epilogue and
+#            the convection launch their deep forms above their HeldLayers
+#            (csrc/gcm_limits.cuh; `python3 chip_smoke.py forms` times each
+#            kernel's held and deep forms against each other, forced in
+#            copies of csrc/, at 9 to 48 layers);
+#   deep     GISS ModelE2.1's 40 layers under a 10 Pa top with the per-step
+#            physics through make_run_fn on every backend, float32 on the
+#            main grid and float64 on 64x128, each against 'xla', guard
+#            clean, the column kernels' launches counted; then the rows of the
+#            pgf tile, the rest tile and the epilogue at 40x512x1024
+#            (`python3 chip_smoke.py kernels` runs device, build, the
+#            kernel phases and this, then the convection, and prints their
+#            rows); in the full run it runs after phase timing, before the
+#            convection: its profiler sessions would cost timing's their
+#            device events;
 #   main     each path with its launch counts set to 0 just before it and
 #            read just after: run_model(512, 1024, 9, 30.0, 20, guard=True)
 #            with backend='fused' (K1) and backend='mega4' (K6), held against
@@ -289,6 +304,14 @@ LONGRUN_E_REL = 1.5e-11
 # and 1.2e-6), the float32 state's rounding carried over 2880 steps
 FLAGSHIP_STEPS, FLAGSHIP_DAY = 14400, 2880
 FLAGSHIP_E_REL, FLAGSHIP_P_REL = 6e-5, 1.2e-5
+# phase deep: GISS ModelE2.1's 40 layers under a 0.1 hPa top (gcmbench's
+# gcm2-grey-l40) with the main path's per-step physics through make_run_fn
+# on every backend, float32 on the main grid and float64 on a grid of its
+# own, each against 'xla' at its type after the steps: float32 within
+# RUN_REL; float64 within DEEP_REL64, the kernels' FFT filter against
+# torch.fft's and the card's pow carried over 20 steps
+DEEP = dict(layers=40, ptop=10.0, steps=20, f64_grid=(64, 128))
+DEEP_REL64 = 1e-9
 
 
 def log(phase, msg):
@@ -407,6 +430,18 @@ REDESIGNED = (
      "column_passIdEEv"),
     ("column_convection", "convection", "column_convectionIfEEv",
      "column_convectionIdEEv"),
+    # the deep forms, above each kernel's HeldLayers (gcm_limits.cuh)
+    ("pgf_tile_deep", "pgf_rest", "pgf_tile_deepIfEEv", "pgf_tile_deepIdEEv"),
+    ("column_physics_deep", "stream_steps", "column_physics_deepIfEEv",
+     "column_physics_deepIdEEv"),
+    ("tile_stencil_deep<T, RestOut>", "pgf_rest",
+     "tile_stencil_deepIfNS_7RestOutIfEEEEv",
+     "tile_stencil_deepIdNS_7RestOutIdEEEEv"),
+    ("tile_stencil_deep<T, PartsOut>", "fused_parts",
+     "tile_stencil_deepIfNS_8PartsOutIfEEEEv",
+     "tile_stencil_deepIdNS_8PartsOutIdEEEEv"),
+    ("column_convection_deep", "convection", "column_convection_deepIfEEv",
+     "column_convection_deepIdEEv"),
 )
 
 
@@ -414,7 +449,7 @@ def phase_build():
     """Every source at once (one nvcc each), with ptxas' register counts;
     fails if a kernel of REDESIGNED (the pgf tile, the column-physics
     epilogue, the rest tile, K1's tiled launch and column pass) spills or
-    keeps a stack frame of a per-layer array (kMaxLayers values of its
+    keeps a stack frame of a per-layer array (32 values of its
     type)."""
     from gcmiipy_tpu_torch.ops import cuda_lib
     t = time.perf_counter()
@@ -718,8 +753,10 @@ def phase_kernels_k7(device):
     """K7 against its plain version after one call of k steps: float32 at
     the main path's shape with the physics (k=4, with and without the
     convection) and without it (k=2), and float64 at 3x24x36 (seasonal
-    clock) and 3x512x1024, every field and the ground temperature held to
-    its own scale."""
+    clock) and 3x512x1024, and every stage in its deep form at 40 layers
+    (float32 on the main grid, float64 at 40x24x36 with the seasonal
+    clock), every field and the ground temperature held to its own
+    scale."""
     from gcmiipy_tpu_torch.ops.stream_steps import stream_steps_ref
     main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
     cases = [(main_shape, torch.float32, True, 4, {}),
@@ -727,7 +764,9 @@ def phase_kernels_k7(device):
              (main_shape, torch.float32, False, 2, {}),
              ((3, 24, 36), torch.float64, True, 4, {"seasonal": True}),
              ((3, 24, 36), torch.float64, False, 2, {}),
-             ((3, 512, 1024), torch.float64, True, 4, {})]
+             ((3, 512, 1024), torch.float64, True, 4, {}),
+             (DEEP_GRIDS[0], torch.float32, True, 4, {}),
+             (DEEP_GRIDS[1], torch.float64, True, 4, {"seasonal": True})]
     worst, main_abs = {}, 0.0
     for shape, dtype, physics, k, kw in cases:
         geom, step, S, utc0 = k7_inputs(shape, dtype, physics, device, **kw)
@@ -751,7 +790,8 @@ def phase_kernels_k7(device):
         rel, err = held_to_plain(tag, got, plain, STREAM_REL[dtype],
                                  banded_bound(dtype, STREAM_REL[dtype]))
         worst[dtype] = max(worst.get(dtype, 0.0), rel)
-        if dtype == torch.float32 and physics and not kw:
+        if shape == main_shape and dtype == torch.float32 and physics \
+                and not kw:
             main_abs = err
     log("kernels", "stream_steps ok, max rel held: float32 "
                    f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
@@ -771,8 +811,12 @@ def k3k4_inputs(shape, dtype, hill, device):
 
 
 # Grids off every tile multiple (32 columns, 8 rows a tile), smaller than
-# one tile, and kMaxLayers
+# one tile, and 32 layers; then the deep column: 40 layers on the main
+# grid and off the tiles, kMaxLayers off the tiles.  Over these grids each
+# column kernel launches both of its forms (csrc/gcm_limits.cuh), but the
+# rest tile's held form at float64, which no L launches
 EDGE_GRIDS = ((9, 24, 36), (3, 20, 100), (1, 2, 36), (32, 16, 128))
+DEEP_GRIDS = ((40, 512, 1024), (40, 24, 36), (64, 16, 100))
 
 
 def _bits(tag, out, ref, counter, before):
@@ -799,8 +843,8 @@ def phase_kernels_bits(device):
     flat and with a hill: K3 (the pgf tile of K3 and K5-K7), K4 (the rest
     tile of K4-K7, aflux in its prologue) and K1 (its column pass, then its
     tiled launch with the aflux prologue) with Coriolis and the q limiter,
-    and K1's column pass alone.  Returns the float32 main-shape errors
-    (all 0 when it passes)."""
+    and K1's column pass alone.  Returns the float32 errors by op on the
+    main shape and on DEEP_GRIDS[0], as measured (all 0 when it passes)."""
     from gcmiipy_tpu_torch.dynamics import core25d
     from gcmiipy_tpu_torch.ops import fused_parts as fp, polar_filter
     from gcmiipy_tpu_torch.ops.pgf_rest import (
@@ -808,8 +852,8 @@ def phase_kernels_bits(device):
         rest_stencil)
     main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
     flags = dict(coriolis=True, q_limiter=True)
-    cases, main_abs = 0, {}
-    for shape in (main_shape,) + EDGE_GRIDS:
+    cases, errors = 0, {main_shape: {}, DEEP_GRIDS[0]: {}}
+    for shape in (main_shape,) + EDGE_GRIDS + DEEP_GRIDS:
         for dtype in (torch.float32, torch.float64):
             for hill in (False, True):
                 geom, base, seval, filt, pg_phiv = k3k4_inputs(
@@ -848,17 +892,18 @@ def phase_kernels_bits(device):
                 outs["pgf_column"] = out, core25d.pgf_column(sp, st, geom)
                 _bits(f"pgf_column {tag}", *outs["pgf_column"], fp.column_pass,
                       before)
-                if shape == main_shape and dtype == torch.float32:
+                if shape in errors and dtype == torch.float32:
                     for name, (o, r) in outs.items():
-                        main_abs[name] = max(main_abs.get(name, 0.0),
-                                             abs_err(o, r))
+                        errors[shape][name] = max(
+                            errors[shape].get(name, 0.0), abs_err(o, r))
                 cases += 1
     log("kernels", f"pgf_parts (the pgf tile), rest_parts (the rest tile), "
                    f"fused_parts and pgf_column (K1's column pass) equal their "
                    f"plain versions to the bit in {cases} cases each: "
-                   f"{main_shape} and {', '.join(map(str, EDGE_GRIDS))}, "
+                   f"{main_shape} and "
+                   f"{', '.join(map(str, EDGE_GRIDS + DEEP_GRIDS))}, "
                    "float32 and float64, flat and with a hill")
-    return main_abs
+    return errors[main_shape], errors[DEEP_GRIDS[0]]
 
 
 def physics_inputs(shape, dtype, device, seed=2, **kw):
@@ -884,10 +929,14 @@ def phase_kernels_physics(device):
     """The column-physics epilogue alone (K7's last launch a step) against
     physics_epilogue_ref: float32 at the main path's shape with the main
     path's convection and drag and with neither, float64 at 3x24x36 with
-    the seasonal clock, at 9x512x1024 and at kMaxLayers (32x16x128).  The
+    the seasonal clock, at 9x512x1024 and at 32x16x128; the deep form at
+    40x512x1024 at both types and at kMaxLayers (64x16x128, float64, the
+    largest block).  The
     same operations in the same order, so only pow/log/sin/cos ulps
     differ: held within EPILOGUE_REL, each case moving t (and u with the
-    drag) by EPILOGUE_MOVE times that bound or more."""
+    drag) by EPILOGUE_MOVE times that bound or more.  Returns the float32
+    errors with the main path's physics on the main shape and on
+    DEEP_GRIDS[0]."""
     from gcmiipy_tpu_torch.ops.stream_steps import (
         column_physics, physics_epilogue_ref)
     main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
@@ -896,8 +945,11 @@ def phase_kernels_physics(device):
                                           "drag_tau": 0.0}),
              ((3, 24, 36), torch.float64, {"seasonal": True}),
              (main_shape, torch.float64, {}),
-             ((32, 16, 128), torch.float64, {})]
-    worst, main_abs = {}, 0.0
+             ((32, 16, 128), torch.float64, {}),
+             (DEEP_GRIDS[0], torch.float32, {}),
+             (DEEP_GRIDS[0], torch.float64, {}),
+             ((64, 16, 128), torch.float64, {})]
+    worst, errors = {}, {}
     for shape, dtype, kw in cases:
         geom, (p, u, v, t, gt), utc, ph = physics_inputs(shape, dtype, device,
                                                          **kw)
@@ -931,10 +983,10 @@ def phase_kernels_physics(device):
             fail("kernels", f"{tag}: disagrees with physics_epilogue_ref")
         worst[dtype] = max(worst.get(dtype, 0.0), rel)
         if dtype == torch.float32 and not kw:
-            main_abs = abs_err(out, ref)
+            errors[shape] = abs_err(out, ref)
     log("kernels", "column_physics ok, max rel: float32 "
                    f"{worst[torch.float32]:.3e}, float64 {worst[torch.float64]:.3e}")
-    return main_abs
+    return errors[main_shape], errors[DEEP_GRIDS[0]]
 
 
 def convection_field(shape, dtype, device, seed=3):
@@ -958,15 +1010,18 @@ def convection_field(shape, dtype, device, seed=3):
     return tuple(x.to(dtype=dtype, device=device) for x in (tt, tp, dp))
 
 
-def phase_convection(device, launches=None):
+def phase_convection(device, launches=None, deep_launches=None):
     """The adaptive convection's kernel (ops/convection.py, one launch a
     call) against its plain loop run on the card (``on_card`` turned off:
     a host read a sweep), to the bit at float32 and float64 on the main
-    grid and on GCM-II's 9x24x36, with its largest sweep count the plain
-    loop's sweeps; then the main grid's float32 call timed against the
-    plain loop.  Returns the kernels table's row, with ``launches``: the
-    kernel's launches on the main path (phase surface's count; None where
-    it did not run)."""
+    grid, on GCM-II's 9x24x36, at 40 layers on the main grid
+    (DEEP_GRIDS[0]) and on 24x36 and at kMaxLayers on 24x36, with its
+    largest sweep count the plain loop's sweeps; then the float32 calls of
+    the main grid and of DEEP_GRIDS[0] timed against the plain loop.
+    Returns the kernels table's two rows, with ``launches``: the kernel's
+    launches on the main path (phase surface's count), and
+    ``deep_launches['column_adjustment']``: phase deep's float32 count
+    (None where a phase did not run)."""
     from gcmiipy_tpu_torch.ops import convection as cv
     from gcmiipy_tpu_torch.physics.convection import convective_adjustment
     from gcmiipy_tpu_torch.step_profile import kernel_ms
@@ -987,7 +1042,9 @@ def phase_convection(device, launches=None):
                         for e in prof.events())
 
     main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
-    for shape in (main_shape, (9, 24, 36)):
+    errors = {}
+    for shape in (main_shape, (9, 24, 36), DEEP_GRIDS[0], DEEP_GRIDS[1],
+                  (64, 24, 36)):
         for dtype in (torch.float32, torch.float64):
             tt, tp, dp = convection_field(shape, dtype, device)
             ref, sweeps = plain_sweeps(tt, tp, dp)
@@ -1001,25 +1058,271 @@ def phase_convection(device, launches=None):
                 fail("kernels", f"{tag}: launched "
                                 f"{cv.column_adjustment.launches - before} "
                                 "times")
+            errors[shape, dtype] = abs_err([out], [ref])
             if not torch.equal(out, ref) or most != sweeps:
                 fail("kernels", f"{tag}: differs from the plain loop by "
-                                f"{abs_err([out], [ref]):.3e}")
+                                f"{errors[shape, dtype]:.3e}")
             log("kernels", f"{tag}, equal to the bit")
-    tt, tp, dp = convection_field(main_shape, torch.float32, device)
-    call = lambda: convective_adjustment(tt, tp, dp)  # noqa: E731
-    ms = cuda_ms(call, 50)
-    plain_ms = cuda_ms(lambda: plain(tt, tp, dp), 10)
-    L, H, W = main_shape
-    # the call reads tt, tp and dp and writes its result; the launch alone
-    # reads tt, dp and the two tables and writes the result
-    nbytes, launch_bytes = 4 * L * H * W * 4, (5 * L - 2) * H * W * 4
-    log("timing", f"convection launch alone: {launch_bytes / 1e6:.1f} MB -> "
-                  f"{1e3 * launch_bytes / HBM_BYTES_PER_S:.4f} ms")
-    return _row("column_convection", "gcmiipy_tpu_torch/csrc/convection.cu",
-                "none (gcmiipy_tpu/physics/convection.py, lax.while_loop)",
-                launches, 0.0, ms, plain_ms, nbytes, {},
-                None, f"convection {main_shape} float32",
-                launch_ms=kernel_ms(call))
+    rows = []
+    for shape, counted in ((main_shape, launches),
+                           (DEEP_GRIDS[0], (deep_launches or {}).get(
+                               "column_adjustment"))):
+        tt, tp, dp = convection_field(shape, torch.float32, device)
+        call = lambda: convective_adjustment(tt, tp, dp)  # noqa: E731
+        ms = cuda_ms(call, 50)
+        plain_ms = cuda_ms(lambda: plain(tt, tp, dp), 3)
+        L, H, W = shape
+        # the call reads tt, tp and dp and writes its result; the launch
+        # alone reads tt, dp and the two tables and writes the result
+        nbytes, launch_bytes = 4 * L * H * W * 4, (5 * L - 2) * H * W * 4
+        log("timing", f"convection {shape} launch alone: "
+                      f"{launch_bytes / 1e6:.1f} MB -> "
+                      f"{1e3 * launch_bytes / HBM_BYTES_PER_S:.4f} ms")
+        rows.append(_row(
+            "column_convection" if shape == main_shape
+            else f"column_convection {shape}",
+            "gcmiipy_tpu_torch/csrc/convection.cu",
+            "none (gcmiipy_tpu/physics/convection.py, lax.while_loop)",
+            counted, errors[shape, torch.float32], ms, plain_ms, nbytes, {},
+            None, f"convection {shape} float32", launch_ms=kernel_ms(call)))
+        del tt, tp, dp
+    return rows
+
+
+def _deep_start(geom, cfg):
+    """The reference's start (360 K at rest, stable: the adaptive
+    convection of 'xla' and the epilogue's four sweeps adjust nothing)
+    with smooth winds of 1 m/s and a 0.5 K wave in t, as the benchmark's
+    members have, so that u and v have a scale that rounding does not
+    set."""
+    from gcmiipy_tpu_torch.model import driver
+    state = driver.gen_model_state(geom, cfg)
+    lat, lon = geom.lat.reshape(-1, 1), geom.long.reshape(1, -1)
+    prog = state.prog
+    return state._replace(prog=prog._replace(
+        u=prog.u + torch.cos(lat) * torch.cos(2 * lon),
+        v=prog.v + torch.cos(lat) * torch.sin(3 * lon),
+        t=prog.t + 0.5 * torch.sin(lon + 2 * lat)))
+
+
+def phase_deep(device):
+    """The deep column through make_run_fn on every backend of BACKENDS
+    (DEEP: 40 layers, 10 Pa top, the per-step physics), float32 on the main
+    grid and float64 on DEEP's, from :func:`_deep_start`, guard clean,
+    each held to 'xla' at its type; the launches of the pgf tile, the rest
+    tile, K1's tiled launch, the epilogue and the adaptive convection
+    counted where the C entries make them (the per-step physics of every
+    backend but 'stream' launches the convection once a step, K7's
+    epilogue runs its fixed sweeps instead).  Returns the float32 runs'
+    launches by kernel: the stream run's, and the convection's from the
+    mega4 run."""
+    from gcmiipy_tpu_torch.model import driver
+    from gcmiipy_tpu_torch.model.config import BACKENDS, ModelConfig
+    from gcmiipy_tpu_torch.ops import convection as cv
+    from gcmiipy_tpu_torch.ops import fused_parts as fp, pgf_rest as pr
+    from gcmiipy_tpu_torch.ops import stream_steps as ss
+    kernels = {"pgf_tile": pr.pgf_tile, "rest_stencil": pr.rest_stencil,
+               "parts_stencil": fp.parts_stencil,
+               "column_physics": ss.column_physics,
+               "column_adjustment": cv.column_adjustment}
+    steps, counted = DEEP["steps"], {}
+    for dtype, (H, W) in (("float32", (MAIN["height"], MAIN["width"])),
+                          ("float64", DEEP["f64_grid"])):
+        outs = {}
+        for backend in BACKENDS:
+            cfg = ModelConfig(height=H, width=W, layers=DEEP["layers"],
+                              ptop=DEEP["ptop"], dt=MAIN["dt"],
+                              backend=backend, dtype=dtype, guard=True,
+                              stream_steps=DEEP["steps"], **PHYSICS)
+            geom = driver.gen_model_geometry(cfg, device)
+            state = _deep_start(geom, cfg)
+            run = driver.make_run_fn(geom, cfg, steps)
+            (st, stats, guard), counts = _counted(
+                kernels.values(), lambda: run(state))
+            tag = f"deep {DEEP['layers']}x{H}x{W} {dtype} {backend}"
+            if not bool(guard.ok):
+                fail("deep", f"{tag}: guard tripped at step "
+                             f"{int(guard.blown_step)}")
+            out = tuple(st.prog) + (st.ground.gt,)
+            if not all(torch.isfinite(x).all() for x in out):
+                fail("deep", f"{tag}: not finite")
+            launched = dict(zip(kernels, counts))
+            want = {"xla": {"column_adjustment": steps},
+                    "fused": {"parts_stencil": 2 * steps,
+                              "column_adjustment": steps},
+                    "mega": {"pgf_tile": 2 * steps, "rest_stencil": 2 * steps,
+                             "column_adjustment": steps},
+                    "mega4": {"pgf_tile": 2 * steps,
+                              "rest_stencil": 2 * steps,
+                              "column_adjustment": steps},
+                    "stream": {"pgf_tile": 2 * steps,
+                               "rest_stencil": 2 * steps,
+                               "column_physics": steps}}[backend]
+            if launched != {k: want.get(k, 0) for k in kernels}:
+                fail("deep", f"{tag}: launches {launched}, expected {want}")
+            outs[backend] = out
+            counted[dtype, backend] = launched
+            log("deep", f"{tag}: guard clean, launches {launched}")
+        bound = RUN_REL if dtype == "float32" else DEEP_REL64
+        for backend, out in outs.items():
+            rel = rel_err(out, outs["xla"])
+            log("deep", f"{DEEP['layers']}x{H}x{W} {dtype} {backend} against "
+                        f"xla: max rel {rel:.3e} (bound {bound:g})")
+            if not rel <= bound:
+                fail("deep", f"{backend} {dtype} departs from xla")
+    return {**counted["float32", "stream"], "column_adjustment":
+            counted["float32", "mega4"]["column_adjustment"]}
+
+
+def timing_deep(device, launches, max_abs):
+    """The rows of the kernels whose work a column's depth sets, at
+    40x512x1024 float32 (DEEP_GRIDS[0]) in the forms their C entries
+    launch there: the pgf tile (K3's launch), the rest tile (K4's) and the
+    epilogue (in place, as K7 launches it), on the inputs of the bit and
+    epilogue checks, with the launches of phase deep's float32 stream run
+    and ``max_abs``, the errors the bit and epilogue checks measured there
+    (by op: pgf_parts, rest_parts, column_physics)."""
+    from gcmiipy_tpu_torch.ops.fused_parts import GEOM_FIELDS
+    from gcmiipy_tpu_torch.ops.pgf_rest import (
+        pgf_parts, pgf_parts_ref, rest_parts, rest_parts_ref)
+    from gcmiipy_tpu_torch.ops.stream_steps import (
+        column_physics_inplace, physics_epilogue_ref, physics_table)
+    from gcmiipy_tpu_torch.step_profile import kernel_ms
+    shape, dt, rows = DEEP_GRIDS[0], MAIN["dt"], []
+    geom, base, seval, filt, pg_phiv = k3k4_inputs(shape, torch.float32,
+                                                   False, device)
+    geo = [getattr(geom, n) for n in GEOM_FIELDS]
+    k3 = (seval[0], seval[1], seval[3], geom)
+    outs = pgf_parts_ref(*k3)
+    rows.append(_row(
+        f"pgf_parts {shape}",
+        "gcmiipy_tpu_torch/csrc/pgf_tile.cuh",
+        "gcmiipy_tpu/ops/pallas_stencil.py:398", launches["pgf_tile"],
+        max_abs["pgf_parts"],
+        cuda_ms(lambda: pgf_parts(*k3), 50),
+        cuda_ms(lambda: pgf_parts_ref(*k3), 5),
+        _bytes((*k3[:3], *geo, *outs)),
+        {torch.float32: count_ops(pgf_parts_ref, *k3)}, None,
+        f"pgf_parts {shape}", launch_ms=kernel_ms(lambda: pgf_parts(*k3))))
+    k4 = (*base, *seval, filt, pg_phiv, dt, geom)
+    outs = rest_parts_ref(*k4)
+    rows.append(_row(
+        f"rest_parts {shape}",
+        "gcmiipy_tpu_torch/csrc/stencil_tile.cuh",
+        "gcmiipy_tpu/ops/pallas_stencil.py:492", launches["rest_stencil"],
+        max_abs["rest_parts"], cuda_ms(lambda: rest_parts(*k4), 50),
+        cuda_ms(lambda: rest_parts_ref(*k4), 5),
+        _bytes((*k4[:12], *geo, *outs)),
+        {torch.float32: count_ops(rest_parts_ref, *k4)}, None,
+        f"rest_parts {shape}", launch_ms=kernel_ms(lambda: rest_parts(*k4))))
+    del base, seval, filt, pg_phiv, outs
+    geom, (p, u, v, t, gt), utc, ph = physics_inputs(shape, torch.float32,
+                                                     device)
+    args = (p, u, v, t, gt, utc, geom, dt, ph)
+    table = physics_table(ph, dt, device)
+    work = [x.clone() for x in (u, v, t)]
+    gt_out = torch.empty_like(gt)
+
+    def launch():
+        column_physics_inplace(p, *work, gt, gt_out, utc, geom, table)
+
+    rows.append(_row(
+        f"column_physics {shape}",
+        "gcmiipy_tpu_torch/csrc/column_physics.cuh",
+        "gcmiipy_tpu/ops/pallas_stream.py:314", launches["column_physics"],
+        max_abs["column_physics"], cuda_ms(launch, 50),
+        cuda_ms(lambda: physics_epilogue_ref(*args), 5),
+        _bytes((p, t, gt, u[0], v[0])) + _bytes((t, gt, u[0], v[0])),
+        {torch.float32: count_ops(physics_epilogue_ref, *args,
+                                  dtypes=(torch.float32,))},
+        None, f"column_physics {shape}", launch_ms=kernel_ms(launch)))
+    return rows
+
+
+# `python3 chip_smoke.py forms`: each column kernel in its held and in its
+# deep form, timed against each other on FORMS' grid at these layer counts,
+# the evidence for csrc/gcm_limits.cuh's k...HeldLayers
+FORMS = dict(grid=(512, 1024), layers={torch.float32: (9, 12, 16, 20, 24, 32, 40, 48),
+                                       torch.float64: (9, 20, 32, 40)})
+FORM_SOURCES = ("pgf_rest", "stream_steps", "convection")
+
+
+def form_calls(shape, dtype, device):
+    """The column kernels' ops on one set of inputs of ``shape``: the pgf
+    tile (K3's launch), the rest tile (K4's), the epilogue and the adaptive
+    convection, each a call returning its outputs, with the name its
+    kernel's launch has in a trace."""
+    from gcmiipy_tpu_torch.ops.pgf_rest import pgf_parts, rest_parts
+    from gcmiipy_tpu_torch.ops.stream_steps import column_physics, physics_table
+    from gcmiipy_tpu_torch.physics.convection import convective_adjustment
+    geom, base, seval, filt, pg_phiv = k3k4_inputs(shape, dtype, False,
+                                                   device)
+    k3 = (seval[0], seval[1], seval[3], geom)
+    k4 = (*base, *seval, filt, pg_phiv, MAIN["dt"], geom)
+    pgeom, pargs, utc, ph = physics_inputs(shape, dtype, device)
+    table = physics_table(ph, MAIN["dt"], device)
+    conv = convection_field(shape, dtype, device)
+    return {"pgf_tile": lambda: pgf_parts(*k3),
+            "tile_stencil": lambda: rest_parts(*k4),
+            "column_physics": lambda: column_physics(
+                *pargs, utc, pgeom, MAIN["dt"], ph, table=table),
+            "column_convection": lambda: (convective_adjustment(*conv),)}
+
+
+def phase_forms(device):
+    """Each column kernel's held and deep forms timed against each other
+    (step_profile.kernel_ms: the kernel's device ms a launch) at FORMS'
+    layer counts, float32 and float64, the forms forced in copies of csrc/
+    (cuda_lib.forced_form_sources); the two forms' outputs must agree to the bit but the
+    epilogue's (whose deep form forms the Exner factor again: logged).
+    Returns rows {kernel, L, dtype, held_ms, deep_ms}, held_ms None where
+    the held block does not fit the card."""
+    from gcmiipy_tpu_torch.ops import cuda_lib
+    from gcmiipy_tpu_torch.step_profile import kernel_ms
+    csrc = {form: cuda_lib.forced_form_sources(
+        form, os.path.join(cuda_lib.BUILD_DIR, f"forms-{form}"))
+        for form in ("held", "deep")}
+    for form, path in csrc.items():
+        with cuda_lib.sources_from(path):
+            t = time.perf_counter()
+            cuda_lib.build_many(sorted({cuda_lib.library_name(s, double)
+                                        for s in FORM_SOURCES
+                                        for double in (False, True)}))
+            log("forms", f"{form} forms built in {time.perf_counter() - t:.1f}s")
+    rows = []
+    for dtype, layers in FORMS["layers"].items():
+        for L in layers:
+            shape = (L, *FORMS["grid"])
+            calls = form_calls(shape, dtype, device)
+            for kernel, call in calls.items():
+                row, outs = {"kernel": kernel, "L": L,
+                             "dtype": str(dtype)[6:]}, {}
+                for form, path in csrc.items():
+                    with cuda_lib.sources_from(path):
+                        try:
+                            outs[form] = call()
+                        except RuntimeError as e:
+                            log("forms", f"{kernel} {shape} {form}: {e}")
+                            row[f"{form}_ms"] = None
+                            continue
+                        ms = {k: v for k, v in kernel_ms(call).items()
+                              if kernel in k}
+                        if len(ms) != 1 or (form == "deep") != ("_deep" in
+                                                                next(iter(ms))):
+                            fail("forms", f"{kernel} {shape} {form}: "
+                                          f"launched {sorted(ms)}")
+                        row[f"{form}_ms"] = next(iter(ms.values()))
+                if len(outs) == 2:
+                    row["max_abs_diff"] = abs_err(outs["held"], outs["deep"])
+                    if kernel != "column_physics" and not bit_equal(
+                            outs["held"], outs["deep"]):
+                        fail("forms", f"{kernel} {shape}: the forms differ "
+                                      f"by {row['max_abs_diff']:.3e}")
+                log("forms", json.dumps(row))
+                rows.append(row)
+            del calls
+            torch.cuda.empty_cache()
+    return rows
 
 
 def phase_kernels_k3k4(device):
@@ -3817,11 +4120,16 @@ def timing_k345(launches, max_abs, geom, prog):
 def main():
     card, kind = phase_device()
     device = torch.device("cuda", 0)
+    if sys.argv[1:] == ["forms"]:
+        # the column kernels' held and deep forms against each other
+        print(card, flush=True)
+        print(json.dumps({"forms": phase_forms(device)}), flush=True)
+        return
     if sys.argv[1:] == ["convection"]:
         # the adaptive convection's kernel alone: build, check, time
         phase_build()
         print(card, flush=True)
-        print(json.dumps({"kernels": [phase_convection(device)]}), flush=True)
+        print(json.dumps({"kernels": phase_convection(device)}), flush=True)
         return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3832,9 +4140,19 @@ def main():
     max_abs["k6"] = phase_kernels_k6(device)
     max_abs["k7"] = phase_kernels_k7(device)
     max_abs.update(phase_kernels_k3k4(device))
-    max_abs["k1_column"] = phase_kernels_bits(device)["pgf_column"]
-    max_abs["physics"] = phase_kernels_physics(device)
+    bits, deep_abs = phase_kernels_bits(device)
+    max_abs["k1_column"] = bits["pgf_column"]
+    max_abs["physics"], deep_abs["column_physics"] = phase_kernels_physics(
+        device)
     max_abs["k5"] = phase_kernels_k5(device)
+    if sys.argv[1:] == ["kernels"]:
+        # the kernel phases and the deep column alone, with its rows
+        deep_launches = phase_deep(device)
+        rows = timing_deep(device, deep_launches, deep_abs)
+        rows += phase_convection(device, None, deep_launches)
+        print(card, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        return
     launches, geom, start, max_abs["k2"], runs = phase_main(device)
     launches.update(phase_main_stream(device, geom, start))
     launches.update(phase_main_mega_v2(device, geom, start, runs))
@@ -3848,8 +4166,11 @@ def main():
     rows += timing_shards(device, ring)
     rows += timing_mesh2d(device, m2d)
     # last: torch.profiler sessions opened before phases longrun to mesh2d
-    # lose the device events of phase timing's (PERF.md)
-    rows.append(phase_convection(device, convection_launches))
+    # lose the device events of phase timing's (PERF.md), and the deep
+    # column's and the convection's rows open such sessions
+    deep_launches = phase_deep(device)
+    rows += timing_deep(device, deep_launches, deep_abs)
+    rows += phase_convection(device, convection_launches, deep_launches)
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

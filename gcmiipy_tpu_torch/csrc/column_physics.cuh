@@ -13,7 +13,12 @@
 // they are needed: one expression rounds the same each time.  The block
 // stages the table's per-layer rows in shared memory too, converted to the
 // working type once.  So no per-layer array lives in local memory; at
-// float64 with L = 32 a block of 128 threads takes 198 KB.  The
+// float64 with L = 32 a block of 128 threads takes 198 KB.  Above
+// kPhysHeld (12 layers at float32, 9 at float64) the deep form (column_physics_deep) keeps three arrays, the
+// true temperature, the emission and the downward absorption, puts the
+// pair terms of the sweeps in the last two as the upward sweep frees them,
+// and forms the Exner factor again for the result: 201 KB at float64 with
+// L = 64 (kMaxLayers).  The
 // transmittances t^dsig and their cumulative products are computed on the
 // host in double and come in the table, as the JAX kernel's Python floats,
 // and so do the other per-layer constants such as G / (Cp dsig_k).  The
@@ -79,8 +84,12 @@ enum PhysRow {
 
 constexpr int kPhysTableSize = kPhysScalars + kPhysRows * kMaxLayers;
 
-// Per-thread arrays of the column, in shared memory after the rows.
+// Per-thread arrays of the column, in shared memory after the rows.  The
+// deep form keeps three: the true temperature, each layer's emission (then
+// 1 / (m_k + m_k+1)) and the downward absorption (then log(p_k / p_k+1)),
+// and forms the Exner factor again where it is needed.
 enum PhysArray { kEx, kTt, kEm, kLwa, kLr, kIm, kPhysArrays };
+enum DeepArray { kDeepTt, kDeepEm, kDeepLwa, kDeepArrays };
 
 template <typename T>
 struct ColumnArgs {
@@ -96,15 +105,17 @@ struct ColumnArgs {
 };
 
 // Dynamic shared memory of a block of kBlock threads, in bytes.
-template <typename T>
+template <typename T, bool Deep = false>
 inline size_t column_physics_bytes(int L) {
-  return (size_t)(kPhysRows + kPhysArrays * kBlock) * L * sizeof(T);
+  return (size_t)(kPhysRows + (Deep ? kDeepArrays : kPhysArrays) * kBlock) * L * sizeof(T);
 }
+static_assert((kPhysRows + kDeepArrays * kBlock) * kMaxLayers * sizeof(double) <= kMaxSharedBytes,
+              "the epilogue's deep form exceeds a block's shared memory");
 
-// The epilogue: grid (ceil(W/kBlock), H), kBlock threads,
-// column_physics_bytes<T>(L) of dynamic shared memory.
-template <typename T>
-__global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a) {
+// The epilogue's column: its kernel, grid (ceil(W/kBlock), H), kBlock
+// threads, column_physics_bytes<T, Deep>(L) of dynamic shared memory.
+template <typename T, bool Deep>
+__device__ __forceinline__ void column_physics_body(const ColumnArgs<T>& a) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
   T* const sm = reinterpret_cast<T*>(tile_smem);
   const int L = a.L, tid = threadIdx.x;
@@ -120,6 +131,12 @@ __global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a) 
   auto row = [&](int r, int k) { return sm[r * L + k]; };
   T* const arrays = sm + kPhysRows * L + tid;
   auto at = [&](int n, int k) -> T& { return arrays[(n * L + k) * kBlock]; };
+  // the arrays of the held form by name, and the deep form's in their place
+  auto tt_at = [&](int k) -> T& { return at(Deep ? kDeepTt : kTt, k); };
+  auto em_at = [&](int k) -> T& { return at(Deep ? kDeepEm : kEm, k); };
+  auto lwa_at = [&](int k) -> T& { return at(Deep ? kDeepLwa : kLwa, k); };
+  auto lr_at = [&](int k) -> T& { return at(Deep ? kDeepLwa : kLr, k); };
+  auto im_at = [&](int k) -> T& { return at(Deep ? kDeepEm : kIm, k); };
 
   const int j = blockIdx.y;
   const size_t HW = (size_t)a.H * a.W;
@@ -149,19 +166,26 @@ __global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a) 
   // Exner factor, true temperature and each layer's emission; for the
   // sweeps log(p_k / p_k+1) and 1 / (m_k + m_k+1)
   const T p0 = T(c[kP0]), kappa = T(c[kKappa]);
+  auto layer_p = [&](int k) { return p * row(kSig, k) + ptop; };
+  auto exner = [&](int k) { return power((one / layer_p(k)) * p0, kappa); };
+  // log(p_k / p_k+1) and 1 / (m_k + m_k+1) of the pair (k-1, k)
+  auto pair_terms = [&](int k) {
+    lr_at(k - 1) = logarithm(layer_p(k - 1) / layer_p(k));
+    im_at(k - 1) = one / (p * row(kDsig, k - 1) + p * row(kDsig, k));
+  };
   T tp_prev = zero, m_prev = zero;
   for (int k = 0; k < L; ++k) {
-    const T tp = p * row(kSig, k) + ptop;
+    const T tp = layer_p(k);
     const T ex = power((one / tp) * p0, kappa);
     const T tt = a.t[k * HW + col] / ex;
-    at(kEx, k) = ex;
-    at(kTt, k) = tt;
-    at(kEm, k) = row(kEmis, k) * power(tt, T(4));
-    if (convect) {
+    if constexpr (!Deep) at(kEx, k) = ex;
+    tt_at(k) = tt;
+    em_at(k) = row(kEmis, k) * power(tt, T(4));
+    if (convect && !Deep) {
       const T m = p * row(kDsig, k);
       if (k > 0) {
-        at(kLr, k - 1) = logarithm(tp_prev / tp);
-        at(kIm, k - 1) = one / (m_prev + m);
+        lr_at(k - 1) = logarithm(tp_prev / tp);
+        im_at(k - 1) = one / (m_prev + m);
       }
       tp_prev = tp;
       m_prev = m;
@@ -169,8 +193,8 @@ __global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a) 
   }
 
   // the ground's budget
-  T B = at(kEm, 0) * row(kClw, 0);
-  for (int k = 1; k < L; ++k) B = B + at(kEm, k) * row(kClw, k);
+  T B = em_at(0) * row(kClw, 0);
+  for (int k = 1; k < L; ++k) B = B + em_at(k) * row(kClw, k);
   const T Sc = T(c[kSolar]) * sza;
   const T S = (T(c[kOneMinusAlbedo]) * Sc) * T(c[kCumSwTop0]);
   const T gt = a.gt_in[col];
@@ -181,31 +205,32 @@ __global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a) 
   // downwelling LW absorption, top -> bottom
   T d = zero;
   for (int k = L - 1; k >= 0; --k) {
-    at(kLwa, k) = d * row(kOneMinusLw, k);
-    d = d * row(kLw, k) + at(kEm, k);
+    lwa_at(k) = d * row(kOneMinusLw, k);
+    d = d * row(kLw, k) + em_at(k);
   }
-  // upwelling from layer emission only, bottom -> top, and the heating
+  // upwelling from layer emission only, bottom -> top, and the heating;
+  // the deep form then puts the pair terms of (k-1, k) where layer k-1's
+  // emission and absorption were
   d = zero;
   for (int k = 0; k < L; ++k) {
-    const T em = at(kEm, k);
+    const T em = em_at(k);
     const T lwb = d * row(kOneMinusLw, k);
     d = d * row(kLw, k) + em;
     const T U_n = row(kUn, k) * U_s;
     const T S_n = row(kSn, k) * Sc;
-    const T dTdt = ((((U_n + S_n) - T(2) * em) + at(kLwa, k)) + lwb) * row(kHeat, k) / p;
-    at(kTt, k) = at(kTt, k) + dTdt * dt;
+    const T dTdt = ((((U_n + S_n) - T(2) * em) + lwa_at(k)) + lwb) * row(kHeat, k) / p;
+    tt_at(k) = tt_at(k) + dTdt * dt;
+    if (Deep && convect && k > 0) pair_terms(k);
   }
 
   // fixed-sweep convective adjustment, bottom-up over the layer pairs
   if (convect) {
     const T rd = T(c[kRd]), inv_g = one / T(c[kG]), lapse = T(c[kLapse]);
-    auto tt = [&](int k) -> T& { return at(kTt, k); };
     auto m = [&](int k) { return p * row(kDsig, k); };
-    auto lr = [&](int k) { return at(kLr, k); };
-    auto im = [&](int k) { return at(kIm, k); };
-    for (int sw = 0; sw < sweeps; ++sw) convection_sweep(L, rd, inv_g, lapse, tt, m, lr, im);
+    for (int sw = 0; sw < sweeps; ++sw)
+      convection_sweep(L, rd, inv_g, lapse, tt_at, m, lr_at, im_at);
   }
-  for (int k = 0; k < L; ++k) a.t[k * HW + col] = at(kTt, k) * at(kEx, k);
+  for (int k = 0; k < L; ++k) a.t[k * HW + col] = tt_at(k) * (Deep ? exner(k) : at(kEx, k));
 
   if (c[kDrag] != 0.0) {
     const T f = T(c[kDragFactor]);
@@ -214,20 +239,35 @@ __global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a) 
   }
 }
 
-// Launch the epilogue on the caller's stream; returns 0 or the CUDA error
-// of the attribute call or the launch.  A launch that was accepted adds
-// one to *launches (when not null).
+template <typename T>
+__global__ void __launch_bounds__(kBlock) column_physics(const ColumnArgs<T> a) {
+  column_physics_body<T, false>(a);
+}
+
+// The deep form, for more than kPhysHeld layers: three arrays of L a
+// thread in place of six.  It forms each layer's Exner factor a second
+// time for the result (a pow a layer more than the held form) and the
+// pair terms in the upward sweep.
+template <typename T>
+__global__ void __launch_bounds__(kBlock) column_physics_deep(const ColumnArgs<T> a) {
+  column_physics_body<T, true>(a);
+}
+
+// Launch the epilogue on the caller's stream, its deep form above
+// kPhysHeld layers; returns 0 or the CUDA error of the attribute call or
+// the launch.  A launch that was accepted adds one to *launches (when not
+// null).
 template <typename T>
 int launch_column_physics(const ColumnArgs<T>& a, cudaStream_t stream, int* launches) {
-  const size_t bytes = column_physics_bytes<T>(a.L);
-  const cudaError_t err = cudaFuncSetAttribute(
-      column_physics<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.W + kBlock - 1) / kBlock, a.H);
-  column_physics<T><<<grid, kBlock, bytes, stream>>>(a);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched == cudaSuccess && launches) ++*launches;
-  return (int)launched;
+  static_assert((kPhysRows + kPhysArrays * kBlock) * held_layers<T>(kPhysHeld) * sizeof(T) <=
+                    kMaxSharedBytes,
+                "the epilogue's held form exceeds a block's shared memory");
+  if (a.L > held_layers<T>(kPhysHeld))
+    return launch_kernel(column_physics_deep<T>, grid, kBlock, column_physics_bytes<T, true>(a.L),
+                        stream, launches, a);
+  return launch_kernel(column_physics<T>, grid, kBlock, column_physics_bytes<T>(a.L), stream,
+                      launches, a);
 }
 
 }  // namespace gcm

@@ -15,7 +15,13 @@
 // 1 / (m_k + m_k+1) are read once into dynamic shared memory laid out
 // [array][k][thread], so that a warp's accesses fall on consecutive words
 // and no per-layer array lives in local memory; at float64 with L = 32 a
-// block of 128 threads takes 128 KB.  The two constant tables come in as
+// block of 128 threads takes 128 KB.  Above kConvHeld (56 layers at
+// float64, the most whose four arrays fit; float32 holds every L up to
+// kMaxLayers) the deep form
+// (column_convection_deep) holds the temperatures alone and reads the
+// masses and the tables from device memory at each pair of each sweep,
+// slower than the held form at every L where both launch (PERF.md §6).
+// The two constant tables come in as
 // (L-1,H,W) tensors that the wrapper forms with PyTorch
 // (ops/convection.py), so they round as the plain version's.
 //
@@ -63,19 +69,25 @@ struct ConvArgs {
 };
 
 // Dynamic shared memory of a block of kBlock threads, in bytes: the
-// column arrays, then one int a warp.
-template <typename T>
+// column arrays (the deep form's: the temperatures alone), then one int a
+// warp.
+template <typename T, bool Deep = false>
 inline size_t column_convection_bytes(int L) {
-  return (size_t)kConvArrays * L * kBlock * sizeof(T) + (kBlock / 32) * sizeof(int);
+  return (size_t)(Deep ? 1 : kConvArrays) * L * kBlock * sizeof(T) + (kBlock / 32) * sizeof(int);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock) column_convection(const ConvArgs<T> a) {
+// The kernel's column: grid (ceil(W/kBlock), H), kBlock threads,
+// column_convection_bytes<T, Deep>(L) of dynamic shared memory.  The deep
+// form reads the masses and the two tables from device memory at each
+// pair of each sweep.
+template <typename T, bool Deep>
+__device__ __forceinline__ void convection_body(const ConvArgs<T>& a) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
   const int L = a.L, tid = threadIdx.x;
+  constexpr int arrays = Deep ? 1 : kConvArrays;
   T* const col = reinterpret_cast<T*>(tile_smem) + tid;
   int* const warp_max =
-      reinterpret_cast<int*>(reinterpret_cast<T*>(tile_smem) + (size_t)kConvArrays * L * kBlock);
+      reinterpret_cast<int*>(reinterpret_cast<T*>(tile_smem) + (size_t)arrays * L * kBlock);
   auto at = [&](int n, int k) -> T& { return col[(n * L + k) * kBlock]; };
   const int j = blockIdx.y, i = blockIdx.x * kBlock + tid;
   int ran = 0;
@@ -85,17 +97,19 @@ __global__ void __launch_bounds__(kBlock) column_convection(const ConvArgs<T> a)
     const T* const dp = a.dp + j * a.dp_j + i * a.dp_i;
     for (int k = 0; k < L; ++k) {
       at(kColT, k) = a.tt[k * HW + c];
-      at(kColM, k) = dp[k * a.dp_k];
+      if constexpr (!Deep) at(kColM, k) = dp[k * a.dp_k];
     }
-    for (int k = 0; k + 1 < L; ++k) {
-      at(kColLr, k) = a.log_ratio[k * HW + c];
-      at(kColIm, k) = a.inv_mass[k * HW + c];
+    if constexpr (!Deep) {
+      for (int k = 0; k + 1 < L; ++k) {
+        at(kColLr, k) = a.log_ratio[k * HW + c];
+        at(kColIm, k) = a.inv_mass[k * HW + c];
+      }
     }
     const T rd = T(a.rd), inv_g = T(1.0 / a.g), lapse = T(a.lapse);
     auto t = [&](int k) -> T& { return at(kColT, k); };
-    auto m = [&](int k) { return at(kColM, k); };
-    auto lr = [&](int k) { return at(kColLr, k); };
-    auto im = [&](int k) { return at(kColIm, k); };
+    auto m = [&](int k) { return Deep ? dp[k * a.dp_k] : at(kColM, k); };
+    auto lr = [&](int k) { return Deep ? a.log_ratio[k * HW + c] : at(kColLr, k); };
+    auto im = [&](int k) { return Deep ? a.inv_mass[k * HW + c] : at(kColIm, k); };
     while (ran < a.sweeps) {
       ++ran;
       if (!convection_sweep(L, rd, inv_g, lapse, t, m, lr, im)) break;
@@ -113,6 +127,17 @@ __global__ void __launch_bounds__(kBlock) column_convection(const ConvArgs<T> a)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kBlock) column_convection(const ConvArgs<T> a) {
+  convection_body<T, false>(a);
+}
+
+// The deep form, for more than kConvHeld layers.
+template <typename T>
+__global__ void __launch_bounds__(kBlock) column_convection_deep(const ConvArgs<T> a) {
+  convection_body<T, true>(a);
+}
+
 }  // namespace gcm
 
 namespace {
@@ -128,15 +153,16 @@ int launch(gcm::ConvArgs<T> a, const void* tt, const void* dp, const void* log_r
   a.log_ratio = static_cast<const T*>(log_ratio);
   a.inv_mass = static_cast<const T*>(inv_mass);
   a.out = static_cast<T*>(out);
-  const size_t bytes = gcm::column_convection_bytes<T>(a.L);
-  const cudaError_t err = cudaFuncSetAttribute(
-      gcm::column_convection<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.W + gcm::kBlock - 1) / gcm::kBlock, a.H);
-  gcm::column_convection<T><<<grid, gcm::kBlock, bytes, stream>>>(a);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched == cudaSuccess) ++*launches;
-  return (int)launched;
+  static_assert(gcm::kConvArrays * gcm::held_layers<T>(gcm::kConvHeld) * gcm::kBlock * sizeof(T) +
+                    (gcm::kBlock / 32) * sizeof(int) <=
+                    gcm::kMaxSharedBytes,
+                "the convection's held form exceeds a block's shared memory");
+  if (a.L > gcm::held_layers<T>(gcm::kConvHeld))
+    return gcm::launch_kernel(gcm::column_convection_deep<T>, grid, gcm::kBlock,
+                              gcm::column_convection_bytes<T, true>(a.L), stream, launches, a);
+  return gcm::launch_kernel(gcm::column_convection<T>, grid, gcm::kBlock,
+                            gcm::column_convection_bytes<T>(a.L), stream, launches, a);
 }
 
 }  // namespace

@@ -117,6 +117,38 @@ __device__ __forceinline__ T aflux_column(const Params<T>& a, int j, int i, T* c
   return a.p[c] - pit * a.dt;
 }
 
+// aflux's column sum alone, the rest tile's deep form (stencil_tile.cuh):
+// pit of column (j,i), the convergences summed from k = 0 with
+// aflux_column's expressions, into pit; returns p_n = p - pit*dt.  The deep
+// form forms each layer's convergence again in its layer loop, from the
+// fields staged in shared memory, and the sigma-dot from it.
+template <typename T>
+__device__ __forceinline__ T aflux_pit(const Params<T>& a, int j, int i, T& pit) {
+  const int L = a.L, H = a.H, W = a.W;
+  const size_t HW = (size_t)H * W;
+  const int jp = j + 1 == H ? 0 : j + 1;
+  const int jm = j == 0 ? H - 1 : j - 1;
+  const int im = i == 0 ? W - 1 : i - 1;
+  const size_t c = (size_t)j * W + i;
+  const size_t c_jm = (size_t)jm * W + i;
+  const size_t c_im = (size_t)j * W + im;
+  const T half = T(0.5), one = T(1);
+  const T rdx_j = one / a.dx_j[j];
+  const T rdy = one / a.dy[0];
+  const T sp_c = a.sp[c];
+  const T jph_sp = (sp_c + a.sp[(size_t)jp * W + i]) * half;
+  const T jph_sp_m = (a.sp[c_jm] + sp_c) * half;
+  for (int k = 0; k < L; ++k) {
+    const size_t o = k * HW;
+    const T spv_c = a.sv[o + c] * jph_sp;
+    const T spv_m = a.sv[o + c_jm] * jph_sp_m;
+    const T conv =
+        ((a.spu[o + c] - a.spu[o + c_im]) * rdx_j + (spv_c - spv_m) * rdy) * a.dsig[k];
+    pit = k == 0 ? conv : pit + conv;
+  }
+  return a.p[c] - pit * a.dt;
+}
+
 // The pgf column (core25d.pgf) on the column at (H,W) offset off, one pass
 // over k with no per-layer array: layer k's rho goes to rho(k) and stp[k-1]
 // to phi(k) (k >= 1) as they are formed, p^kappa of layers k-1 and 0 (for
@@ -168,6 +200,30 @@ __device__ __forceinline__ void pgf_column(const Params<T>& a, const T* sig, con
     phi(k) = ph;
   }
 }
+
+// pgf_column's pass over k one layer a call, for the pgf tile's deep form
+// (pgf_tile.cuh), which holds one layer of rho and phi at a time: with ph
+// the ladder's foot phi[0] (pgf_column's value) and st_k the column's st
+// at layer 0, layer(k) for k = 0, 1, ... gives layer k's rho and phi[k]
+// from pgf_column's expressions, p^kappa of layer k formed again.
+template <typename T>
+struct PgfLayer {
+  T ph, st_k, pk_prev, st_prev;
+
+  __device__ __forceinline__ void layer(const Params<T>& a, const T* sig, T sp, T ptop,
+                                        size_t off, size_t HW, int k, T& rho, T& phi) {
+    const T st_next = k + 1 < a.L ? a.st[(k + 1) * HW + off] : T(0);
+    const T tp = sp * sig[k] + ptop;
+    const T pk = power(tp * a.inv_p0, a.kappa);
+    const T tt = st_k * pk;
+    rho = tp / (a.rd * tt);
+    if (k > 0) ph = ph + (a.cp * ((st_prev + st_k) * T(0.5))) * (pk_prev - pk);
+    phi = ph;
+    pk_prev = pk;
+    st_prev = st_k;
+    st_k = st_next;
+  }
+};
 
 // pgf's forces at a point from sp, rho and phi at the point and at its
 // i+1 and j+1 neighbours, shared by the pgf tile (pgf_tile.cuh) and K1's

@@ -44,7 +44,13 @@
 //
 // Shared memory: 4*4 ring planes, two local slots, spv, sp, p, p_n, then
 // the sd planes: 43 KB + L * 1.2 KB at float32 (53.7 KB at L = 9, 81 KB
-// at L = 32) and twice that at float64 (162 KB at L = 32).
+// at L = 32) and twice that at float64 (162 KB at L = 32).  Above
+// kRestHeld (16 layers at float32; float64 at any L) the deep form (tile_stencil_deep) runs the layer loop from
+// k = L-1 down: its prologue sums only aflux's pit, and each layer forms
+// its convergences again from the staged spu, sv and sp and adds them to
+// the running sum from the bottom (the plain version's suffix order), so
+// that two sd slots, the pit and sum planes and 1/dx_j of the sd rows,
+// 48 KB at float32 and 96 KB at float64, serve any L.
 //
 // Every expression keeps the operand order of the plain version, built
 // with -fmad=false, so the kernels equal their plain versions bit for bit:
@@ -77,8 +83,6 @@ template <> struct TileShape<double> {
   static constexpr int rows = 8, min_blocks = 2;
 };
 
-constexpr int kMaxSharedBytes = 232448;  // a block's shared memory on Hopper
-
 // The outputs of the rest stencil and the epilogue's inputs: the filtered
 // pgfu, pg_phiv and the polar wall's keep (null: no wall).
 template <typename T>
@@ -95,8 +99,11 @@ struct PartsOut {
   T *v_n, *t_n, *q_n, *pu_partial, *pg_phi;
 };
 
-// Shared-memory layout of a tile, in elements of T.
-template <typename T, bool kParts>
+// Shared-memory layout of a tile, in elements of T.  The deep form (Deep)
+// holds two sd slots in place of L sd planes, then aflux's pit and the
+// running sum of the convergences of each sd column and 1/dx_j of the sd
+// rows.
+template <typename T, bool kParts, bool Deep = false>
 struct Tile {
   static constexpr int TJ = TileShape<T>::rows, TI = 32;
   static constexpr int kThreads = TJ * TI;
@@ -118,8 +125,15 @@ struct Tile {
   static constexpr int CS = TI + 1;
   static constexpr int kSdPlane = (TJ + 1) * CS;
   static constexpr int kSdAt = kPnAt + kPlane;
-  static constexpr size_t bytes(int L) { return (size_t)(kSdAt + L * kSdPlane) * sizeof(T); }
-  static_assert((size_t)(kSdAt + kMaxLayers * kSdPlane) * sizeof(T) <= kMaxSharedBytes,
+  static constexpr int kPitAt = kSdAt + 2 * kSdPlane;
+  static constexpr int kAccAt = kPitAt + kSdPlane;
+  static constexpr int kRdxAt = kAccAt + kSdPlane;
+  static constexpr size_t bytes(int L) {
+    return (size_t)(Deep ? kRdxAt + TJ + 1 : kSdAt + L * kSdPlane) * sizeof(T);
+  }
+  static_assert((size_t)(Deep ? kRdxAt + TJ + 1 : kSdAt + held_layers<T>(kRestHeld) * kSdPlane) *
+                        sizeof(T) <=
+                    kMaxSharedBytes,
                 "tile exceeds a block's shared memory");
 };
 
@@ -248,13 +262,62 @@ __device__ __forceinline__ void aflux_prologue(const Params<T>& a, T* sd, T* pn,
   }
 }
 
-// The tiled stencil launch: grid (ceil(W/32), ceil(H/TJ)), TJ*32 threads,
-// Tile<T, Out::kParts>::bytes(L) of dynamic shared memory.  Out is RestOut
-// (the rest tile) or PartsOut (K1).
-template <typename T, class Out>
-__global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::min_blocks)
-    tile_stencil(const Params<T> a, const Out out) {
-  using S = Tile<T, Out::kParts>;
+// The deep form's prologue: aflux's column sum pit (gcm_stencil.cuh's
+// aflux_pit) on the same columns as aflux_prologue, into the pit plane,
+// and p_n as there; the running sums start in the layer loop.  Also the
+// sd slot of the wrapped layer L, whose sd is 0, and 1/dx_j of the sd
+// rows.  No barrier.
+template <class S, typename T>
+__device__ __forceinline__ void aflux_pit_prologue(const Params<T>& a, T* pit, T* sd_wrap, T* rdx,
+                                                   T* pn, int j0, int i0) {
+  for (int e = threadIdx.x; e < S::kSdPlane; e += S::kThreads) {
+    const int r = e / S::CS, cc = e - r * S::CS;
+    const int j = (j0 + r) % a.H, i = (i0 + cc) % a.W;
+    const T p_n = aflux_pit(a, j, i, pit[e]);
+    pn[(r + 1) * S::C + cc + 1] = p_n;
+    if (r < S::TJ && cc < S::TI && j0 + r < a.H && i0 + cc < a.W)
+      a.p_n[(size_t)j * a.W + i] = p_n;
+    sd_wrap[e] = T(0);
+  }
+  for (int r = threadIdx.x; r <= S::TJ; r += S::kThreads) rdx[r] = T(1) / a.dx_j[(j0 + r) % a.H];
+}
+
+// The deep form's sd of layer k on the sd columns, from layer k's spu, sv
+// and sp staged in the tile planes (row length C, the sd column (r, cc) at
+// (r+1, cc+1)): each column's convergence with aflux_column's
+// expressions, added to its running sum from layer L-1 down (acc), and sd
+// = acc - pit*sigb[k], 0 at layer 0: aflux_column's values, formed a layer
+// at a time as the layer loop runs from k = L-1 down.
+template <class S, typename T>
+__device__ __forceinline__ void sd_layer(const Params<T>& a, int k, const T* spu, const T* sv,
+                                         const T* sp, const T* pit, T* acc, const T* rdx,
+                                         T* sd) {
+  const T half = T(0.5);
+  const T rdy = T(1) / a.dy[0];
+  const T dsig = a.dsig[k];
+  constexpr int C = S::C;
+  for (int e = threadIdx.x; e < S::kSdPlane; e += S::kThreads) {
+    const int r = e / S::CS;
+    const int at = (r + 1) * C + e - r * S::CS + 1;
+    const T jph_sp = (sp[at] + sp[at + C]) * half;
+    const T jph_sp_m = (sp[at - C] + sp[at]) * half;
+    const T spv_c = sv[at] * jph_sp;
+    const T spv_m = sv[at - C] * jph_sp_m;
+    const T conv = ((spu[at] - spu[at - 1]) * rdx[r] + (spv_c - spv_m) * rdy) * dsig;
+    const T sum = k == a.L - 1 ? conv : acc[e] + conv;
+    acc[e] = sum;
+    sd[e] = k == 0 ? T(0) : sum - pit[e] * a.sigb[k];
+  }
+}
+
+// The tiled stencil: grid (ceil(W/32), ceil(H/TJ)), TJ*32 threads,
+// Tile<T, Out::kParts, Deep>::bytes(L) of dynamic shared memory.  Out is
+// RestOut (the rest tile) or PartsOut (K1).  The deep form runs its layer
+// loop from k = L-1 down, so that each layer's sd comes from the running
+// sum of the layers below it, and holds sd in two slots.
+template <typename T, class Out, bool Deep>
+__device__ __forceinline__ void tile_body(const Params<T>& a, const Out& out) {
+  using S = Tile<T, Out::kParts, Deep>;
   constexpr int C = S::C, P = S::kPlane;
   extern __shared__ __align__(16) unsigned char tile_smem[];
   T* const sm = reinterpret_cast<T*>(tile_smem);
@@ -319,18 +382,29 @@ __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::
   const T* const sp = sm + S::kSpAt;
   const T* const p = sm + S::kPAt;
   T* const pn = sm + S::kPnAt;
-  T* const sd = sm + S::kSdAt;  // layer k at sd[k * kSdPlane]
+  T* const sd = sm + S::kSdAt;  // layer k at sd[k * kSdPlane]; deep: at sd[(k & 1) * kSdPlane]
+  auto sd_of = [&](int k) { return sd + (Deep ? k & 1 : k) * S::kSdPlane; };
 
   copy(sm + S::kSpAt, a.sp, S::kSpPlane);
   copy(sm + S::kPAt, a.p, P);
-  load_ring(-1);
-  load_ring(0);
-  load_ring(1);
-  load_local(0);
+  if constexpr (Deep) {
+    load_ring(L);
+    load_ring(L - 1);
+    load_ring(L - 2);
+    load_local(L - 1);
+  } else {
+    load_ring(-1);
+    load_ring(0);
+    load_ring(1);
+    load_local(0);
+  }
   __pipeline_commit();
 
   // the prologue, while the first layers' copies are in flight
-  aflux_prologue<S>(a, sd, pn, j0, i0);
+  if constexpr (Deep)
+    aflux_pit_prologue<S>(a, sm + S::kPitAt, sd_of(L), sm + S::kRdxAt, pn, j0, i0);
+  else
+    aflux_prologue<S>(a, sd, pn, j0, i0);
 
   // what does not depend on k
   const T half = T(0.5), one = T(1), dt = a.dt;
@@ -366,11 +440,19 @@ __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::
   const T rv_n = one / ((pn_c + x.at(pn, 1, 0)) * half);
   const T ru_n = one / ((pn_c + x.at(pn, 0, 1)) * half);
 
-  for (int k = 0; k < L; ++k) {
+  for (int n = 0; n < L; ++n) {
+    const int k = Deep ? L - 1 - n : n;
     __pipeline_wait_prior(0);
-    __syncthreads();  // layer k+1 has landed; every thread is done with layer k-1
-    if (k + 2 <= L) load_ring(k + 2);
-    if (k + 1 < L) load_local(k + 1);
+    __syncthreads();  // layer k has landed; every thread is done with the layer before
+    if constexpr (Deep) {
+      if (k >= 1) {
+        load_ring(k - 2);
+        load_local(k - 1);
+      }
+    } else {
+      if (k + 2 <= L) load_ring(k + 2);
+      if (k + 1 < L) load_local(k + 1);
+    }
     __pipeline_commit();
 
     const T* cur = ring(k);
@@ -385,6 +467,9 @@ __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::
         spv[at] = cur[P + at] * ((sp[at] + sp[at + C]) * half);
       }
     }
+    if constexpr (Deep)
+      sd_layer<S>(a, k, lo, cur + P, sp, sm + S::kPitAt, sm + S::kAccAt, sm + S::kRdxAt,
+                  sd_of(k));
     __syncthreads();
     if (!active) continue;
 
@@ -393,8 +478,8 @@ __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::
     x.su = cur; x.sv = cur + P; x.st = cur + 2 * P; x.sq = cur + 3 * P;
     x.su_m = above; x.sv_m = above + P; x.st_m = above + 2 * P; x.sq_m = above + 3 * P;
     x.su_p = below; x.sv_p = below + P; x.st_p = below + 2 * P; x.sq_p = below + 3 * P;
-    x.sd = sd + k * S::kSdPlane;
-    x.sd_p = sd + (k + 1 == L ? 0 : k + 1) * S::kSdPlane;
+    x.sd = sd_of(k);
+    x.sd_p = Deep ? sd_of(k + 1) : sd_of(k + 1 == L ? 0 : k + 1);
     x.spu = lo;
     x.q = lo + P;
     x.spv = spv;
@@ -434,24 +519,36 @@ __global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::
   }
 }
 
-// Launch the tiled stencil on the caller's stream; returns 0 or the CUDA
-// error of the attribute call or the launch.  It reads a.spu, a.sv and a.sp
-// for aflux and writes a.p_n.  A launch that was accepted adds one to
-// *launches (when not null).  A plane's offsets are 32-bit.
+template <typename T, class Out>
+__global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::min_blocks)
+    tile_stencil(const Params<T> a, const Out out) {
+  tile_body<T, Out, false>(a, out);
+}
+
+// The deep form, for more than kRestHeld layers: its shared memory does
+// not grow with L.
+template <typename T, class Out>
+__global__ void __launch_bounds__(Tile<T, Out::kParts>::kThreads, TileShape<T>::min_blocks)
+    tile_stencil_deep(const Params<T> a, const Out out) {
+  tile_body<T, Out, true>(a, out);
+}
+
+// Launch the tiled stencil on the caller's stream, its deep form above
+// kRestHeld layers; returns 0 or the CUDA error of the attribute call or
+// the launch.  It reads a.spu, a.sv and a.sp for aflux and writes a.p_n.
+// A launch that was accepted adds one to *launches (when not null).  A
+// plane's offsets are 32-bit.
 template <typename T, class Out>
 int launch_tile_stencil(const Params<T>& a, const Out& out, cudaStream_t stream,
                         int* launches) {
   using S = Tile<T, Out::kParts>;
   if ((size_t)a.H * a.W > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const size_t bytes = S::bytes(a.L);
-  const cudaError_t err = cudaFuncSetAttribute(
-      tile_stencil<T, Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.W + S::TI - 1) / S::TI, (a.H + S::TJ - 1) / S::TJ);
-  tile_stencil<T, Out><<<grid, S::kThreads, bytes, stream>>>(a, out);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched == cudaSuccess && launches) ++*launches;
-  return (int)launched;
+  if (a.L > held_layers<T>(kRestHeld))
+    return launch_kernel(tile_stencil_deep<T, Out>, grid, S::kThreads,
+                        Tile<T, Out::kParts, true>::bytes(a.L), stream, launches, a, out);
+  return launch_kernel(tile_stencil<T, Out>, grid, S::kThreads, S::bytes(a.L), stream, launches,
+                      a, out);
 }
 
 }  // namespace gcm

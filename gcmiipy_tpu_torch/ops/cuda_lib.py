@@ -21,6 +21,7 @@ log (ptxas' register and stack report) is kept beside its library as
 """
 
 import concurrent.futures
+import contextlib
 import ctypes
 import functools
 import glob
@@ -192,6 +193,46 @@ def build_many(names):
         futures = {name: pool.submit(timed, name) for name in names}
         concurrent.futures.wait(futures.values())
     return {name: fut.result() for name, fut in futures.items()}
+
+
+def forced_form_sources(form, out):
+    """Copy ``csrc/`` into the directory ``out`` with every column kernel
+    (the pgf and rest tiles, the epilogue, the adaptive convection)
+    launching its ``form`` at any L, to time or check the forms against
+    each other: 'deep' sets each ``HeldLayers`` of ``gcm_limits.cuh`` to
+    0 at both types; 'held' sets them to ``kMaxLayers`` and takes out the
+    static checks of the held blocks' size, so that a held block too large
+    for the card fails at its launch.  Returns ``out``."""
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(CSRC_DIR, out)
+    for name in os.listdir(out):
+        path = os.path.join(out, name)
+        with open(path) as f:
+            text = f.read()
+        held = {"held": "kMaxLayers", "deep": "0"}[form]
+        text = re.sub(r"(constexpr HeldLayers k\w+ = )\{[^}]*\};",
+                      r"\g<1>{" + f"{held}, {held}" + "};", text)
+        if form == "held":
+            text = re.sub(r"static_assert\([^;]*\);", "", text)
+        with open(path, "w") as f:
+            f.write(text)
+    return out
+
+
+@contextlib.contextmanager
+def sources_from(csrc):
+    """Within the block the wrappers launch libraries built from the
+    sources in the directory ``csrc`` (built at first use)."""
+    global CSRC_DIR
+    saved = CSRC_DIR, dict(_libraries)
+    CSRC_DIR = csrc
+    _libraries.clear()
+    try:
+        yield
+    finally:
+        CSRC_DIR = saved[0]
+        _libraries.clear()
+        _libraries.update(saved[1])
 
 
 def load(name):

@@ -30,7 +30,7 @@ from gcmiipy_tpu_torch import constants
 from gcmiipy_tpu_torch.dynamics import core25d
 from gcmiipy_tpu_torch.ops import cuda_lib
 
-MAX_LAYERS = 32  # kMaxLayers of csrc/gcm_limits.cuh
+MAX_LAYERS = 64  # kMaxLayers of csrc/gcm_limits.cuh
 GEOM_FIELDS = ("dx_j", "dx_h", "lat", "heightmap", "sig", "sigt", "sigb",
                "dsig", "dy", "ptop")
 

@@ -21,7 +21,9 @@ pgf tile, the rest stencil and the epilogue are counted where the C
 entries make them.  The adaptive convection's kernel equals its plain
 loop to the bit at both types, with the plain version's ``x / c`` made
 the card's ``x * (1/c)`` (``card_division``), and keeps its largest
-sweep count where the plain loop's host reads count its sweeps.
+sweep count where the plain loop's host reads count its sweeps.  Each
+column kernel's held and deep forms, forced in copies of ``csrc/``, agree
+to the bit at 9 and 40 layers.
 """
 
 import shutil
@@ -29,10 +31,12 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gcmiipy_tpu_torch.dynamics import core25d
 from gcmiipy_tpu_torch.grid import geometry
 from gcmiipy_tpu_torch.model.state import random_prognostics
+from gcmiipy_tpu_torch.ops import cuda_lib
 from gcmiipy_tpu_torch.ops import fused_parts as fp
 from gcmiipy_tpu_torch.ops import mega_step as ms
 from gcmiipy_tpu_torch.ops import pgf_rest as pr
@@ -48,9 +52,11 @@ torch.set_num_threads(1)
 
 DT = 300.0
 GRIDS = [(3, 20, 36), (1, 2, 36), (4, 13, 70)]
-# and kMaxLayers, and a grid off the tiles (19 rows: 8 does not divide it;
+# and 32 layers, and a grid off the tiles (19 rows: 8 does not divide it;
 # 45 columns)
 PGF_GRIDS = GRIDS + [(32, 20, 36), (5, 19, 45)]
+# the deep forms: 40 layers, and kMaxLayers off the tiles
+DEEP_GRIDS = [(40, 20, 36), (64, 19, 45)]
 
 
 @pytest.fixture(scope="module")
@@ -137,7 +143,7 @@ def _k4_args(shape, hill, dtype):
 
 @pytest.mark.parametrize("hill", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", PGF_GRIDS)
+@pytest.mark.parametrize("shape", PGF_GRIDS + DEEP_GRIDS)
 def test_rest_parts_source_equals_plain_version_to_the_bit(build_dir, shape,
                                                           dtype, hill):
     """K4, one launch of the rest tile (aflux in its prologue, sd in shared
@@ -156,7 +162,7 @@ def test_rest_parts_source_equals_plain_version_to_the_bit(build_dir, shape,
 
 @pytest.mark.parametrize("hill", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", PGF_GRIDS)
+@pytest.mark.parametrize("shape", PGF_GRIDS + DEEP_GRIDS)
 def test_fused_parts_source_equals_plain_version_to_the_bit(build_dir, shape,
                                                            dtype, hill):
     """K1 (the pgf column pass, then the tiled launch with the aflux
@@ -181,7 +187,7 @@ def test_fused_parts_source_equals_plain_version_to_the_bit(build_dir, shape,
 
 @pytest.mark.parametrize("hill", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", PGF_GRIDS)
+@pytest.mark.parametrize("shape", PGF_GRIDS + DEEP_GRIDS)
 def test_pgf_column_source_equals_plain_version_to_the_bit(build_dir, shape,
                                                           dtype, hill):
     """K1's column pass alone (C entry gcm_pgf_column: one pass over k
@@ -243,7 +249,7 @@ def test_mega_half_source_matches_plain_version(build_dir):
 
 @pytest.mark.parametrize("hill", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", PGF_GRIDS)
+@pytest.mark.parametrize("shape", PGF_GRIDS + DEEP_GRIDS)
 def test_pgf_parts_source_equals_plain_version_to_the_bit(build_dir, shape,
                                                          dtype, hill):
     """K3, one launch of the pgf tile, equals pgf_parts_ref bit for bit
@@ -284,14 +290,19 @@ def _physics_args(shape, dtype, **kw):
     ((9, 13, 140), {"drag_tau": 7200.0}),
     ((9, 13, 140), {"convection": True, "drag_tau": 86400.0,
                     "seasonal": True}),
-    ((32, 4, 36), {"convection": True, "drag_tau": 86400.0})])
+    ((32, 4, 36), {"convection": True, "drag_tau": 86400.0}),
+    ((40, 4, 140), {"convection": True, "drag_tau": 86400.0,
+                    "seasonal": True}),
+    ((64, 3, 36), {"convection": True, "drag_tau": 86400.0})])
 def test_column_physics_source_matches_plain_version(build_dir, shape, kw,
                                                      dtype, bound):
     """The epilogue alone (C entry gcm_column_physics) against
     physics_epilogue_ref, with and without the sweeps and the drag, at a
-    width of two blocks (140) and at kMaxLayers: within ``bound`` of each
-    field's scale, the host's pow, log, sin and cos rounding apart from
-    PyTorch's.  The inputs are not changed."""
+    width of two blocks (140), at 32 layers, and in its deep form at 40
+    layers and at kMaxLayers, whose float64 block is within the card's
+    shared memory: within ``bound`` of each field's scale, the host's pow,
+    log, sin and cos rounding apart from PyTorch's.  The inputs are not
+    changed."""
     args = _physics_args(shape, dtype, **kw)
     kept = [x.clone() for x in args[:5]]
     before = ss.column_physics.launches
@@ -305,11 +316,12 @@ def test_column_physics_source_matches_plain_version(build_dir, shape, kw,
     assert moved > 1e-5  # the epilogue did work
 
 
-def test_stream_steps_source_matches_plain_version(build_dir):
+@pytest.mark.parametrize("L", [3, 40])
+def test_stream_steps_source_matches_plain_version(build_dir, L):
     """K7 with the physics (4 steps: the pgf tile, the filter and the rest
     tile twice a step, the epilogue once) against stream_steps_ref with the
-    kernel's FFT plan."""
-    L, H, W = 3, 20, 36
+    kernel's FFT plan; at 40 layers every stage in its deep form."""
+    H, W = 20, 36
     geom = _geom((L, H, W), True)
     gt = torch.as_tensor(290.0 + 20.0 * np.random.default_rng(60).random(
         (H, W)))
@@ -468,14 +480,17 @@ def test_mega_half_shard_source_matches_plain_version(build_dir, shard):
     assert bool((out[2][:, rows == 31] == 0).all())
 
 
-def _convection_field(kind):
+def _convection_field(kind, L=9):
     """(tt, tp, dp) float64 of one kind: ``unstable`` is
     tests/test_torch_physics.py's _unstable_column(3) (a warm, noisy lower
     column: many superadiabatic pairs); ``stable`` is isothermal with
     noise well below any pair's critical difference; ``mixed`` alternates
     columns that run the full 2L sweeps (a lapse of 15 K a layer) with
-    isothermal ones that need none, over two blocks of columns (140)."""
-    L, H, W = (9, 3, 140) if kind == "mixed" else (9, 4, 5)
+    isothermal ones that need none, over two blocks of columns (140);
+    ``warm_base`` is isothermal but for the unstable one's warm, noisy
+    lowest three layers, for the deep columns (few sweeps of the plain
+    loop)."""
+    L, H, W = (L, 3, 140) if kind == "mixed" else (L, 4, 5)
     geom = _geom((L, H, W), False)
     sig, dsig = geom.sig.reshape(L, 1, 1), geom.dsig.reshape(L, 1, 1)
     rng = np.random.default_rng(3)
@@ -485,6 +500,10 @@ def _convection_field(kind):
         tt[:3] += np.array([40.0, 20.0, 8.0])[:, None, None]
     elif kind == "stable":
         tt = 250.0 + 0.05 * rng.standard_normal((L, H, W))
+    elif kind == "warm_base":
+        tt = np.full((L, H, W), 250.0)
+        tt[:3] += (np.array([40.0, 20.0, 8.0])[:, None, None]
+                   + rng.standard_normal((3, H, W)))
     else:
         tt = np.full((L, H, W), 250.0)
         tt[:, :, ::3] = (300.0 - 15.0 * np.arange(L))[:, None, None]
@@ -494,11 +513,20 @@ def _convection_field(kind):
 def _plain_adaptive(tt, tp, dp):
     """The plain adaptive loop's field and its sweeps (its host reads,
     one a sweep)."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+    with _HostReads() as reads:
         out = convection.convective_adjustment(tt, tp, dp)
-    return out, sum(e.name == "aten::_local_scalar_dense"
-                    for e in prof.events())
+    return out, reads.count
+
+
+class _HostReads(TorchDispatchMode):
+    """Counts the host reads (``aten::_local_scalar_dense``) of the code run
+    under it."""
+
+    count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.count += func is torch.ops.aten._local_scalar_dense.default
+        return func(*args, **(kwargs or {}))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -530,3 +558,82 @@ def test_convection_source_equals_plain_adaptive_version_to_the_bit(
         keep = torch.ones(tt.shape[-1], dtype=torch.bool)
         keep[::3] = False
         assert torch.equal(out[..., keep], tt[..., keep])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [40, 64])
+def test_deep_convection_source_equals_plain_adaptive_version_to_the_bit(
+        build_dir, L, dtype):
+    """The adaptive convection against the plain loop at 40 layers and at
+    kMaxLayers, where float64 launches its deep form (the temperatures in
+    shared memory, the masses and the tables read from device memory): the
+    same field to the bit and the plain loop's sweep count."""
+    tt, tp, dp = (x.to(dtype) for x in _convection_field("warm_base", L))
+    with card_division():
+        ref, sweeps = _plain_adaptive(tt, tp, dp)
+        cv.sweeps_max("cpu", reset=True)
+        with kernels_on_cpu(build_dir):
+            out = convection.convective_adjustment(tt, tp, dp)
+    assert torch.equal(out, ref)
+    assert cv.sweeps_max("cpu", reset=True) == sweeps > 1
+    assert not torch.equal(out, tt)
+
+
+@pytest.fixture(scope="module")
+def form_sources(tmp_path_factory):
+    """{form: directory}: copies of csrc/ in which every column kernel
+    launches its held or its deep form at any L."""
+    root = tmp_path_factory.mktemp("forms")
+    return {form: cuda_lib.forced_form_sources(form, str(root / form))
+            for form in ("held", "deep")}
+
+
+def _form_call(kernel, shape, dtype):
+    """One call of a column kernel's op on CPU tensors of ``shape``: the
+    pgf tile (K3), the rest tile (K4), the epilogue or the adaptive
+    convection."""
+    if kernel == "pgf_tile":
+        sp, su, _, st, _ = (x.to(dtype) for x in
+                            random_prognostics(_geom(shape, True), 58))
+        geom = _geom(shape, True, dtype)
+        return lambda: pr.pgf_parts(sp, su, st, geom)
+    if kernel == "rest_tile":
+        args = _k4_args(shape, True, dtype)
+        return lambda: pr.rest_parts(*args, q_limiter=True)
+    if kernel == "column_physics":
+        args = _physics_args(shape, dtype, convection=True,
+                             drag_tau=86400.0)
+        return lambda: ss.column_physics(*args)
+    tt, tp, dp = (x.to(dtype) for x in
+                  _convection_field("unstable", shape[0]))
+    return lambda: (convection.convective_adjustment(tt, tp, dp),)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [9, 40])
+@pytest.mark.parametrize("kernel", ["pgf_tile", "rest_tile", "column_physics",
+                                    "column_convection"])
+def test_held_and_deep_forms_agree_to_the_bit(build_dir, form_sources, kernel,
+                                              L, dtype):
+    """Each column kernel's held and deep forms, forced at the same L
+    (cuda_lib.forced_form_sources), give the same outputs to the bit, on
+    a grid off the tiles with a hill; at 40 layers in float64 the held
+    epilogue's block (6 arrays of L for 128 threads) exceeds the card's
+    shared memory and its launch fails, which is why the deep form
+    exists."""
+    call = _form_call(kernel, (L, 19, 45), dtype)
+    outs = {}
+    with card_division():
+        for form, csrc in form_sources.items():
+            with cuda_lib.sources_from(csrc), kernels_on_cpu(build_dir):
+                if (form, kernel, L, dtype) == ("held", "column_physics", 40,
+                                                torch.float64):
+                    with pytest.raises(RuntimeError, match="launch failed"):
+                        call()
+                    continue
+                outs[form] = call()
+    for form, out in outs.items():
+        assert all(torch.isfinite(x).all() for x in out), form
+    if "held" in outs:
+        for a, b in zip(outs["held"], outs["deep"]):
+            assert torch.equal(a, b), float((a - b).abs().max())

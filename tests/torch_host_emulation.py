@@ -91,7 +91,10 @@ inline int atomicMax(int* p, int v) {
   if (v > old) *p = v;
   return old;
 }
-template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+// the card refuses more dynamic shared memory than a block has
+template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
+  return bytes > 232448 ? cudaErrorInvalidValue : cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 template <class T> inline T __ldg(const T* p) { return *p; }
