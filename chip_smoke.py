@@ -1,21 +1,23 @@
 import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  # noqa: E401,E702
 # Smoke run of the PyTorch port (gcmiipy_tpu_torch) on one NVIDIA GPU.
 #
-#     python3 chip_smoke.py [convection | kernels]
+#     python3 chip_smoke.py [convection | radiation | kernels | forms]
 #
 # Phases, one log line each (with elapsed seconds); any failure exits
 # non-zero and prints no result:
 #   device   the card's name and power limit (nvidia-smi) and torch's name;
 #   build    nvcc builds the kernel sources of the paths (csrc/fused_parts.cu,
 #            csrc/mega_step.cu, csrc/stream_steps.cu, csrc/pgf_rest.cu,
-#            csrc/mega_half.cu, csrc/fft_filter.cu and csrc/convection.cu,
+#            csrc/mega_half.cu, csrc/fft_filter.cu, csrc/convection.cu and
+#            csrc/radiation.cu,
 #            all at once, each into a library and, where its code calls
 #            power, a float64 library of its own, ops/cuda_lib.py) and
 #            prints ptxas' counts (from the log kept beside a library found
 #            built), failing if the pgf tile, the column-physics epilogue,
 #            the rest tile (tile_stencil<T, RestOut>), K1's tiled launch
-#            (tile_stencil<T, PartsOut>), K1's column pass or the adaptive
-#            convection spills or keeps a per-layer array on its stack;
+#            (tile_stencil<T, PartsOut>), K1's column pass, the adaptive
+#            convection or the four-band radiation spills or keeps a
+#            per-layer array on its stack;
 #   kernels  each kernel against its plain PyTorch version on the card: the
 #            FFT filter stage (fft_filter, against its plain version and
 #            the TPU kernels' banded DFT form), K1 (fused_parts), K6
@@ -39,7 +41,12 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            the convection launch their deep forms above their HeldLayers
 #            (csrc/gcm_limits.cuh; `python3 chip_smoke.py forms` times each
 #            kernel's held and deep forms against each other, forced in
-#            copies of csrc/, at 9 to 48 layers);
+#            copies of csrc/, at 9 to 48 layers); the four-band radiation's
+#            kernel with its update (ops/radiation.py) against the plain
+#            function and update on the card, within RADIATION_REL, one
+#            launch and no host read a call (phase_radiation, run after the
+#            convection; its row takes phase surface's count; `python3
+#            chip_smoke.py radiation` runs device, build, surface and it);
 #   deep     GISS ModelE2.1's 40 layers under a 10 Pa top with the per-step
 #            physics through make_run_fn on every backend, float32 on the
 #            main grid and float64 on 64x128, each against 'xla', guard
@@ -75,8 +82,9 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            'stream' (K7 calls of 2 steps, the extras and the filter
 #            between calls) and 'mega4' (K6), held against each other, the
 #            plain core (xla with the DFT filter) and 'mega' (K5), with the
-#            launches counted (the adaptive convection's kernel one a
-#            physics call, every 2nd step) and rain required; Config T, the
+#            launches counted (the adaptive convection's kernel and the
+#            four-band radiation's one each a physics call, every 2nd step)
+#            and rain required; Config T, the
 #            grey per-step physics over the terrain in K7's epilogue, against
 #            mega4 with the plain physics after 4 and 20 steps; Config W,
 #            Config S without the land cover on mega4, whose global water
@@ -198,6 +206,11 @@ KERNEL_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # scale: float32 pow/log ulps (1.473e-7 measured on the card at the main
 # path's shape with convection and drag), float64 as KERNEL_REL
 EPILOGUE_REL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# the four-band radiation's kernel with its update vs the plain function and
+# the update, over each field's scale: the plain operand order, the sums
+# over the bands and the ground's layers in another (the CPU's emulated
+# source read 1.0e-7 and 1.9e-16, tests/test_torch_host_emulation.py)
+RADIATION_REL = {torch.float32: 1e-6, torch.float64: 1e-12}
 # each case must move t (and u where the drag is on) by at least this many
 # times EPILOGUE_REL over the field's scale, so that an epilogue that skips
 # or mis-scales a term cannot pass within the bound
@@ -222,7 +235,7 @@ STREAM_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
 # few steps: the bound of scripts/tpu_parity.py's gate 6b (:329-360)
 PHYSICS_REL = 4e-4
 SOURCES = ("fused_parts", "mega_step", "stream_steps", "pgf_rest", "mega_half",
-           "fft_filter", "convection")
+           "fft_filter", "convection", "radiation")
 # The flagship bench grid at its full width.  dt is bench.py's for this grid:
 # at 512 latitude rows dt=900 breaks the meridional CFL limit (the polar
 # filter acts zonally only), and the guard stops the run at step 1-2, in the
@@ -442,6 +455,9 @@ REDESIGNED = (
      "tile_stencil_deepIdNS_8PartsOutIdEEEEv"),
     ("column_convection_deep", "convection", "column_convection_deepIfEEv",
      "column_convection_deepIdEEv"),
+    # one form at every L
+    ("column_four_band", "radiation", "column_four_bandIfEEv",
+     "column_four_bandIdEEv"),
 )
 
 
@@ -1087,6 +1103,108 @@ def phase_convection(device, launches=None, deep_launches=None):
             None, f"convection {shape} float32", launch_ms=kernel_ms(call)))
         del tt, tp, dp
     return rows
+
+
+def radiation_inputs(shape, dtype, device, seed=5):
+    """The arguments of the four-band radiation's block, (p, tt, q, gt,
+    albedo, utc, dt, geom, t_sw): noisy true temperatures of 200-300 K, q
+    of up to 0.02 (the strong water-vapour band opaque where it is high),
+    the ground 280-310 K, an albedo field (the land cover's blend over a
+    land fraction running 0 to 1 along each row), the clock a 0-dim
+    tensor that leaves about half the longitudes in the night, and Config
+    S's dt and t_sw."""
+    import dataclasses
+    from gcmiipy_tpu_torch.grid import geometry
+    L, H, W = shape
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 ptop=10.0 if L > 9 else 0.0,
+                                 dtype=torch.float64, device="cpu")
+    geom = dataclasses.replace(geom, land_fraction=torch.linspace(
+        0, 1, W, dtype=torch.float64).expand(H, W).contiguous())
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*size):
+        return torch.rand(size, generator=g, dtype=torch.float64)
+
+    p = 1e5 * (1 + 0.01 * (2 * rand(H, W) - 1))
+    tt, q = 200.0 + 100.0 * rand(L, H, W), 0.02 * rand(L, H, W) ** 2
+    gt = 280.0 + 30.0 * rand(H, W)
+    f_land = geom.land_fraction
+    albedo = 0.3 * (1.0 - f_land) + 0.35 * f_land
+    utc = torch.tensor(3.1e4, dtype=torch.float64)
+    return (*(x.to(dtype=dtype, device=device)
+              for x in (p, tt, q, gt, albedo, utc)),
+            SURFACE["physics_every"] * MAIN["dt"],
+            geom.to(dtype=dtype, device=device), 0.9)
+
+
+def phase_radiation(device, launches=None):
+    """The four-band radiation's kernel (ops/radiation.py, one launch a
+    call: the radiation and both updates) against the plain function and
+    the updates on the card, within RADIATION_REL of each field's scale,
+    at float32 and float64 on the main grid, on GCM-II's 9x24x36 and at
+    40 layers on the main grid (float32) and on 64x128 (float64), with no
+    host read; then the main grid's float32 call timed against the plain
+    block.  Returns the kernels table's row, with ``launches``: the
+    kernel's launches on the main path (phase surface's count; None where
+    it did not run)."""
+    from gcmiipy_tpu_torch.ops import radiation as rop
+    from gcmiipy_tpu_torch.physics.radiation import four_band_radiation
+    from gcmiipy_tpu_torch.step_profile import kernel_ms
+
+    def plain(p, tt, q, gt, albedo, utc, dt, geom, t_sw):
+        dt_air, dt_ground = four_band_radiation(p, None, tt, q, gt, t_sw,
+                                                albedo, utc, geom)
+        return tt + dt_air * dt, gt + dt_ground * dt
+
+    main_shape = (MAIN["layers"], MAIN["height"], MAIN["width"])
+    errors = {}
+    for shape, dtype in ((main_shape, torch.float32),
+                         (main_shape, torch.float64),
+                         ((9, 24, 36), torch.float32),
+                         ((9, 24, 36), torch.float64),
+                         (DEEP_GRIDS[0], torch.float32),
+                         ((DEEP["layers"],) + DEEP["f64_grid"], torch.float64)):
+        args = radiation_inputs(shape, dtype, device)
+        ref = plain(*args)
+        rop.four_band_column(*args)  # build and load
+        torch.cuda.synchronize()
+        before = rop.four_band_column.launches
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = rop.four_band_column(*args)
+            torch.cuda.synchronize()
+        reads = sum(e.name == "aten::_local_scalar_dense"
+                    for e in prof.events())
+        rel = rel_err(out, ref)
+        moved = rel_err(ref, (args[1], args[3]))
+        errors[shape, dtype] = abs_err(out, ref)
+        tag = f"four-band radiation {shape} {str(dtype)[6:]}"
+        log("kernels", f"{tag}: rel {rel:.3e} (bound "
+                       f"{RADIATION_REL[dtype]:g}), max abs "
+                       f"{errors[shape, dtype]:.3e}, the update moves the "
+                       f"fields by rel {moved:.3e}, {reads} host reads, "
+                       f"equal to the bit: {bit_equal(out, ref)}")
+        if rop.four_band_column.launches != before + 1 or reads:
+            fail("kernels", f"{tag}: {rop.four_band_column.launches - before}"
+                            f" launches and {reads} host reads a call")
+        if not rel <= RADIATION_REL[dtype] or not moved > EPILOGUE_MOVE * (
+                RADIATION_REL[dtype]):
+            fail("kernels", f"{tag} disagrees with the plain function")
+        del args, ref, out
+    args = radiation_inputs(main_shape, torch.float32, device)
+    call = lambda: rop.four_band_column(*args)  # noqa: E731
+    ms = cuda_ms(call, 50)
+    plain_ms = cuda_ms(lambda: plain(*args), 10)
+    L, H, W = main_shape
+    # reads tt, q, p, gt and the albedo; writes tt and gt
+    nbytes = (3 * L + 4) * H * W * 4
+    return [_row("column_four_band", "gcmiipy_tpu_torch/csrc/radiation.cu",
+                 "none (gcmiipy_tpu/physics/radiation.py:four_band_radiation"
+                 ", plain jnp)", launches, errors[main_shape, torch.float32],
+                 ms, plain_ms, nbytes, {}, None,
+                 f"four-band radiation {main_shape} float32",
+                 launch_ms=kernel_ms(call))]
 
 
 def _deep_start(geom, cfg):
@@ -1834,10 +1952,11 @@ def phase_surface(device):
     where K7's epilogue runs the physics, against mega4 with the per-step
     physics in plain PyTorch.  Config W: Config S without the land cover on
     mega4, its global water at steps 0 and 20.  The adaptive convection's
-    kernel is counted with the others: one launch a plain physics call
-    (none where K7's epilogue runs the physics).  Returns the geometry and
-    start of Config S, for phase timing, and the convection kernel's
-    launches in Config S's 20 steps on 'stream'."""
+    kernel and the four-band radiation's are counted with the others: one
+    launch each a plain physics call (none where K7's epilogue runs the
+    physics).  Returns the geometry and start of Config S, for phase
+    timing, and the two kernels' launches in Config S's 20 steps on
+    'stream', by name."""
     from gcmiipy_tpu_torch.diagnostics import global_water
     from gcmiipy_tpu_torch.model.driver import gen_model_geometry
     from gcmiipy_tpu_torch.ops.convection import column_adjustment
@@ -1845,11 +1964,13 @@ def phase_surface(device):
     from gcmiipy_tpu_torch.ops.mega_half import mega_half
     from gcmiipy_tpu_torch.ops.mega_step import mega_step
     from gcmiipy_tpu_torch.ops.pgf_rest import pgf_tile, rest_stencil
+    from gcmiipy_tpu_torch.ops.radiation import four_band_column
     from gcmiipy_tpu_torch.ops.stream_steps import column_physics, stream_steps
     kernels = (stream_steps, mega_step, mega_half, fft_filter, rest_stencil,
-               pgf_tile, column_physics, column_adjustment)
+               pgf_tile, column_physics, column_adjustment, four_band_column)
     names = ("stream_steps", "mega_step", "mega_half", "fft_filter",
-             "rest_stencil", "pgf_tile", "column_physics", "column_adjustment")
+             "rest_stencil", "pgf_tile", "column_physics", "column_adjustment",
+             "four_band_column")
     n = MAIN["steps"]
     config = _config("stream", **SURFACE)
     geom = gen_model_geometry(config, device)
@@ -1874,24 +1995,26 @@ def phase_surface(device):
                             f"expected {want}")
         return out
 
-    # the adaptive convection: one launch a physics call, every 2nd step
+    # the adaptive convection and the four-band radiation: one launch each
+    # a physics call, every 2nd step
     runs = {}
     for steps in (2, n):
+        column = dict(column_adjustment=steps // 2,
+                      four_band_column=steps // 2)
         # K = 2: one K7 call a 2 steps, the extras and the filter between
         runs["stream", steps] = counted("S", "stream", steps, dict(
             stream_steps=steps // 2, fft_filter=2 * steps,
-            rest_stencil=2 * steps, pgf_tile=2 * steps,
-            column_adjustment=steps // 2))
+            rest_stencil=2 * steps, pgf_tile=2 * steps, **column))
         if steps == n:
-            convection_launches = column_adjustment.launches
+            column_launches = {"column_adjustment": column_adjustment.launches,
+                               "four_band_column": four_band_column.launches}
         runs["mega4", steps] = counted("S", "mega4", steps, dict(
             mega_step=steps, fft_filter=2 * steps, rest_stencil=2 * steps,
-            pgf_tile=2 * steps, column_adjustment=steps // 2))
-        runs["xla", steps] = counted("S", "xla", steps, dict(
-            column_adjustment=steps // 2), "dft")
+            pgf_tile=2 * steps, **column))
+        runs["xla", steps] = counted("S", "xla", steps, column, "dft")
     mega_n = counted("S", "mega", n, dict(
         mega_half=2 * n, fft_filter=2 * n, rest_stencil=2 * n,
-        pgf_tile=2 * n, column_adjustment=n // 2))
+        pgf_tile=2 * n, column_adjustment=n // 2, four_band_column=n // 2))
     gw0 = start.ground.gw
     rained = int((runs["mega4", n][6] > gw0).sum())
     dried = int((runs["mega4", n][6] < gw0).sum())
@@ -1956,7 +2079,8 @@ def phase_surface(device):
         GroundVars, ModelState, PrognosticVars)
     w_out = counted("W", "mega4", n, dict(
         mega_step=n, fft_filter=2 * n, rest_stencil=2 * n, pgf_tile=2 * n,
-        column_adjustment=n // 2), cfg=w_cfg, state=w_start, g=w_geom)
+        column_adjustment=n // 2, four_band_column=n // 2), cfg=w_cfg,
+        state=w_start, g=w_geom)
     w_end = ModelState(PrognosticVars(*w_out[:5]), GroundVars(
         w_out[5], w_out[6], w_start.ground.snow, w_start.ground.ice),
         w_start.utc, w_start.step)
@@ -1969,7 +2093,7 @@ def phase_surface(device):
                    f"moved by {float((w_out[6] - w_start.ground.gw).abs().max()):.3e} m")
     if not abs(change) < WATER_REL:
         fail("surface", "Config W does not conserve its water")
-    return (geom, start), convection_launches
+    return (geom, start), column_launches
 
 
 def phase_services(device):
@@ -4131,6 +4255,15 @@ def main():
         print(card, flush=True)
         print(json.dumps({"kernels": phase_convection(device)}), flush=True)
         return
+    if sys.argv[1:] == ["radiation"]:
+        # the four-band radiation's kernel: build, phase surface's counts,
+        # check, time
+        phase_build()
+        _, column_launches = phase_surface(device)
+        rows = phase_radiation(device, column_launches["four_band_column"])
+        print(card, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -4156,7 +4289,7 @@ def main():
     launches, geom, start, max_abs["k2"], runs = phase_main(device)
     launches.update(phase_main_stream(device, geom, start))
     launches.update(phase_main_mega_v2(device, geom, start, runs))
-    surface, convection_launches = phase_surface(device)
+    surface, column_launches = phase_surface(device)
     launches.update(phase_services(device))
     phase_sideband(device, card)
     phase_longrun(device, card)
@@ -4170,7 +4303,9 @@ def main():
     # column's and the convection's rows open such sessions
     deep_launches = phase_deep(device)
     rows += timing_deep(device, deep_launches, deep_abs)
-    rows += phase_convection(device, convection_launches, deep_launches)
+    rows += phase_convection(device, column_launches["column_adjustment"],
+                             deep_launches)
+    rows += phase_radiation(device, column_launches["four_band_column"])
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

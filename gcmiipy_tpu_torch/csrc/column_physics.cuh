@@ -57,8 +57,6 @@
 
 namespace gcm {
 
-__device__ __forceinline__ float cosine(float x) { return cosf(x); }
-__device__ __forceinline__ double cosine(double x) { return cos(x); }
 __device__ __forceinline__ float logarithm(float x) { return logf(x); }
 __device__ __forceinline__ double logarithm(double x) { return log(x); }
 

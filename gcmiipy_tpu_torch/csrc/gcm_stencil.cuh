@@ -33,6 +33,8 @@ __device__ __forceinline__ double power(double x, double y) { return pow(x, y); 
 #endif
 __device__ __forceinline__ float sine(float x) { return sinf(x); }
 __device__ __forceinline__ double sine(double x) { return sin(x); }
+__device__ __forceinline__ float cosine(float x) { return cosf(x); }
+__device__ __forceinline__ double cosine(double x) { return cos(x); }
 
 template <typename T>
 struct Params {

@@ -39,6 +39,7 @@ from gcmiipy_tpu_torch.model.observability import span
 from gcmiipy_tpu_torch.model.state import (
     GroundVars, ModelState, PrognosticVars, gen_initial_conditions)
 from gcmiipy_tpu_torch.ops import polar_filter, shapiro, stream_steps
+from gcmiipy_tpu_torch.ops import radiation as radiation_op
 from gcmiipy_tpu_torch.parallel import distributed, halo
 from gcmiipy_tpu_torch.parallel import mesh as mesh_mod
 from gcmiipy_tpu_torch.physics import (
@@ -200,8 +201,10 @@ def solar_timestep(t, p, g, dt, utc, geom, config, q=None):
     interval.  With ``config.seasonal`` the declination follows the clock
     ``utc``; with ``land_cover`` the albedo blends the ocean's and the
     land's by the land fraction; ``radiation='4band'`` runs the four-band
-    longwave scheme, which needs the humidity ``q``.  Returns (t,
-    GroundVars) with the ground temperature advanced."""
+    longwave scheme, which needs the humidity ``q``: on a card as one
+    kernel launch with both updates (:mod:`gcmiipy_tpu_torch.ops.radiation`),
+    on the CPU as :func:`radiation.four_band_radiation`, its plain version.
+    Returns (t, GroundVars) with the ground temperature advanced."""
     sig = geom.sig.to(t.dtype)
     ptop = geom.ptop.to(t.dtype)
     tp = p * sig + ptop
@@ -220,16 +223,22 @@ def solar_timestep(t, p, g, dt, utc, geom, config, q=None):
         raise ValueError("radiation='4band' needs the humidity field "
                          "q (pass it to solar_timestep)")
     with span("gcm.physics.radiation"):
-        if config.radiation == "4band":
-            dt_air, dt_ground = radiation.four_band_radiation(
-                p, tp, tt, q, g.gt, config.t_sw, albedo, utc, geom,
-                declination=declination)
+        if config.radiation == "4band" and radiation_op.on_card(tt):
+            # the radiation and both updates as one launch
+            tt_n, gt_n = radiation_op.four_band_column(
+                p.contiguous(), tt, q.contiguous(), g.gt.contiguous(),
+                albedo, utc, dt, geom, config.t_sw, declination=declination)
         else:
-            dt_air, dt_ground = radiation.basic_grey_radiation(
-                p, tp, tt, g.gt, config.t_lw, config.t_sw, albedo, utc,
-                geom, declination=declination)
-        gt_n = g.gt + dt_ground * dt
-        tt_n = tt + dt_air * dt
+            if config.radiation == "4band":
+                dt_air, dt_ground = radiation.four_band_radiation(
+                    p, tp, tt, q, g.gt, config.t_sw, albedo, utc, geom,
+                    declination=declination)
+            else:
+                dt_air, dt_ground = radiation.basic_grey_radiation(
+                    p, tp, tt, g.gt, config.t_lw, config.t_sw, albedo, utc,
+                    geom, declination=declination)
+            gt_n = g.gt + dt_ground * dt
+            tt_n = tt + dt_air * dt
     if config.convection:
         with span("gcm.physics.convection"):
             tt_n = convection.convective_adjustment(

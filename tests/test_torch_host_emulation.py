@@ -23,7 +23,11 @@ loop to the bit at both types, with the plain version's ``x / c`` made
 the card's ``x * (1/c)`` (``card_division``), and keeps its largest
 sweep count where the plain loop's host reads count its sweeps.  Each
 column kernel's held and deep forms, forced in copies of ``csrc/``, agree
-to the bit at 9 and 40 layers.
+to the bit at 9 and 40 layers.  The four-band radiation's kernel with its
+update is held to the plain function and the update within
+``RADIATION_REL`` of each field's scale at 9 and 40 layers, with opaque
+and night-side columns, and its wrapper refuses what the kernel does not
+take.
 """
 
 import shutil
@@ -42,9 +46,10 @@ from gcmiipy_tpu_torch.ops import mega_step as ms
 from gcmiipy_tpu_torch.ops import pgf_rest as pr
 from gcmiipy_tpu_torch.ops import convection as cv
 from gcmiipy_tpu_torch.ops import polar_filter
+from gcmiipy_tpu_torch.ops import radiation as rop
 from gcmiipy_tpu_torch.ops import stream_steps as ss
 from gcmiipy_tpu_torch.ops.fft_filter import fft_filter_ref
-from gcmiipy_tpu_torch.physics import convection
+from gcmiipy_tpu_torch.physics import convection, radiation
 from torch_host_emulation import (card_division, host_pow, kernels_on_cpu,
                                   rewrite_launches)
 
@@ -637,3 +642,111 @@ def test_held_and_deep_forms_agree_to_the_bit(build_dir, form_sources, kernel,
     if "held" in outs:
         for a, b in zip(outs["held"], outs["deep"]):
             assert torch.equal(a, b), float((a - b).abs().max())
+
+
+# The four-band radiation's kernel with its update against the plain
+# function and the update, over each field's scale: the kernel keeps the
+# plain operand order, so what is left is the host's exp and pow against
+# PyTorch's (an ulp each, as EPILOGUE_REL) and the order of the sums over
+# the bands and the ground's layers; float32 read 1.0e-7 here, float64
+# 1.9e-16
+RADIATION_REL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# the increments tt_n - tt and gt_n - gt at float64, over their scale:
+# the field's bound above cannot see a heating off by a part in 1e4
+RADIATION_STEP_REL64 = 1e-12
+
+
+def _four_band_args(shape, dtype, tensors):
+    """(p, tt, q, gt, albedo, utc, dt, geom, t_sw, declination) of a call:
+    a noisy column of 200-300 K over a 1% pressure field, q of up to
+    0.01 with the first 20 columns at 0.5 (the strong water-vapour band
+    opaque: exp underflows to 0), a clock that leaves about half the
+    longitudes in the night.  ``tensors``: the clock, the albedo (a land
+    blend) and a seasonal declination as tensors, else the clock and the
+    albedo as numbers and no declination."""
+    L, H, W = shape
+    geom = geometry.gen_geometry(H, W, L, sig_func=geometry.manabe_sig,
+                                 ptop=10.0 if L > 9 else 0.0,
+                                 dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(L)
+    p = torch.as_tensor(1e5 * (1 + 0.01 * rng.standard_normal((H, W))))
+    tt = torch.as_tensor(200.0 + 100.0 * rng.random((L, H, W)))
+    q = torch.as_tensor(0.01 * rng.random((L, H, W)))
+    q[:, :, :20] = 0.5
+    gt = torch.as_tensor(280.0 + 30.0 * rng.random((H, W)))
+    p, tt, q, gt = (x.to(dtype) for x in (p, tt, q, gt))
+    geom = geom.to(dtype=dtype)
+    if tensors:
+        albedo = torch.as_tensor(0.3 + 0.05 * rng.random((H, W)), dtype=dtype)
+        utc = torch.tensor(3.1e4, dtype=dtype)
+        declination = radiation.solar_declination(
+            torch.tensor(1.2e7, dtype=dtype))
+    else:
+        albedo, utc, declination = 0.3, 5.0e4, 0.0
+    return p, tt, q, gt, albedo, utc, 600.0, geom, 0.9, declination
+
+
+def _four_band_plain(p, tt, q, gt, albedo, utc, dt, geom, t_sw, declination):
+    dt_air, dt_ground = radiation.four_band_radiation(
+        p, None, tt, q, gt, t_sw, albedo, utc, geom, declination=declination)
+    return tt + dt_air * dt, gt + dt_ground * dt
+
+
+@pytest.mark.parametrize("tensors", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(9, 5, 140), (40, 3, 45)])
+def test_four_band_source_matches_plain_version(build_dir, shape, dtype,
+                                                tensors):
+    """One launch gives the plain function's update within
+    ``RADIATION_REL`` of each field's scale (float64: the increments too),
+    over two blocks of columns with opaque ones and night-side ones, at 9
+    layers and at 40 under a 10 Pa top; the inputs are not changed and the
+    update moves both fields."""
+    args = _four_band_args(shape, dtype, tensors)
+    p, tt, q, gt, albedo, utc, dt, geom, t_sw, declination = args
+    kept = [x.clone() for x in (p, tt, q, gt)]
+    assert bool((radiation.four_band_transmittances(p, q, geom)[0] == 0)
+                .any())
+    sza = radiation.zenith_angle(geom.long, geom.lat, utc,
+                                 declination=declination)
+    assert 0.2 < float((sza == 0).double().mean()) < 0.8
+    with card_division():
+        ref = _four_band_plain(*args)
+        before = rop.four_band_column.launches
+        with kernels_on_cpu(build_dir):
+            out = rop.four_band_column(*args[:-1], declination=declination)
+    assert rop.four_band_column.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip((p, tt, q, gt), kept))
+    assert _scaled_err(out, ref) <= RADIATION_REL[dtype]
+    steps = [(a - x, b - x) for a, b, x in zip(out, ref, (tt, gt))]
+    for _, step in steps:
+        assert float(step.abs().max()) > 0.02
+    if dtype == torch.float64:
+        assert _scaled_err(*zip(*steps)) <= RADIATION_STEP_REL64
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16", TypeError), ("too many layers", ValueError),
+    ("not contiguous", ValueError), ("albedo shape", ValueError),
+    ("q dtype", ValueError), ("clock dtype", ValueError),
+    ("geometry", ValueError)])
+def test_four_band_kernel_refuses_what_it_does_not_take(case, error):
+    """Checked before any launch, so CPU tensors show it."""
+    p, tt, q, gt, albedo, utc, dt, geom, t_sw, _ = _four_band_args(
+        (4, 3, 5), torch.float32, True)
+    if case == "float16":
+        p, tt, q, gt, albedo = (x.half() for x in (p, tt, q, gt, albedo))
+    elif case == "too many layers":
+        tt = q = torch.full((rop.MAX_LAYERS + 1, 3, 5), 250.0)
+    elif case == "not contiguous":
+        tt = tt.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "albedo shape":
+        albedo = albedo[:, :2]
+    elif case == "q dtype":
+        q = q.double()
+    elif case == "clock dtype":
+        utc = utc.double()
+    else:
+        geom = _geom((5, 3, 5), False, torch.float32)
+    with pytest.raises(error):
+        rop.four_band_column(p, tt, q, gt, albedo, utc, dt, geom, t_sw)

@@ -33,11 +33,12 @@ import types
 import torch
 
 from gcmiipy_tpu_torch.ops import (convection, cuda_lib, fused_parts, mega_half,
-                                   mega_step, pgf_rest, stream_steps)
+                                   mega_step, pgf_rest, radiation,
+                                   stream_steps)
 
 # the wrappers that choose their plain version by on_cpu
 WRAPPERS = (fused_parts, pgf_rest, mega_step, mega_half, stream_steps,
-            convection)
+            convection, radiation)
 
 # Stands in for cuda_runtime.h and cuda_pipeline.h.
 HEADER = r"""
