@@ -129,7 +129,8 @@ def _add_run_args(ap):
                          "unchanged, the physics between its calls")
     ap.add_argument("--stream-wide-native", action="store_true",
                     help="force the native streaming kernel on tall wide "
-                         "grids (W > 2048, H > 64); not ported yet")
+                         "grids (W > 2048, H > 64) instead of the "
+                         "measured-faster v1 FFT fallback")
     ap.add_argument("--polar-filter", default="fft",
                     choices=["fft", "matmul", "dft"])
     ap.add_argument("--filter-precision", default="high",

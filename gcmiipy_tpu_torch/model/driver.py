@@ -14,10 +14,10 @@ rank steps its own latitude band with the shard forms of K6 or K7, the
 halos going over ``torch.distributed``.
 
 Where the JAX driver compiles the run as one ``lax.scan``, this one is an
-eager loop.  The guard is still a device-side flag carried through the loop:
-``torch.where`` freezes the state at the last good step (as JAX's
-``guarded_body``), so there is no host sync per step; the host reads the
-flag once, at the end of the run.
+eager loop, one for every path (:func:`_plan_run`).  The guard is still a
+device-side flag carried through the loop: ``torch.where`` freezes the
+state at the last good step (as JAX's ``guarded_body``), so there is no
+host sync per step; the host reads the flag once, at the end of the run.
 """
 
 import dataclasses
@@ -283,6 +283,53 @@ def physics_extras(prog: PrognosticVars, g: GroundVars, utc, geom, config,
     return PrognosticVars(p, u, v, t, q), g
 
 
+class Cadence(NamedTuple):
+    """The cadences of a run in steps, 0 where off: the extras (physics or
+    drag) unless K7 runs them in its epilogue, and the Shapiro filter.
+    Every path asks it when each falls due and whether to read the step."""
+    extras: int
+    shapiro: int
+
+    @classmethod
+    def of(cls, config, inkernel=False):
+        runs_extras = (config.physics or config.drag_tau > 0) and not inkernel
+        return cls(config.physics_every if runs_extras else 0,
+                   max(config.shapiro_every, 0))
+
+    @property
+    def active(self):
+        return any(self)
+
+    def keyed(self, steps):
+        """Whether a unit of ``steps`` steps must know its step: some active
+        cadence is longer than the unit."""
+        return max(self) > steps
+
+    def extras_due(self, step_next, granularity=1):
+        return self._due(self.extras, step_next, granularity)
+
+    def shapiro_due(self, step_next, granularity=1):
+        return self._due(self.shapiro, step_next, granularity)
+
+    @staticmethod
+    def _due(every, step_next, granularity):
+        """Whether a cadence point falls in the step window ``(step_next -
+        granularity, step_next]``: False when off, True when every window
+        holds one, else a bool for a step held on the host (a Python int)
+        or a 0-dim bool tensor for the carry's step counter."""
+        if not every:
+            return False
+        if every <= granularity:
+            return True
+        return step_next % every < granularity
+
+
+def _runs(due):
+    """Whether work that is ``due`` is computed at all: a tensor flag
+    chooses on the device, after the work."""
+    return isinstance(due, torch.Tensor) or due
+
+
 def apply_cadenced_extras(prog, g, utc, step_next, geom, config,
                           granularity=1):
     """Run :func:`physics_extras` iff a ``physics_every`` cadence point falls
@@ -294,19 +341,13 @@ def apply_cadenced_extras(prog, g, utc, step_next, geom, config,
     skips them.  With the step counter tensor the choice is a
     ``torch.where`` on the device, so there is no host read, and the
     extras are computed on every call."""
-    if not (config.drag_tau > 0 or config.physics):
+    due = Cadence.of(config).extras_due(step_next, granularity)
+    if not _runs(due):
         return prog, g
-    pe = config.physics_every
-    dt_eff = pe * config.dt
-    if pe <= granularity:
-        return physics_extras(prog, g, utc, geom, config, dt_eff)
-    due = step_next % pe < granularity
-    if isinstance(step_next, int):
-        # the step is known on the host: off cadence nothing is computed
-        if due:
-            return physics_extras(prog, g, utc, geom, config, dt_eff)
-        return prog, g
-    new_prog, new_g = physics_extras(prog, g, utc, geom, config, dt_eff)
+    new_prog, new_g = physics_extras(prog, g, utc, geom, config,
+                                     config.physics_every * config.dt)
+    if not isinstance(due, torch.Tensor):
+        return new_prog, new_g
     return _pick(due, new_prog, prog), _pick(due, new_g, g)
 
 
@@ -316,16 +357,14 @@ def apply_cadenced_shapiro(prog, step_next, geom, config, granularity=1):
     ``(step_next - granularity, step_next]``; a Python int ``step_next``
     skips the work off cadence, the step counter tensor chooses on the
     device, as :func:`apply_cadenced_extras` does."""
-    if config.shapiro_every <= 0:
-        return prog
-    due = step_next % config.shapiro_every < granularity
-    if isinstance(step_next, int) and not due:
+    due = Cadence.of(config).shapiro_due(step_next, granularity)
+    if not _runs(due):
         return prog
     with span("gcm.shapiro"):
         p, t = shapiro.filter_prognostics(
             prog.p, prog.t, order=config.shapiro_order,
             fields=config.shapiro_fields, slp=config.shapiro_slp, geom=geom)
-        if not isinstance(step_next, int):
+        if isinstance(due, torch.Tensor):
             p, t = torch.where(due, p, prog.p), torch.where(due, t, prog.t)
     return prog._replace(p=p, t=t)
 
@@ -344,8 +383,8 @@ def full_timestep(state: ModelState, geom, config, filter_fn,
     prog, g, utc, step = state
     with span("gcm.dynamics"):
         prog = PrognosticVars(*dynamics_step(*prog))
-    step_next = step + 1 if host_step is None else host_step + 1
-    if _has_cadenced(config):
+    if Cadence.of(config).active:
+        step_next = step + 1 if host_step is None else host_step + 1
         with span("gcm.extras"):
             if ring is None:
                 prog = apply_cadenced_shapiro(prog, step_next, geom, config)
@@ -354,13 +393,6 @@ def full_timestep(state: ModelState, geom, config, filter_fn,
             else:
                 prog, g = ring.cadenced(prog, g, utc, step_next)
     return ModelState(prog, g, utc + config.dt, step + 1)
-
-
-def _has_cadenced(config):
-    """Whether ``config`` runs extras or the Shapiro filter besides the
-    dynamics."""
-    return (config.physics or config.drag_tau > 0
-            or config.shapiro_every > 0)
 
 
 def collect_stats(state: ModelState, geom) -> StepStats:
@@ -390,15 +422,11 @@ def state_bad(state: ModelState, config) -> torch.Tensor:
 
 
 def _pick(cond, new, old):
-    """``torch.where(cond, new, old)`` over the fields of a NamedTuple."""
-    return type(new)(*(torch.where(cond, x, y) for x, y in zip(new, old)))
-
-
-def _where_state(cond, new: ModelState, old: ModelState) -> ModelState:
-    return ModelState(_pick(cond, new.prog, old.prog),
-                      _pick(cond, new.ground, old.ground),
-                      torch.where(cond, new.utc, old.utc),
-                      torch.where(cond, new.step, old.step))
+    """``torch.where(cond, new, old)`` over the tensors of a (nested)
+    NamedTuple, such as a :class:`ModelState`."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(cond, new, old)
+    return type(new)(*(_pick(cond, x, y) for x, y in zip(new, old)))
 
 
 def _stack_stats(stats_list):
@@ -413,6 +441,84 @@ def _cat_stats(a, b):
     if a is None or b is None:
         return b if a is None else a
     return StepStats(*(torch.cat([x, y]) for x, y in zip(a, b)))
+
+
+class _Unit(NamedTuple):
+    """A unit of a run's plan: ``steps`` steps from step offset ``start``,
+    of ``kind`` 'call' (K steps), 'rem' (the even remainder, one shorter
+    call) or 'tail' (an odd last step on the per-step 'mega4' path)."""
+    start: int
+    steps: int
+    kind: str
+
+
+def _chunk_plan(n, K):
+    """The units of an ``n``-step run with launch size ``K``, in order: the
+    K-step calls, the even remainder, the odd tail.  The per-step paths
+    run the plan with K = 1."""
+    calls, rem = divmod(n, K)
+    plan = [_Unit(i * K, K, "call") for i in range(calls)]
+    if rem > 1:
+        plan.append(_Unit(calls * K, rem - rem % 2, "rem"))
+    if rem % 2:
+        plan.append(_Unit(n - 1, 1, "tail"))
+    return plan
+
+
+def _plan_run(plan, config, cadence, device, advance, bad_of, stats_of,
+              select=_pick, snapshot=None, pack=None, unpack=None):
+    """``run(state)`` of every path: the units of ``plan`` in order, each
+    by ``advance(carry, unit, host_step)``, on the state or on what
+    ``pack(state)`` makes of it and ``unpack`` turns back.  ``host_step``:
+    the step at the unit's start, read once a run iff some unit has an
+    active ``cadence`` longer than itself (:meth:`Cadence.keyed`), else
+    None.  With ``config.guard`` the carry freezes at the last good unit:
+    ``select(good, new, old)`` keeps the new carry or the old one, or what
+    ``snapshot(carry)`` saved of a carry that a unit advances in place;
+    ``GuardInfo.blown_step`` is the start of the first unit that
+    ``bad_of`` finds bad.  ``stats_of`` gives an entry a unit; without the
+    guard the remainder and the odd tail give one, as in JAX."""
+    keyed = any(cadence.keyed(unit.steps) for unit in plan)
+
+    def run(state):
+        carry = state if pack is None else pack(state)
+        if config.guard:
+            ok = torch.ones((), dtype=torch.bool, device=device)
+            blown = torch.full((), -1, dtype=torch.int32, device=device)
+        step0 = None
+        if keyed:
+            with span("gcm.sync"):
+                step0 = int(state.step)
+        stats = []
+        for unit in plan:
+            host_step = None if step0 is None else step0 + unit.start
+            if config.guard:
+                old = carry
+                if snapshot is not None:
+                    with span("gcm.guard"):
+                        old = snapshot(carry)
+                new = advance(carry, unit, host_step)
+                with span("gcm.guard"):
+                    bad = bad_of(new)
+                    good = ok & ~bad
+                    carry = select(good, new, old)
+                    blown = torch.where(
+                        ok & bad, torch.full_like(blown, unit.start), blown)
+                    ok = good
+                # the snapshot and the carry not kept are freed before the
+                # stats: a packed buffer's snapshot is the state's size
+                del old, new
+            else:
+                carry = advance(carry, unit, host_step)
+            if config.stats and (config.guard or unit.kind != "rem"
+                                 or unit is plan[-1]):
+                with span("gcm.stats"):
+                    stats.append(stats_of(carry))
+        out = (carry if unpack is None else unpack(carry),
+               _stack_stats(stats))
+        return out + (GuardInfo(ok, blown),) if config.guard else out
+
+    return run
 
 
 class _Ring:
@@ -508,16 +614,9 @@ class _Ring:
 
     def cadenced(self, prog, g, utc, step_next, granularity=1):
         config = self.config
-        has_extras = config.drag_tau > 0 or config.physics
-        has_shapiro = config.shapiro_every > 0
-        if not (has_extras or has_shapiro):
-            return prog, g
-        due_shapiro = has_shapiro and not (
-            isinstance(step_next, int)
-            and step_next % config.shapiro_every >= granularity)
-        due_extras = has_extras and not (
-            isinstance(step_next, int)
-            and step_next % config.physics_every >= granularity)
+        cadence = Cadence.of(config)
+        due_shapiro = _runs(cadence.shapiro_due(step_next, granularity))
+        due_extras = _runs(cadence.extras_due(step_next, granularity))
         if not (due_shapiro or due_extras):
             return prog, g
         if self.two_d:
@@ -530,7 +629,7 @@ class _Ring:
         if not self.two_d:
             pprog = apply_cadenced_shapiro(pprog, step_next, self.geom,
                                            config, granularity=granularity)
-        if has_extras:
+        if due_extras:
             pprog, pg = apply_cadenced_extras(pprog, pg, utc, step_next,
                                               self.geom, config,
                                               granularity=granularity)
@@ -570,47 +669,14 @@ def make_run_fn(geom, config, timesteps, mesh=None, start_step=0):
     filter_fn = make_filter_fn(config, geom) if mesh is None else None
     dynamics_step = make_dynamics_step(geom, config, filter_fn, mesh=mesh)
     ring = _Ring(mesh, geom, config) if mesh is not None else None
-    bad_of = ring.bad if ring else (lambda s: state_bad(s, config))
-    stats_of = ring.stats if ring else (lambda s: collect_stats(s, geom))
-    device = mesh.device if mesh is not None else geom.device
-
-    def run(state):
-        stats = []
-        if config.guard:
-            ok = torch.ones((), dtype=torch.bool, device=device)
-            blown = torch.full((), -1, dtype=torch.int32, device=device)
-        # with extras or the Shapiro filter at a cadence, the step counter
-        # on the host, read once: a state frozen by the guard stops its
-        # counter, but its new state is then discarded
-        cadenced = (((config.drag_tau > 0 or config.physics)
-                     and config.physics_every > 1)
-                    or config.shapiro_every > 1)
-        step0 = None
-        if cadenced:
-            with span("gcm.sync"):
-                step0 = int(state.step)
-        for step_idx in range(timesteps):
-            new_state = full_timestep(
-                state, geom, config, filter_fn, dynamics_step,
-                None if step0 is None else step0 + step_idx, ring=ring)
-            if config.guard:
-                with span("gcm.guard"):
-                    bad = bad_of(new_state)
-                    advance = ok & ~bad
-                    state = _where_state(advance, new_state, state)
-                    blown = torch.where(
-                        ok & bad, torch.full_like(blown, step_idx), blown)
-                    ok = advance
-            else:
-                state = new_state
-            if config.stats:
-                with span("gcm.stats"):
-                    stats.append(stats_of(state))
-        if config.guard:
-            return state, _stack_stats(stats), GuardInfo(ok, blown)
-        return state, _stack_stats(stats)
-
-    return run
+    return _plan_run(
+        _chunk_plan(timesteps, 1), config, Cadence.of(config),
+        mesh.device if mesh is not None else geom.device,
+        lambda state, unit, host_step: full_timestep(
+            state, geom, config, filter_fn, dynamics_step, host_step,
+            ring=ring),
+        ring.bad if ring else (lambda s: state_bad(s, config)),
+        ring.stats if ring else (lambda s: collect_stats(s, geom)))
 
 
 def _with_alignment_head(geom, config, timesteps, K, make_rest, start_step,
@@ -622,7 +688,7 @@ def _with_alignment_head(geom, config, timesteps, K, make_rest, start_step,
     Shapiro filter run at a cadence, ``head = (-start_step) % K`` steps run
     on the per-step 'mega4' path first, then ``make_rest(timesteps -
     head)``, which starts aligned.  Returns None when no head is needed."""
-    head = (-start_step) % K if _has_cadenced(config) else 0
+    head = (-start_step) % K if Cadence.of(config).active else 0
     if not head:
         return None
     head = min(head, timesteps)
@@ -635,44 +701,39 @@ def _with_alignment_head(geom, config, timesteps, K, make_rest, start_step,
         if rest_run is None:
             return out
         if config.guard:
-            state, stats_h, gi = out
             with span("gcm.sync"):
-                head_ok = bool(gi.ok)
+                head_ok = bool(out[2].ok)
             if not head_ok:
                 return out
-            state, stats_r, gi = rest_run(state)
-            blown = torch.where(gi.blown_step >= 0, gi.blown_step + head,
-                                gi.blown_step)
-            return (state, _cat_stats(stats_h, stats_r),
-                    GuardInfo(gi.ok, blown))
-        state, stats_h = out
-        state, stats_r = rest_run(state)
-        return state, _cat_stats(stats_h, stats_r)
+        rest = rest_run(out[0])
+        if not config.guard:
+            return rest[0], _cat_stats(out[1], rest[1])
+        gi = rest[2]
+        blown = torch.where(gi.blown_step >= 0, gi.blown_step + head,
+                            gi.blown_step)
+        return rest[0], _cat_stats(out[1], rest[1]), GuardInfo(gi.ok, blown)
 
     run.chunk_steps = K
     run.head_steps = head
     return run
 
 
-def _resolve_stream_cadence(config, timesteps):
+def _resolve_stream_cadence(config, timesteps, inkernel=False):
     """Resolve the 'stream' launch size K against the active cadences (JAX
     ``_resolve_stream_cadence``).  Extras that do not run inside the
-    kernel (physics and drag at ``physics_every``, the Shapiro filter at
-    ``shapiro_every``) run between launches, so K must divide every active
-    cadence (their gcd), and launches are even (buffer ping-pong).
-    ``physics_every=1`` with extras promotes to 2 with a warning; odd
-    cadences raise.  Returns ``(config, K)``."""
-    extras = config.physics or config.drag_tau > 0
-    if extras and config.physics_every == 1:
+    kernel (physics and drag at ``physics_every`` unless ``inkernel``, the
+    Shapiro filter at ``shapiro_every``) run between launches, so K must
+    divide every active cadence (their gcd), and launches are even (buffer
+    ping-pong).  ``physics_every=1`` with extras promotes to 2 with a
+    warning; odd cadences raise.  Returns ``(config, K)``."""
+    if Cadence.of(config, inkernel).extras == 1:
         warnings.warn(
             "backend 'stream' runs physics/drag BETWEEN multi-step "
             "launches: physics_every=1 promotes to 2 (extras every 2 "
             "steps, dt_eff = 2*dt); set physics_every explicitly to pick "
             "the cadence", stacklevel=4)
         config = dataclasses.replace(config, physics_every=2)
-    cadences = [config.physics_every] if extras else []
-    if config.shapiro_every > 0:
-        cadences.append(config.shapiro_every)
+    cadences = [c for c in Cadence.of(config, inkernel) if c]
     for c in cadences:
         if c % 2:
             raise ValueError(
@@ -741,12 +802,10 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
     to the exact step (:func:`localize_blown_step`), and the stats hold one
     entry per call.  A run that starts at a ``start_step`` off the launch
     size runs an alignment head first (:func:`_with_alignment_head`)."""
-    extras = (config.physics or config.drag_tau > 0
-              or config.shapiro_every > 0)
     wide_tall = geom.width > STREAM_RESIDENT_MAX_WIDTH and geom.height > 64
     off_envelope = (not stream_grid_supported(geom)
                     or (wide_tall and not config.stream_wide_native))
-    if timesteps < 2 or (extras and off_envelope):
+    if timesteps < 2 or (Cadence.of(config).active and off_envelope):
         H, W = geom.height, geom.width
         if wide_tall and stream_grid_supported(geom) and timesteps >= 2:
             warnings.warn(
@@ -763,9 +822,8 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
         return make_run_fn(geom, dataclasses.replace(config, backend="mega4"),
                            timesteps)
     inkernel = _inkernel_physics(config, geom)
+    config, K = _resolve_stream_cadence(config, timesteps, inkernel)
     if inkernel:
-        K = max(2, config.stream_steps - config.stream_steps % 2)
-        K = min(K, timesteps - timesteps % 2)
         physics = stream_steps.make_physics(
             geom, t_lw=config.t_lw, t_sw=config.t_sw, albedo=config.albedo,
             drag_tau=config.drag_tau, convection=config.convection,
@@ -773,15 +831,12 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
             year_days=config.year_days)
     else:
         physics = None
-        config, K = _resolve_stream_cadence(config, timesteps)
         headed = _with_alignment_head(
             geom, config, timesteps, K,
             lambda n: _make_stream_run_fn(geom, config, n), start_step)
         if headed is not None:
             return headed
-    n_chunks, rem = divmod(timesteps, K)
-    rem_even = rem - rem % 2
-    tail_odd = rem % 2
+    plan = _chunk_plan(timesteps, K)
     L = geom.layers
     NP = stream_steps.n_planes(L)
     dtype = torch_dtype(config.dtype)
@@ -790,13 +845,12 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
                                      q_limiter=config.q_limiter,
                                      physics=physics)
     tail_step = (make_dynamics_step(geom, config, None, warn_degrade=False)
-                 if tail_odd else None)
-    has_extras = (config.physics or config.drag_tau > 0) and not inkernel
-    has_shapiro = config.shapiro_every > 0
+                 if plan[-1].kind == "tail" else None)
+    cadence = Cadence.of(config, inkernel)
     # the planes the between-call work can change (p is plane 0, u and v
     # of layer 0 planes 1 and 1+L, t planes 1+2L.., q planes 1+3L..)
-    p_changed = has_shapiro and "p" in config.shapiro_fields
-    t_changed = config.physics or (has_shapiro
+    p_changed = cadence.shapiro and "p" in config.shapiro_fields
+    t_changed = config.physics or (cadence.shapiro
                                    and "t" in config.shapiro_fields)
     q_changed = config.physics and (config.evaporation
                                     or config.precipitation)
@@ -808,25 +862,31 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
         return ModelState(
             PrognosticVars(*stream_steps.unpack_state(S[0], L)), g, utc, step)
 
-    def chunk_extras(carry, k, host_step):
-        """The between-call Shapiro filter, then the extras, on the packed
-        buffer, each when its cadence point falls in the just-completed
-        k-step call; writes back the planes they change.  ``host_step``:
-        the step counter on the host (a Python int; a call with nothing
-        due costs nothing), or None to key off the carry's tensor."""
-        if not (has_extras or has_shapiro):
-            return carry
+    def advance(carry, unit, host_step):
+        """A call of K7 (K steps or the even remainder), then the Shapiro
+        filter and the extras that fall due in it, on the packed buffer,
+        whose planes they change are written back; or the odd tail on the
+        per-step path, packed into the buffer."""
         S, g, utc, step = carry
-        step_now = step if host_step is None else host_step
-        if host_step is not None and not (
-                (has_shapiro and host_step % config.shapiro_every < k)
-                or (has_extras and host_step % config.physics_every < k)):
-            return carry
+        if unit.kind == "tail":
+            state = full_timestep(to_model_state(carry), geom, config, None,
+                                  tail_step, host_step)
+            S[0].copy_(stream_steps.pack_state(
+                *state.prog, gt=state.ground.gt if inkernel else None))
+            return S, state.ground, state.utc, state.step
+        k = unit.steps
+        with span("gcm.dynamics"):
+            multi(S, utc, k)
+        utc, step = utc + k * config.dt, step + k
+        step_now = step if host_step is None else host_step + k
+        due_extras = _runs(cadence.extras_due(step_now, k))
+        if not (due_extras or _runs(cadence.shapiro_due(step_now, k))):
+            return S, g, utc, step
         with span("gcm.extras"):
             prog = PrognosticVars(*stream_steps.unpack_state(S[0], L))
             prog = apply_cadenced_shapiro(prog, step_now, geom, config,
                                           granularity=k)
-            if has_extras:
+            if due_extras:
                 # utc at the start of the cadence-triggering step, as the
                 # per-step path passes it
                 prog, g = apply_cadenced_extras(
@@ -843,21 +903,6 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
                 S[0, 1 + 3 * L:1 + 4 * L].copy_(prog.q)
         return S, g, utc, step
 
-    def advance_chunk(carry, k, host_step):
-        S, g, utc, step = carry
-        with span("gcm.dynamics"):
-            multi(S, utc, k)
-        return chunk_extras((S, g, utc + k * config.dt, step + k), k,
-                            None if host_step is None else host_step + k)
-
-    def advance_tail_odd(carry, host_step):
-        state = full_timestep(to_model_state(carry), geom, config, None,
-                              tail_step, host_step)
-        S = carry[0]
-        S[0].copy_(stream_steps.pack_state(
-            *state.prog, gt=state.ground.gt if inkernel else None))
-        return S, state.ground, state.utc, state.step
-
     def pack_initial(state):
         gt = state.ground.gt.to(dtype) if inkernel else None
         packed = stream_steps.pack_state(
@@ -865,84 +910,24 @@ def _make_stream_run_fn(geom, config, timesteps, start_step=0):
         return (torch.stack([packed, torch.zeros_like(packed)]),
                 state.ground, state.utc, state.step)
 
-    def stats_of(carry):
-        with span("gcm.stats"):
-            return collect_stats(to_model_state(carry), geom)
+    def snapshot(carry):
+        S, g, utc, step = carry
+        return S[0].clone(), g, utc, step
 
-    def host_steps(state):
-        """``at(n)``: the step counter after n steps of the run, on the
-        host, when the extras key off it (read once a run), else None.  A
-        call the guard discards may run off it: its state is not kept."""
-        if not (has_extras or has_shapiro):
-            return lambda n: None
-        with span("gcm.sync"):
-            step0 = int(state.step)
-        return lambda n: step0 + n
+    def select(good, new, old):
+        """The new carry, or the old one with the buffer restored from its
+        snapshot: the calls advance the buffer in place."""
+        S = new[0]
+        S[0].copy_(torch.where(good, S[0], old[0]))
+        return (S, *(_pick(good, x, y) for x, y in zip(new[1:], old[1:])))
 
-    def run(state):
-        carry = pack_initial(state)
-        at = host_steps(state)
-        stats = []
-        for idx in range(n_chunks):
-            carry = advance_chunk(carry, K, at(idx * K))
-            if config.stats:
-                stats.append(stats_of(carry))
-        if rem_even:
-            carry = advance_chunk(carry, rem_even, at(n_chunks * K))
-        if tail_odd:
-            carry = advance_tail_odd(carry, at(timesteps - 1))
-        if config.stats and (rem_even or tail_odd):
-            stats.append(stats_of(carry))
-        return to_model_state(carry), _stack_stats(stats)
-
-    def guarded_chunk(carry, chunk_start, chunk_fn):
-        """``chunk_fn`` (which updates the buffer in place) with the guard:
-        the state freezes at the last good call once a call ends bad."""
-        inner, ok, blown = carry
-        S, g, utc, step = inner
-        with span("gcm.guard"):
-            saved = S[0].clone()
-        new = chunk_fn(inner)
-        with span("gcm.guard"):
-            bad = state_bad(to_model_state(new), config)
-            advance = ok & ~bad
-            S[0].copy_(torch.where(advance, S[0], saved))
-            inner = (S, _pick(advance, new[1], g),
-                     torch.where(advance, new[2], utc),
-                     torch.where(advance, new[3], step))
-            blown = torch.where(ok & bad,
-                                torch.full_like(blown, chunk_start), blown)
-        return inner, advance, blown
-
-    def run_guarded(state):
-        carry = (pack_initial(state),
-                 torch.ones((), dtype=torch.bool, device=geom.device),
-                 torch.full((), -1, dtype=torch.int32, device=geom.device))
-        at = host_steps(state)
-        stats = []
-        for idx in range(n_chunks):
-            carry = guarded_chunk(
-                carry, idx * K, lambda c: advance_chunk(c, K, at(idx * K)))
-            if config.stats:
-                stats.append(stats_of(carry[0]))
-        if rem_even:
-            carry = guarded_chunk(
-                carry, n_chunks * K,
-                lambda c: advance_chunk(c, rem_even, at(n_chunks * K)))
-            if config.stats:
-                stats.append(stats_of(carry[0]))
-        if tail_odd:
-            carry = guarded_chunk(
-                carry, timesteps - 1,
-                lambda c: advance_tail_odd(c, at(timesteps - 1)))
-            if config.stats:
-                stats.append(stats_of(carry[0]))
-        inner, ok, blown = carry
-        return to_model_state(inner), _stack_stats(stats), GuardInfo(ok, blown)
-
-    out = run_guarded if config.guard else run
-    out.chunk_steps = K
-    return out
+    run = _plan_run(plan, config, cadence, geom.device, advance,
+                    lambda c: state_bad(to_model_state(c), config),
+                    lambda c: collect_stats(to_model_state(c), geom),
+                    select=select, snapshot=snapshot, pack=pack_initial,
+                    unpack=to_model_state)
+    run.chunk_steps = K
+    return run
 
 
 def _make_stream_ring_run_fn(geom, config, timesteps, mesh, start_step=0):
@@ -990,84 +975,40 @@ def _make_stream_ring_run_fn(geom, config, timesteps, mesh, start_step=0):
         start_step, mesh=mesh)
     if headed is not None:
         return headed
-    n_chunks, rem = divmod(timesteps, K)
-    rem_even = rem - rem % 2
-    tail_odd = rem % 2
-
-    def make_adv(k):
-        return shard_step.make_shard_stream_ring(
-            mesh, geom, config.dt, steps_per_launch=k,
-            coriolis=config.coriolis, q_limiter=config.q_limiter)
-
-    adv = make_adv(K)
-    adv_rem = make_adv(rem_even) if rem_even else None
+    plan = _chunk_plan(timesteps, K)
+    advance_by = {k: shard_step.make_shard_stream_ring(
+        mesh, geom, config.dt, steps_per_launch=k,
+        coriolis=config.coriolis, q_limiter=config.q_limiter)
+        for k in dict.fromkeys(u.steps for u in plan if u.kind != "tail")}
     tail_step = (make_dynamics_step(geom, config, None, mesh=mesh,
-                                    warn_degrade=False) if tail_odd
-                 else None)
+                                    warn_degrade=False)
+                 if plan[-1].kind == "tail" else None)
     ring = _Ring(mesh, geom, config)
-    cadenced = _has_cadenced(config)
+    cadence = Cadence.of(config)
 
-    def advance_chunk(state, adv_k, k, host_step):
+    def advance(state, unit, host_step):
+        if unit.kind == "tail":
+            return full_timestep(state, geom, config, None, tail_step,
+                                 host_step, ring=ring)
+        k = unit.steps
         with span("gcm.dynamics"):
-            prog = PrognosticVars(*adv_k(*state.prog))
+            prog = PrognosticVars(*advance_by[k](*state.prog))
         utc = state.utc + k * config.dt
         # the extras see the clock at the start of the call's last step, as
         # on one device
         g = state.ground
-        if cadenced:
+        if cadence.active:
             with span("gcm.extras"):
-                prog, g = ring.cadenced(prog, g, utc - config.dt,
-                                        host_step + k, granularity=k)
+                prog, g = ring.cadenced(
+                    prog, g, utc - config.dt,
+                    state.step + k if host_step is None else host_step + k,
+                    granularity=k)
         return ModelState(prog, g, utc, state.step + k)
 
-    def chunks(state):
-        """(chunk start, its function) of the run, in order."""
-        at = 0
-        if cadenced:
-            with span("gcm.sync"):
-                at = int(state.step)
-        out = [(idx * K, lambda s, i=idx: advance_chunk(s, adv, K, at + i * K))
-               for idx in range(n_chunks)]
-        if rem_even:
-            out.append((n_chunks * K, lambda s: advance_chunk(
-                s, adv_rem, rem_even, at + n_chunks * K)))
-        if tail_odd:
-            out.append((timesteps - 1, lambda s: full_timestep(
-                s, geom, config, None, tail_step, at + timesteps - 1,
-                ring=ring)))
-        return out
-
-    def run(state):
-        stats = []
-        todo = chunks(state)
-        for n, (_, fn) in enumerate(todo):
-            state = fn(state)
-            if config.stats and (n < n_chunks or n == len(todo) - 1):
-                with span("gcm.stats"):
-                    stats.append(ring.stats(state))
-        return state, _stack_stats(stats)
-
-    def run_guarded(state):
-        stats = []
-        ok = torch.ones((), dtype=torch.bool, device=mesh.device)
-        blown = torch.full((), -1, dtype=torch.int32, device=mesh.device)
-        for start, fn in chunks(state):
-            new = fn(state)
-            with span("gcm.guard"):
-                bad = ring.bad(new)
-                advance = ok & ~bad
-                state = _where_state(advance, new, state)
-                blown = torch.where(ok & bad, torch.full_like(blown, start),
-                                    blown)
-                ok = advance
-            if config.stats:
-                with span("gcm.stats"):
-                    stats.append(ring.stats(state))
-        return state, _stack_stats(stats), GuardInfo(ok, blown)
-
-    out = run_guarded if config.guard else run
-    out.chunk_steps = K
-    return out
+    run = _plan_run(plan, config, cadence, mesh.device, advance, ring.bad,
+                    ring.stats)
+    run.chunk_steps = K
+    return run
 
 
 def _blown_chunk_len(blown, n, K, head=0):
@@ -1078,13 +1019,12 @@ def _blown_chunk_len(blown, n, K, head=0):
     ``_blown_chunk_len``)."""
     if blown < head:
         return 1
-    b, n2 = blown - head, n - head
-    n_chunks, rem = divmod(n2, K)
-    rem_even = rem - rem % 2
-    if b < n_chunks * K:
-        return K
-    if rem_even and b == n_chunks * K:
-        return rem_even
+    b = blown - head
+    for unit in _chunk_plan(n - head, K):
+        # a call's every step names it; the remainder's start alone
+        if unit.start == b or (unit.kind == "call"
+                               and unit.start < b < unit.start + K):
+            return unit.steps
     return 1
 
 
@@ -1214,9 +1154,7 @@ def _run_checkpointed(geom, config, timesteps, state, mesh):
     every = config.checkpoint_every
     run_chunk = make_run_fn(geom, config, every, mesh=mesh)
     K = getattr(run_chunk, "chunk_steps", 1)
-    cadenced = (config.physics or config.drag_tau > 0
-                or config.shapiro_every > 0)
-    if K > 1 and cadenced and every % K:
+    if K > 1 and Cadence.of(config).active and every % K:
         new_every = max(K, every - every % K)
         warnings.warn(
             f"checkpoint_every={every} is not a multiple of the stream "

@@ -201,17 +201,15 @@ def test_config_fields_match_jax():
 
 
 def _port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "bench_torch.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PACKAGE):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return paths
 
 
 def test_port_sources_import_no_jax():
-    """AST scan: no module of the port, not chip_smoke.py and not
-    bench_torch.py names jax, the JAX package or its scripts in an
-    import."""
+    """AST scan: no module of the port and not chip_smoke.py names jax,
+    the JAX package or its scripts in an import."""
     offenders = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
@@ -230,8 +228,8 @@ def test_port_sources_import_no_jax():
 
 
 def test_port_imports_with_jax_blocked():
-    """Import every port module, chip_smoke.py and bench_torch.py with jax
-    and the JAX package made unimportable."""
+    """Import every port module and chip_smoke.py with jax and the JAX
+    package made unimportable."""
     mods = sorted(
         "gcmiipy_tpu_torch." + os.path.relpath(p, PACKAGE)[:-3]
         .replace(os.sep, ".").replace(".__init__", "")
@@ -240,7 +238,7 @@ def test_port_imports_with_jax_blocked():
             "for m in ('jax', 'jaxlib', 'gcmiipy_tpu'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
-            f"for m in {mods!r} + ['chip_smoke', 'bench_torch']:\n"
+            f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -265,12 +263,3 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
-
-
-def test_bench_torch_fails_without_a_card():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    res = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py")],
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode != 0
-    assert "ms_per_step" not in res.stdout
