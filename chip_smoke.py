@@ -1,7 +1,7 @@
 import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  # noqa: E401,E702
 # Smoke run of the PyTorch port (gcmiipy_tpu_torch) on one NVIDIA GPU.
 #
-#     python3 chip_smoke.py [convection | radiation | kernels | forms]
+#     python3 chip_smoke.py [convection | radiation | kernels | forms | graph]
 #
 # Phases, one log line each (with elapsed seconds); any failure exits
 # non-zero and prints no result:
@@ -89,6 +89,16 @@ import os, sys; sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  
 #            mega4 with the plain physics after 4 and 20 steps; Config W,
 #            Config S without the land cover on mega4, whose global water
 #            (atmosphere and ground) must change by less than 1e-5;
+#   graph    a run function's walk as one CUDA graph (model/run_graph.py)
+#            on the benchmark's grey configuration at grey-modelii's 24x36
+#            (the per-step 'mega4' fallback) and at 9 and 40 layers of the
+#            flagship's 512x1024 ('stream'): its second call captures, every
+#            later one replays, each replay equal to the eager walk to the
+#            bit and counting the eager call's launches on the ops'
+#            counters; host ms a step eager against replay, the replay's
+#            device ms, the copy-in's and copy-out's device ms (printed as
+#            a `{"graph": [...]}` line; `python3 chip_smoke.py graph` runs
+#            device, build and it);
 #   services the run services on 'stream' (K7) and 'mega4' (K6): run_model
 #            with checkpoint_every=10 and a metrics path over 20 steps (the
 #            checkpoints named step_{step:010d}.npz, one metrics line a stats
@@ -407,6 +417,21 @@ def cuda_ms(fn, reps, warmup=3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean device ms per call over ``reps`` calls queued behind a sleeping
+    kernel, so that the host's launches do not pace them (CUDA events)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -4241,6 +4266,122 @@ def timing_k345(launches, max_abs, geom, prog):
     return rows
 
 
+# phase graph: a run function's walk as one CUDA graph
+# (gcmiipy_tpu_torch/model/run_graph.py) on the benchmark's grey
+# configurations (gcmbench/configs): grey-modelii's 24x36 at 225 s, 16
+# steps on the per-step 'mega4' fallback, and the flagship's 512x1024 at
+# 30 s, 20 steps on 'stream', at 9 and at 40 layers; GRAPH_CALLS timed
+# calls each of the eager walk and of the replay
+GRAPH_RUNS = (("modelii", "gcm2-grey", 24, 36, 225.0, 16),
+              ("flagship", "gcm2-grey", 512, 1024, 30.0, 20),
+              ("flagship-l40", "gcm2-grey-l40", 512, 1024, 30.0, 20))
+GRAPH_CALLS = 20
+
+
+def _bench_config(name, height, width, dt):
+    """gcmbench's configuration ``name`` as its harness builds it."""
+    from gcmiipy_tpu_torch.model.config import ModelConfig
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "gcmbench", "configs", name + ".json")
+    with open(path) as fh:
+        model = dict(json.load(fh)["model"])
+    model.pop("sigma")
+    return ModelConfig(height=height, width=width, dt=dt, **model)
+
+
+def phase_graph(device):
+    """Each of GRAPH_RUNS through one run function: the first call eager,
+    the second captures, every later one replays.  Each replay equals the
+    eager walk (``run.walk``) on its state to the bit, from the start and
+    chained on its own results, and a replay adds the eager call's
+    launches to the ops' counters.  Then the host's wall ms a step of the
+    eager walk and of a replay (GRAPH_CALLS synchronised calls each), the
+    replay's device ms a step and the copy-in's and copy-out's device ms a
+    call (CUDA events, the calls queued behind a sleeping kernel:
+    :func:`device_ms`).  Returns a row a run."""
+    from gcmiipy_tpu_torch.model import driver, run_graph
+    leaves = run_graph.leaves
+    rows = []
+    for tag, name, H, W, dt, steps in GRAPH_RUNS:
+        cfg = _bench_config(name, H, W, dt)
+        geom = driver.gen_model_geometry(cfg, device)
+        state = _deep_start(geom, cfg)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            run = driver.make_run_fn(geom, cfg, steps)
+
+        def eager(s):
+            return run.walk(s, int(s.step) if run.period else None)
+
+        def same(what, out, ref):
+            if not all(torch.equal(a, b) for a, b in zip(leaves(out),
+                                                          leaves(ref))):
+                fail("graph", f"{tag}: {what} differs from the eager walk")
+
+        run(state)
+        counters = run_graph.launch_counters()
+        before = [c.launches for c in counters]
+        ref = eager(state)
+        torch.cuda.synchronize()
+        eager_counts = [c.launches - n for c, n in zip(counters, before)]
+        same("the capturing call", run(state), ref)
+        if run.broken is not None or len(run.graphs) != 1:
+            fail("graph", f"{tag}: no graph ({run.broken})")
+        before = [c.launches for c in counters]
+        calls = 3
+        outs = [run(state)]
+        for _ in range(calls - 1):
+            outs.append(run(outs[-1][0]))
+        counted = [(c.launches - n) / calls for c, n in zip(counters,
+                                                           before)]
+        if counted != eager_counts:
+            fail("graph", f"{tag}: replays counted {counted}, the eager "
+                          f"call {eager_counts}")
+        same("a replay", outs[0], ref)
+        for handed, out in zip(outs, outs[1:]):
+            same("a chained replay", out, eager(handed[0]))
+        launches = sum(eager_counts)
+
+        def wall_ms(fn):
+            fn(state)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(GRAPH_CALLS):
+                fn(state)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t) / GRAPH_CALLS / steps
+
+        eager_ms, replay_ms = wall_ms(eager), wall_ms(run)
+        (captured,) = run.graphs.values()
+        replay_device_ms = device_ms(captured.graph.replay,
+                                     GRAPH_CALLS) / steps
+        handed = leaves(state)
+        copy_in_ms = device_ms(lambda: run_graph.copy_into(captured.inputs,
+                                                           handed),
+                               GRAPH_CALLS)
+        copy_out_ms = device_ms(lambda: run_graph.copy_into(
+            [torch.empty_like(x) for x in captured.outputs],
+            captured.outputs), GRAPH_CALLS)
+        nbytes = sum(x.numel() * x.element_size() for x in handed)
+        log("graph", f"{tag} ({cfg.layers}x{H}x{W}, {steps} steps): equal "
+                     f"to the bit; {launches} counted launches a call; host "
+                     f"ms a step eager {eager_ms:.4f}, replay "
+                     f"{replay_ms:.4f}; replay device ms a step "
+                     f"{replay_device_ms:.4f}; copy-in {copy_in_ms:.4f} and "
+                     f"copy-out {copy_out_ms:.4f} device ms a call "
+                     f"({nbytes} bytes handed)")
+        rows.append({"name": f"graph {tag}", "grid": [cfg.layers, H, W],
+                     "steps": steps, "counted_launches": launches,
+                     "eager_ms_per_step": eager_ms,
+                     "replay_ms_per_step": replay_ms,
+                     "replay_device_ms_per_step": replay_device_ms,
+                     "copy_in_ms": copy_in_ms, "copy_out_ms": copy_out_ms,
+                     "handed_bytes": nbytes})
+        del run, captured, state, ref, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     card, kind = phase_device()
     device = torch.device("cuda", 0)
@@ -4254,6 +4395,13 @@ def main():
         phase_build()
         print(card, flush=True)
         print(json.dumps({"kernels": phase_convection(device)}), flush=True)
+        return
+    if sys.argv[1:] == ["graph"]:
+        # a run's walk as one CUDA graph: build, check, time
+        phase_build()
+        rows = phase_graph(device)
+        print(card, flush=True)
+        print(json.dumps({"graph": rows}), flush=True)
         return
     if sys.argv[1:] == ["radiation"]:
         # the four-band radiation's kernel: build, phase surface's counts,
@@ -4290,6 +4438,7 @@ def main():
     launches.update(phase_main_stream(device, geom, start))
     launches.update(phase_main_mega_v2(device, geom, start, runs))
     surface, column_launches = phase_surface(device)
+    graph_rows = phase_graph(device)
     launches.update(phase_services(device))
     phase_sideband(device, card)
     phase_longrun(device, card)
@@ -4308,6 +4457,7 @@ def main():
     rows += phase_radiation(device, column_launches["four_band_column"])
     log("done", f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(card, flush=True)
+    print(json.dumps({"graph": graph_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

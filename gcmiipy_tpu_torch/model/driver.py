@@ -18,6 +18,8 @@ eager loop, one for every path (:func:`_plan_run`).  The guard is still a
 device-side flag carried through the loop: ``torch.where`` freezes the
 state at the last good step (as JAX's ``guarded_body``), so there is no
 host sync per step; the host reads the flag once, at the end of the run.
+On a card a run function's later calls replay its walk as one CUDA graph
+(:mod:`gcmiipy_tpu_torch.model.run_graph`).
 """
 
 import dataclasses
@@ -34,6 +36,7 @@ from gcmiipy_tpu_torch.device import resolve_device, torch_dtype
 from gcmiipy_tpu_torch.diagnostics import any_nan
 from gcmiipy_tpu_torch.dynamics import core25d, energy, fused
 from gcmiipy_tpu_torch.grid import geometry, topography
+from gcmiipy_tpu_torch.model import run_graph
 from gcmiipy_tpu_torch.model.config import ModelConfig, check_ported
 from gcmiipy_tpu_torch.model.observability import span
 from gcmiipy_tpu_torch.model.state import (
@@ -305,6 +308,12 @@ class Cadence(NamedTuple):
         cadence is longer than the unit."""
         return max(self) > steps
 
+    @property
+    def period(self):
+        """The steps after which every active cadence falls as before: the
+        least common multiple of the active cadences (1 when none)."""
+        return math.lcm(*(c for c in self if c))
+
     def extras_due(self, step_next, granularity=1):
         return self._due(self.extras, step_next, granularity)
 
@@ -466,13 +475,18 @@ def _chunk_plan(n, K):
 
 
 def _plan_run(plan, config, cadence, device, advance, bad_of, stats_of,
-              select=_pick, snapshot=None, pack=None, unpack=None):
+              select=_pick, snapshot=None, pack=None, unpack=None,
+              capture=True):
     """``run(state)`` of every path: the units of ``plan`` in order, each
     by ``advance(carry, unit, host_step)``, on the state or on what
     ``pack(state)`` makes of it and ``unpack`` turns back.  ``host_step``:
     the step at the unit's start, read once a run iff some unit has an
     active ``cadence`` longer than itself (:meth:`Cadence.keyed`), else
-    None.  With ``config.guard`` the carry freezes at the last good unit:
+    None.  On a card, and unless ``capture`` is False (a mesh), the walk is
+    captured as a CUDA graph at a run function's second call of a key and
+    replayed on every later one (:class:`run_graph.GraphedRun`, whose key
+    holds the step's phase within :attr:`Cadence.period`).  With
+    ``config.guard`` the carry freezes at the last good unit:
     ``select(good, new, old)`` keeps the new carry or the old one, or what
     ``snapshot(carry)`` saved of a carry that a unit advances in place;
     ``GuardInfo.blown_step`` is the start of the first unit that
@@ -480,15 +494,11 @@ def _plan_run(plan, config, cadence, device, advance, bad_of, stats_of,
     guard the remainder and the odd tail give one, as in JAX."""
     keyed = any(cadence.keyed(unit.steps) for unit in plan)
 
-    def run(state):
+    def walk(state, step0):
         carry = state if pack is None else pack(state)
         if config.guard:
             ok = torch.ones((), dtype=torch.bool, device=device)
             blown = torch.full((), -1, dtype=torch.int32, device=device)
-        step0 = None
-        if keyed:
-            with span("gcm.sync"):
-                step0 = int(state.step)
         stats = []
         for unit in plan:
             host_step = None if step0 is None else step0 + unit.start
@@ -518,7 +528,8 @@ def _plan_run(plan, config, cadence, device, advance, bad_of, stats_of,
                _stack_stats(stats))
         return out + (GuardInfo(ok, blown),) if config.guard else out
 
-    return run
+    return run_graph.GraphedRun(walk, cadence.period if keyed else 0,
+                                capture=capture)
 
 
 class _Ring:
@@ -676,7 +687,8 @@ def make_run_fn(geom, config, timesteps, mesh=None, start_step=0):
             state, geom, config, filter_fn, dynamics_step, host_step,
             ring=ring),
         ring.bad if ring else (lambda s: state_bad(s, config)),
-        ring.stats if ring else (lambda s: collect_stats(s, geom)))
+        ring.stats if ring else (lambda s: collect_stats(s, geom)),
+        capture=ring is None)
 
 
 def _with_alignment_head(geom, config, timesteps, K, make_rest, start_step,
@@ -1006,7 +1018,7 @@ def _make_stream_ring_run_fn(geom, config, timesteps, mesh, start_step=0):
         return ModelState(prog, g, utc, state.step + k)
 
     run = _plan_run(plan, config, cadence, mesh.device, advance, ring.bad,
-                    ring.stats)
+                    ring.stats, capture=False)
     run.chunk_steps = K
     return run
 

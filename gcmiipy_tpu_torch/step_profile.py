@@ -20,14 +20,17 @@ Hansen terrain and land cover, four-band radiation, convection, the water
 cycle and the Shapiro filter, the physics every 2nd step) through
 ``make_run_fn`` from a cooled start whose lowest layer is supersaturated
 (``model.state.moist_start``): 'stream' as
-K7 calls of 2 steps with the extras and the filter between them.  With
+K7 calls of 2 steps with the extras and the filter between them; its timed
+and profiled calls replay the run's walk as one CUDA graph
+(``model/run_graph.py``).  With
 ``--trace-dir`` it also writes a Chrome trace per backend there.
 
 The line's ``spans`` give, for each of the program's own spans
 (``gcm.dynamics``, ``gcm.physics.convection``, ``gcm.sync``, ...:
 :func:`model.observability.span`), its calls, host ms and device ms a
 step, the device ms being that of the work launched inside it; with
-``--surface`` they split the plain physics by module.  Its
+``--surface`` the profiled call is a replay, whose spans are
+``gcm.graph.replay`` and the step counter's ``gcm.sync``.  Its
 ``convection_sweeps_max`` is the most sweeps any column of the adaptive
 convection's kernel ran over the timed steps
 (``ops/convection.sweeps_max``, read once after them; 0 where the kernel
@@ -217,6 +220,9 @@ def profile_backend(backend, height, width, layers, dt, steps, device,
                                      sig_func=geometry.manabe_sig,
                                      dtype=torch.float32, device=device)
         advance = _stepper(backend, geom, config, steps)
+    # the first call warms; a run function's second captures its walk as
+    # one CUDA graph, which the timed and the profiled calls replay
+    advance()
     advance()
     torch.cuda.synchronize()
     convection.sweeps_max(device, reset=True)

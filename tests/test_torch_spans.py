@@ -13,9 +13,10 @@
 * ``gcmbench/spans.py`` reads the program's totals once a run and empties
   them; the two readers by hand, and None without spans;
 * ``step_profile``'s span table and its kernels without the copies;
-* on the card (``gpu``): a traced run of each cell reads its span metrics;
-  the spans put nothing on the device's timeline, and the work put down to
-  a span was launched inside it.
+* on the card (``gpu``): a traced run of each cell reads its span metrics
+  (the replays of the run's walk as a CUDA graph, and the step counter's
+  reads); the spans of an eager walk put nothing on the device's
+  timeline, and the work put down to a span was launched inside it.
 """
 
 import json
@@ -76,6 +77,9 @@ NAMES = {
                        "gcm.stats"},
 }
 NAMES["surface_headed"] = NAMES["surface_stream"]
+# grey-flagship's traced launches a step: K7's 7, the loop's own and the
+# graph's copies in and out (12.42 before the graph)
+FLAGSHIP_LAUNCHES = 12.67
 # the span each span lies directly inside (None: no program span)
 PARENTS = {
     "gcm.dynamics": {None}, "gcm.extras": {None}, "gcm.guard": {None},
@@ -384,17 +388,21 @@ def test_step_profile_spans_and_kernels_without_the_copies():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cell,metrics", [
-    ("grey-flagship", []),
+    ("grey-flagship", ["graph_replays_per_step"]),
     ("surface-flagship", ["host_syncs_per_step.hostbound",
-                          "physics_host_ms_per_step.hostbound"]),
+                          "graph_replays_per_step.hostbound"]),
     ("grey-modelii", ["host_syncs_per_step.hostbound",
-                      "physics_host_ms_per_step.hostbound"])])
+                      "graph_replays_per_step.hostbound"])])
 def test_a_traced_run_reads_the_span_metrics(cell, metrics):
     """A traced run of each cell reads the span metrics it lists, and logs
-    the spans they read; grey-flagship lists none, and its launches a step
-    hold K7's 7 and the loop's own, as before the spans.  The host reads
-    are the step counter's alone: none in grey-modelii's per-step loop,
-    one an output interval of 20 steps in surface-flagship."""
+    the spans they read.  The traced window replays each interval's walk
+    as one CUDA graph (``model/run_graph.py``): one ``gcm.graph.replay`` an
+    output interval, and no span of the walk itself, so that
+    ``physics_host_ms_per_step`` has nothing to read.  The host reads are
+    the step counter's alone: none in grey-modelii's per-step loop, one an
+    output interval of 20 steps in surface-flagship.  grey-flagship's
+    launches a step hold K7's 7, the loop's own and the copies in and out
+    of the graph."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     out = subprocess.run(
@@ -405,37 +413,39 @@ def test_a_traced_run_reads_the_span_metrics(cell, metrics):
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["correct"]
+    interval = bench.load_cell(cell)["traffic"]["interval_steps"]
     for m in metrics:
         value = result["metrics"][m]["value"]
         if m.startswith("host_syncs"):
             assert (value == 0.0 if cell == "grey-modelii"
                     else 0 < value <= 0.06), (m, value)
         else:
-            assert value > 0, m
-    if metrics:
-        for name in ("gcm.dynamics", "gcm.physics", "gcm.guard",
-                     "gcm.stats"):
-            assert f"gcmbench: span {name}:" in out.stderr
-        assert ("gcmbench: span gcm.sync:" in out.stderr) == (
-            cell == "surface-flagship")
-    else:
-        assert not any(m.startswith(("host_syncs", "physics_host"))
-                       for m in result["metrics"])
-        # 12.42 a step without the spans; they launch nothing
+            assert value == pytest.approx(1.0 / interval), (m, value)
+    assert "gcmbench: span gcm.graph.replay:" in out.stderr
+    for name in ("gcm.dynamics", "gcm.physics", "gcm.guard", "gcm.stats"):
+        assert f"gcmbench: span {name}:" not in out.stderr
+    assert not any(m.startswith("physics_host") for m in result["metrics"])
+    assert ("gcmbench: span gcm.sync:" in out.stderr) == (
+        cell == "surface-flagship")
+    if cell == "grey-flagship":
         launches = result["metrics"]["launches_per_step"]["value"]
-        assert abs(launches - 12.42) <= 0.02 * 12.42, launches
+        assert abs(launches - FLAGSHIP_LAUNCHES) <= (
+            0.02 * FLAGSHIP_LAUNCHES), launches
 
 
 def _profile_on_card(config, steps, spans=True):
     """The profiler's events of one call of ``steps`` steps of ``config``
-    on the card after a warm one; with ``spans`` False the program's spans
-    are switched off."""
+    on the card, the first of its run function (which walks the plan
+    eagerly: a later call replays the walk as a CUDA graph), after another
+    run function's warm call; with ``spans`` False the program's spans are
+    switched off."""
     geom = driver.gen_model_geometry(config, "cuda")
     state = driver.gen_model_state(geom, config)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
+        warm = driver.make_run_fn(geom, config, steps)
         run = driver.make_run_fn(geom, config, steps)
-    run(state)
+    warm(state)
     torch.cuda.synchronize()
     saved = [(driver, driver.span)]
     if not spans:
