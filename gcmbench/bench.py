@@ -114,11 +114,13 @@ class Program:
         from gcmiipy_tpu_torch.model import state as state_mod
         from gcmiipy_tpu_torch.model.config import ModelConfig
         model = dict(config["model"])
-        if model.pop("sigma") != "manabe":
-            raise ValueError("the program's sigma ladder here is Manabe's")
+        ladder = model.pop("sigma")
+        if ladder not in ref_model.SIGMA:
+            raise ValueError(f"sigma {ladder!r}: the program's ladders "
+                             f"here are {ref_model.SIGMA}")
         self.cfg = ModelConfig(height=traffic["height"],
                                width=traffic["width"], dt=traffic["dt"],
-                               **model)
+                               giss_sige=ladder == "giss", **model)
         self.traffic, self.config, self.device = traffic, config, device
         self.pool = pool
         self.geom = driver.gen_model_geometry(self.cfg, device)

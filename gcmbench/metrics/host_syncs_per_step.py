@@ -1,8 +1,9 @@
 """The program's device-to-host reads per model step run in the traced
-window: its ``gcm.sync`` spans (one around each read of the driver loop,
-``model/driver.py``, and of the adaptive convection's stop test), counted
-by the program.  Each read drains the device's queue; a CUDA graph of the
-step needs none."""
+window: its ``gcm.sync`` spans, counted by the program, one around each
+read a run function makes: the step counter, read once a call where a
+cadence outlasts a unit of the run's plan (``model/run_graph.py``), and the
+guard of a run's alignment head (``model/driver.py``).  Each read drains
+the device's queue."""
 
 from gcmbench import spans
 

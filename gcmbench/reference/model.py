@@ -1,16 +1,21 @@
 """The benchmark's plain reference of a GCM-II run: geometry, initial state,
 the Matsuno step of the 2.5D sigma core with the Arakawa-Lamb polar filter,
 the column physics, the zonal Shapiro filter, the energy diagnostics and
-the blow-up guard.
+the blow-up guard.  With the configuration's ``coriolis``, ``sigma:
+"giss"`` and ``seasonal`` it runs GCM-II as Hansen et al. 1983 (MWR 111,
+609-662) publish it: a rotating Earth, Model II's 9 sigma edges and a
+seasonal sun.
 
 Plain PyTorch on plain SI tensors, written once and frozen: it imports
 nothing of the program under test, and every table it needs (the sigma
-ladder, the damping mask, the band-fraction fits, the Hansen maps) it
-builds itself.  It runs in any floating type (float64 for the reference;
-the FFT runs in float32 at least, since cuFFT has no bfloat16).
+ladders, the damping mask, the band-fraction fits, the Hansen maps) it
+builds itself.  A feature that is off runs none of its operations.  It
+runs in any floating type (float64 for the reference; the FFT runs in
+float32 at least, since cuFFT has no bfloat16).
 
 Equations (layout ``[k, j, i]``: sigma layer from the ground up, latitude
-from the north, longitude; ``p`` is ``[j, i]``; u at i+1/2, v at j+1/2):
+from the north, longitude; ``p`` is ``[j, i]``; u at i+1/2, v at j+1/2, a
+positive v southward):
 
 * the core: GISS Model II's flux-form C-grid sigma dynamics as in
   gcmiipy's ``dynamics.py``: mass fluxes, sigma-dot from the column
@@ -18,14 +23,19 @@ from the north, longitude; ``p`` is ``[j, i]``; u at i+1/2, v at j+1/2):
   geopotential ladder, the pressure-gradient force, flux-form advection
   of t and q; the Matsuno forward-backward step; the zonal mass flux and
   the zonal pressure force filtered by the Arakawa-Lamb mask in each half
-  step; v = 0 on the southern wall row;
+  step; v = 0 on the southern wall row; with ``coriolis``, the Coriolis
+  terms of ``dynamics.py:82-95`` in the momentum tendencies that the step
+  subtracts: f = 2 Omega sin(lat) at u's row times minus the meridional
+  mass flux averaged to u, and f at v's half row times the zonal mass flux
+  averaged to v;
 * the physics, at its cadence after the step: implicit Rayleigh drag of
   the lowest layer's winds; the basic grey atmosphere of Atmospheric
-  Dynamics section 2.7 or its four-band longwave variant; the
-  Manabe-Strickler convective adjustment (pairwise, bottom up, until a
-  sweep changes nothing, at most 2L sweeps); bulk evaporation into the
-  lowest layer; the two-Newton-step saturation adjustment that rains into
-  the ground bucket;
+  Dynamics section 2.7 or its four-band longwave variant, under a sun at
+  the perpetual equinox or, with ``seasonal``, at the declination of the
+  model's day of the year; the Manabe-Strickler convective adjustment
+  (pairwise, bottom up, until a sweep changes nothing, at most 2L sweeps);
+  bulk evaporation into the lowest layer; the two-Newton-step saturation
+  adjustment that rains into the ground bucket;
 * the 8th-order zonal Shapiro filter of p (reduced to sea level over
   terrain) and t at its cadence, before the physics.
 """
@@ -54,10 +64,15 @@ BANDS = dict(wv2=50.0, co2=4.0, win=0.7, wv1=0.7)  # absorptivity per 1e5 Pa
 BAND_EDGES_CM = (600.0, 800.0, 1200.0)
 C2_CM_K = 1.438777
 DIFFUSIVITY = 1.66
+OMEGA = 2 * math.pi / 86400.0  # the Earth's rotation [rad/s], gcmiipy's
+# Model II's 9-layer sigma edges, from the ground up (Hansen et al. 1983)
+GISS_SIGE = (1.0, .948665, .866530, .728953, .554415, .390144, .251540,
+             .143737, .061602, 0.0)
 
 # the configuration keys this reference reads, and those that choose only
 # how the program computes (its backend and launch size, its type, whether
-# it guards and keeps stats)
+# it guards and keeps stats); and those of the seasonal sun, which it
+# needs where ``seasonal`` is on and reads nowhere else
 KEYS = ("layers", "sigma", "ptop", "topography", "land_cover",
         "sea_level_temp", "physics", "physics_every", "radiation", "t_lw",
         "t_sw", "albedo", "albedo_land", "convection", "drag_tau",
@@ -66,6 +81,8 @@ KEYS = ("layers", "sigma", "ptop", "topography", "land_cover",
         "guard_p_min", "coriolis", "seasonal", "q_limiter")
 PROGRAM_ONLY = ("backend", "stream_steps", "dtype", "guard", "stats",
                 "polar_filter")
+SEASONAL = ("obliquity", "year_days")
+SIGMA = ("manabe", "giss")
 
 
 class State(NamedTuple):
@@ -83,16 +100,21 @@ class State(NamedTuple):
 def check_model(model):
     """Raise ``ValueError`` on a key this reference does not know, a key it
     needs and is not given, or a feature it does not have."""
-    unknown = set(model) - set(KEYS) - set(PROGRAM_ONLY)
+    unknown = set(model) - set(KEYS) - set(PROGRAM_ONLY) - set(SEASONAL)
     missing = set(KEYS) - set(model)
+    if model.get("seasonal"):
+        missing |= set(SEASONAL) - set(model)
     if unknown or missing:
         raise ValueError(f"model keys: unknown {sorted(unknown)}, "
                          f"missing {sorted(missing)}")
-    if model["sigma"] != "manabe":
-        raise ValueError("the reference builds the Manabe sigma ladder only")
-    if model["coriolis"] or model["seasonal"] or model["q_limiter"]:
-        raise ValueError("coriolis, seasonal and q_limiter are not in the "
-                         "reference")
+    if model["sigma"] not in SIGMA:
+        raise ValueError(f"sigma {model['sigma']!r}: the reference builds "
+                         f"the ladders {SIGMA}")
+    if model["sigma"] == "giss" and model["layers"] != len(GISS_SIGE) - 1:
+        raise ValueError(f"sigma 'giss' has {len(GISS_SIGE) - 1} layers, "
+                         f"not {model['layers']}")
+    if model["q_limiter"]:
+        raise ValueError("q_limiter is not in the reference")
     if model["radiation"] not in ("grey", "4band"):
         raise ValueError(f"radiation {model['radiation']!r}")
 
@@ -149,16 +171,23 @@ def kmh(x):
 
 # --- geometry --------------------------------------------------------------
 
-class Geometry:
-    """The lat-lon C-grid of ``height`` x ``width`` cells with ``layers``
-    Manabe sigma layers (sigma^2 (3 - 2 sigma) at the edges), built in
-    float64 numpy and held as tensors of ``dtype`` on ``device``."""
+def manabe_edges(layers):
+    """Manabe's sigma edges, sigma^2 (3 - 2 sigma) on an even ladder, from
+    the ground (1) up to the top (0)."""
+    s = 1 - np.arange(layers + 1) / layers
+    return s ** 2 * (3 - 2 * s)
 
-    def __init__(self, height, width, layers, ptop, heightmap, land,
+
+class Geometry:
+    """The lat-lon C-grid of ``height`` x ``width`` cells with the sigma
+    layers between the edges ``sige`` (from 1 at the ground to 0 at the
+    top), and the Coriolis parameter at u's rows and v's half rows; built
+    in float64 numpy and held as tensors of ``dtype`` on ``device``."""
+
+    def __init__(self, height, width, sige, ptop, heightmap, land,
                  dtype, device):
-        self.height, self.width, self.layers = height, width, layers
-        s = 1 - np.arange(layers + 1) / layers
-        sige = s ** 2 * (3 - 2 * s)
+        sige = np.asarray(sige, np.float64)
+        self.height, self.width, self.layers = height, width, len(sige) - 1
         sigt, sigb = sige[1:], sige[:-1]
         col = (-1, 1, 1)
         circ = 2 * math.pi * RADIUS
@@ -180,6 +209,8 @@ class Geometry:
             dsig=(sigb - sigt).reshape(col),
             sigt=sigt.reshape(col), sigb=sigb.reshape(col),
             lat=np.deg2rad(lat).reshape(-1, 1), long=np.deg2rad(lon),
+            f_row=(2 * OMEGA * np.sin(np.deg2rad(lat))).reshape(-1, 1),
+            f_half=(2 * OMEGA * np.sin(np.deg2rad(lat_h))).reshape(-1, 1),
             dx_j=dx_j.reshape(1, -1, 1), dx_h=dx_h.reshape(1, -1, 1),
             dy=np.float64(dy), area=area.reshape(-1, 1), ptop=np.float64(ptop),
             heightmap=heightmap, land=land, mask=mask)
@@ -190,16 +221,19 @@ class Geometry:
 
 def make_geometry(model, height, width, dtype, device):
     """The geometry of ``model`` (a configuration's ``model`` dict) on the
-    ``height`` x ``width`` grid: the Hansen elevation and land fraction
-    resampled to it where the configuration asks for them."""
+    ``height`` x ``width`` grid: its sigma ladder, Manabe's or Model II's
+    edges, under its ``ptop``, and the Hansen elevation and land fraction
+    resampled to the grid where the configuration asks for them."""
     heightmap = (hansen.resample(hansen.TOPOGRAPHY_M, height, width)
                  if model["topography"] == "hansen"
                  else np.zeros((height, width)))
     land = (hansen.resample(hansen.LAND_COVER, height, width)
             if model["land_cover"] == "hansen"
             else np.zeros((height, width)))
-    return Geometry(height, width, model["layers"], model["ptop"],
-                    heightmap, land, dtype, device)
+    sige = (GISS_SIGE if model["sigma"] == "giss"
+            else manabe_edges(model["layers"]))
+    return Geometry(height, width, sige, model["ptop"], heightmap, land,
+                    dtype, device)
 
 
 # --- thermodynamics and humidity -------------------------------------------
@@ -287,13 +321,19 @@ def advec_sig(sd, x, geom):
     return -(flux - kp(flux)) / geom.dsig
 
 
-def advec_momentum(u, v, pu, pv, geom):
+def advec_momentum(u, v, pu, pv, geom, coriolis):
+    """The momentum tendencies (dut, dvt) that the step subtracts: the
+    momentum-flux terms and, with ``coriolis``, f times the other wind's
+    mass flux averaged to the point (gcmiipy's ``dynamics.py:82-95``)."""
     puum = imh(u) * imh(pu)
     puvp = iph(pv) * jph(u)
     pvvm = jmh(v) * jmh(pv)
     pvup = iph(v) * jph(pu)
     dut = (puum - ip(puum)) / geom.dx_j + (jm(puvp) - puvp) / geom.dy
     dvt = (pvvm - jp(pvvm)) / geom.dy + (im(pvup) - pvup) / geom.dx_h
+    if coriolis:
+        dut = dut - geom.f_row * iph(jmh(pv))
+        dvt = dvt + geom.f_half * imh(jph(pu))
     return dut, dvt
 
 
@@ -321,7 +361,7 @@ def advec_scalar(pu, pv, x, geom):
     return (fx - im(fx)) / geom.dx_j + (fy - jm(fy)) / geom.dy
 
 
-def half_step(base, at, dt, geom):
+def half_step(base, at, dt, geom, coriolis):
     """Advance ``base`` = (p, u, v, t, q) by ``dt`` with the tendencies of
     ``at``."""
     p, u, v, t, q = base
@@ -330,7 +370,7 @@ def half_step(base, at, dt, geom):
     spv = sv * jph(sp)
     pit, sd = aflux(spu, spv, geom)
     p_n = p - pit * dt
-    dut, dvt = advec_momentum(su, sv, spu, spv, geom)
+    dut, dvt = advec_momentum(su, sv, spu, spv, geom, coriolis)
     force_u, force_v = pressure_gradient(sp, st, geom)
     force_u = polar_filter(force_u, geom)
     dus = advec_sig(iph(sd), su, geom)
@@ -345,18 +385,33 @@ def half_step(base, at, dt, geom):
     return p_n, u_n, v_n, t_n, q_n
 
 
-def matsuno(prog, dt, geom):
-    predicted = half_step(prog, prog, dt, geom)
-    return half_step(prog, predicted, dt, geom)
+def matsuno(prog, dt, geom, coriolis):
+    predicted = half_step(prog, prog, dt, geom, coriolis)
+    return half_step(prog, predicted, dt, geom, coriolis)
 
 
 # --- column physics --------------------------------------------------------
 
-def zenith(geom, utc):
-    """Clamped cos(zenith) at the clock ``utc`` [s], perpetual equinox."""
+def declination(model, utc):
+    """The sun's declination [rad] at the clock ``utc`` [s] (0 is January
+    1, 00:00): -obliquity cos(2 pi (d + 10) / year_days), d the day."""
+    d = utc / 86400.0
+    return -math.radians(model["obliquity"]) * math.cos(
+        2 * math.pi * (d + 10.0) / model["year_days"])
+
+
+def zenith(geom, utc, model):
+    """Clamped cos(zenith) at the clock ``utc`` [s]: at the perpetual
+    equinox, or with ``seasonal`` sin(lat) sin(dec) + cos(lat) cos(dec)
+    cos(lon + hour) at the declination of the day."""
     hour = utc / (-24.0 * 3600.0) * 2 * math.pi
-    return torch.clamp(torch.cos(geom.lat) * torch.cos(geom.long + hour),
-                       min=0.0)
+    if not model["seasonal"]:
+        return torch.clamp(torch.cos(geom.lat) * torch.cos(geom.long + hour),
+                           min=0.0)
+    dec = declination(model, utc)
+    return torch.clamp(
+        torch.sin(geom.lat) * math.sin(dec) + torch.cos(geom.lat)
+        * math.cos(dec) * torch.cos(geom.long + hour), min=0.0)
 
 
 def _ladders(emission, trans):
@@ -382,7 +437,7 @@ def grey_radiation(p, tt, gt, albedo, utc, model, geom):
     emission = (1 - lw_t) * SB * tt ** 4
     cum_sw_top = torch.flip(torch.cumprod(torch.flip(sw_t, (0,)), 0), (0,))
     below = torch.cumprod(lw_t, 0) / lw_t
-    sc = SOLAR * zenith(geom, utc)
+    sc = SOLAR * zenith(geom, utc, model)
     u_s = SB * gt ** 4
     dt_ground = ((emission * below).sum(0)
                  + (1 - albedo) * sc * cum_sw_top[0] - u_s) / CG / 0.1
@@ -439,7 +494,7 @@ def four_band_radiation(p, tt, q, gt, albedo, utc, model, geom):
                        torch.cumprod(trans, 1)[:, :-1]], 1)
     cum_sw_top = torch.flip(torch.cumprod(torch.flip(
         sw_t.expand(tt.shape), (0,)), 0), (0,))
-    sc = SOLAR * zenith(geom, utc)
+    sc = SOLAR * zenith(geom, utc, model)
     u_s = SB * gt ** 4
     dt_ground = ((emission * below).sum((0, 1))
                  + (1 - albedo) * sc * cum_sw_top[0] - u_s) / CG / 0.1
@@ -559,7 +614,7 @@ class Reference:
 
     def step(self, s, n, utc):
         m, geom = self.model, self.geom
-        p, u, v, t, q = matsuno(s[:5], self.dt, geom)
+        p, u, v, t, q = matsuno(s[:5], self.dt, geom, m["coriolis"])
         s = State(p, u, v, t, q, *s[5:])
         if m["shapiro_every"] > 0 and (n + 1) % m["shapiro_every"] == 0:
             s = self._shapiro(s)

@@ -70,6 +70,6 @@ def test_reference_takes_nothing_of_the_port():
     with pytest.raises(ValueError):
         ref_model.check_model({"layers": 9})
     loaded = bench.load_cell("grey-flagship", ROOT)
-    model = dict(loaded["config"]["model"], coriolis=True)
+    model = dict(loaded["config"]["model"], q_limiter=True)
     with pytest.raises(ValueError):
         ref_model.check_model(model)
