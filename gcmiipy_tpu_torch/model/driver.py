@@ -215,9 +215,11 @@ def solar_timestep(t, p, g, dt, utc, geom, config, q=None):
     # to_potential_temp)
     exner_inv = (constants.P0 / tp) ** constants.kappa
     tt = t / exner_inv
-    declination = (radiation.solar_declination(utc, config.obliquity,
-                                               config.year_days)
-                   if config.seasonal else 0.0)
+    declination = 0.0
+    if config.seasonal:
+        with span("gcm.physics.sun"):
+            declination = radiation.solar_declination(
+                utc, config.obliquity, config.year_days)
     albedo = config.albedo
     if config.land_cover != "none":
         f_land = geom.land_fraction.to(t.dtype)

@@ -26,7 +26,8 @@ and profiled calls replay the run's walk as one CUDA graph
 ``--trace-dir`` it also writes a Chrome trace per backend there.
 
 The line's ``spans`` give, for each of the program's own spans
-(``gcm.dynamics``, ``gcm.physics.convection``, ``gcm.sync``, ...:
+(``gcm.dynamics``, ``gcm.physics.convection``, ``gcm.physics.sun`` where
+the sun is seasonal, ``gcm.sync``, ...:
 :func:`model.observability.span`), its calls, host ms and device ms a
 step, the device ms being that of the work launched inside it; with
 ``--surface`` the profiled call is a replay, whose spans are

@@ -11,6 +11,8 @@ inputs into the same outputs):
   the handed state is never written and a returned state stays intact;
 * the key: one for grey-modelii's and surface-flagship's plans over a
   member's calls, a new one for another cadence phase, shape or dtype;
+  the same for modelii-flagship's plan at every clock (the clock is an
+  input of the walk);
 * ``chunk_steps`` and ``head_steps`` survive the wrapper;
 * the ops' ``.launches`` counters add one capture's count a replay, and a
   failed capture warns once and leaves the run eager;
@@ -18,7 +20,9 @@ inputs into the same outputs):
 
 On the card (``gpu``): a replay equals the eager walk to the bit for the
 benchmark's four configurations, through a guard trip too, and each of
-them captures.
+them captures; with Model II's setup (rotation, Model II's edges, the
+seasonal sun) replays at clocks days apart each equal the eager walk at
+their own clock, so the sun follows the clock, not the capture's.
 """
 
 import dataclasses
@@ -61,8 +65,12 @@ def bench_config(name, height, width, dt, **changes):
 # layers, 4 steps, and a 16 x 128 grid for the stream
 GREY = bench_config("gcm2-grey", 24, 36, 225.0, layers=3)
 SURFACE = bench_config("gcm2-surface", 16, 128, 30.0, layers=3)
+# modelii-flagship's: surface-flagship's plan, rotating, on Model II's 9
+# edges under a seasonal sun
+MODEL_II = bench_config("gcm2-modelii", 16, 128, 30.0, giss_sige=True)
 RUNS = {"grey_per_step": (GREY, 4, False), "surface_stream": (SURFACE, 4,
-                                                              True)}
+                                                              True),
+        "modelii_stream": (MODEL_II, 4, True)}
 
 
 class StandIn:
@@ -228,6 +236,20 @@ def test_surface_plan_has_one_key_a_phase():
     double = run_graph.rebuild(state, iter([x.double() if x.is_floating_point()
                                             else x for x in leaves(state)]))
     assert run.key(double, 0) != key
+
+
+def _at_clock(state, days):
+    """``state`` with its clock ``days`` days after January 1."""
+    return state._replace(utc=torch.full_like(state.utc, days * 86400.0))
+
+
+def test_model_ii_key_is_the_same_at_every_clock():
+    """The clock is an input of the walk, not part of its key: calls of
+    modelii-flagship's plan days apart share one graph."""
+    _, state, run = _make(MODEL_II, 20, moist=True)
+    assert run.chunk_steps == 2 and run.period == 4
+    keys = {run.key(_at_clock(state, days), 0) for days in (0, 45, 180)}
+    assert len(keys) == 1
 
 
 def test_surface_phases_capture_a_graph_each(card):
@@ -401,6 +423,36 @@ def _trip_threshold(run, state, steps):
             return 0.5 * (p + highest)
         highest = max(highest, p)
     return None
+
+
+@pytest.mark.gpu
+def test_the_replayed_sun_follows_the_clock_on_gpu(cuda_device):
+    """modelii-flagship's configuration (rotation, Model II's edges, the
+    seasonal sun) at 64 x 256: calls of one phase whose clocks lie days
+    apart, the second capturing and the later ones replaying, each equal
+    to the eager walk at its own clock to the bit; the sun moves the
+    result, so a replay that kept the capture's declination would differ
+    from the eager walk at its clock."""
+    config = bench_config("gcm2-modelii", 64, 256, 30.0, giss_sige=True)
+    geom = driver.gen_model_geometry(config, cuda_device)
+    base = state_mod.moist_start(driver.gen_model_state(geom, config), geom)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        run = driver.make_run_fn(geom, config, 20)
+    days = (0, 30, 91, 172, 300)
+    states = [_at_clock(base, d) for d in days]
+    outs = [run(s) for s in states]
+    assert run.broken is None and len(run.graphs) == 1
+    refs = [_eager(run, s) for s in states]
+    for out, ref in zip(outs, refs):
+        _equal(out, ref)
+    # the clock moved the sun: the replays at 91, 172 and 300 days differ
+    # from the eager walk at the capture's clock (30 days) and from each
+    # other
+    t = [o[0].prog.t for o in outs]
+    for k in (2, 3, 4):
+        assert not torch.equal(t[k], refs[1][0].prog.t)
+    assert not torch.equal(t[2], t[3]) and not torch.equal(t[3], t[4])
 
 
 @pytest.mark.gpu

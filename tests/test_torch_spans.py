@@ -7,6 +7,9 @@
   the host emulation (``tests/torch_host_emulation.py``), so that the CPU
   runs the wrappers' card path and not the plain versions that stand in
   for the kernels here;
+* ``gcm.physics.sun`` (the seasonal declination) fires once a physics call
+  of the seasonal run (modelii-flagship's configuration) and never in the
+  others;
 * every host read of the device (``aten::_local_scalar_dense``) inside a run
   function's call lies inside a ``gcm.sync`` span, and grey-modelii's
   per-step loop makes none (the adaptive convection is one kernel launch);
@@ -56,10 +59,14 @@ SURFACE = dict(layers=3, topography="hansen", land_cover="hansen",
                shapiro_every=4, shapiro_fields="pt", shapiro_slp=True,
                backend="stream", stream_steps=20, guard=True, stats=True,
                guard_p_max=115000.0)
+MODEL_II = dict(SURFACE, layers=9, giss_sige=True, ptop=1000.0,
+                coriolis=True, seasonal=True, obliquity=23.44,
+                year_days=365.0)
 PHYSICS = ("gcm.physics.radiation", "gcm.physics.convection")
 # (config, steps, moist start, start step): grey-modelii's per-step
 # 'mega4' loop (24x36 is off K7's envelope), surface-flagship's 2-step K7
-# calls with the extras between, and the same behind an alignment head
+# calls with the extras between, the same behind an alignment head, and
+# modelii-flagship's
 RUNS = {
     "grey_per_step": (ModelConfig(height=24, width=36, dt=225.0, **GREY),
                       2, False, 0),
@@ -67,6 +74,10 @@ RUNS = {
                                    **SURFACE), 4, True, 0),
     "surface_headed": (ModelConfig(height=16, width=128, dt=30.0,
                                    **SURFACE), 4, True, 1),
+    # modelii-flagship's: the same calls, rotating, on Model II's 9 edges
+    # under a seasonal sun
+    "modelii_stream": (ModelConfig(height=16, width=128, dt=30.0,
+                                   **MODEL_II), 4, True, 0),
 }
 NAMES = {
     "grey_per_step": {"gcm.dynamics", "gcm.extras", "gcm.physics",
@@ -77,6 +88,7 @@ NAMES = {
                        "gcm.stats"},
 }
 NAMES["surface_headed"] = NAMES["surface_stream"]
+NAMES["modelii_stream"] = NAMES["surface_stream"] | {"gcm.physics.sun"}
 # grey-flagship's traced launches a step: K7's 7, the loop's own and the
 # graph's copies in and out (12.42 before the graph)
 FLAGSHIP_LAUNCHES = 12.67
@@ -85,6 +97,7 @@ PARENTS = {
     "gcm.dynamics": {None}, "gcm.extras": {None}, "gcm.guard": {None},
     "gcm.stats": {None}, "gcm.physics": {"gcm.extras"},
     "gcm.shapiro": {"gcm.extras"},
+    "gcm.physics.sun": {"gcm.physics"},
     "gcm.physics.radiation": {"gcm.physics"},
     "gcm.physics.convection": {"gcm.physics"},
     "gcm.physics.evaporation": {"gcm.physics"},
@@ -198,7 +211,7 @@ def test_run_spans_have_the_designed_names_and_nesting(profiled, run):
         for n in ("gcm.dynamics", "gcm.extras", "gcm.physics", "gcm.guard",
                   "gcm.stats"):
             assert counts[n] == 2, n
-    if run == "surface_stream":
+    if run in ("surface_stream", "modelii_stream"):
         # two K7 calls of 2 steps, the physics after each, the Shapiro
         # filter after the second; the guard's copy and check each call;
         # the one read of the step counter, the convection reading none
@@ -207,6 +220,25 @@ def test_run_spans_have_the_designed_names_and_nesting(profiled, run):
         assert counts["gcm.sync"] == 1
     # the program's totals count what the trace holds
     assert {n: t["count"] for n, t in totals.items()} == counts
+
+
+@pytest.mark.parametrize("run", sorted(RUNS))
+def test_the_sun_span_fires_once_a_physics_call_only_when_seasonal(profiled,
+                                                                   run):
+    """``gcm.physics.sun`` (the seasonal declination) fires once in each
+    physics call of the seasonal run, inside it and before its
+    radiation; and never where the sun stands at the equinox."""
+    spans = _program(profiled[run][0])
+    suns = [x for x in spans if x[2] == "gcm.physics.sun"]
+    physics = [x for x in spans if x[2] == "gcm.physics"]
+    if run != "modelii_stream":
+        assert not suns
+        return
+    assert len(suns) == len(physics) == 2
+    radiation = [x for x in spans if x[2] == "gcm.physics.radiation"]
+    for call, sun, rad in zip(physics, suns, radiation):
+        assert call[0] <= sun[0] and sun[1] <= call[1]
+        assert sun[1] <= rad[0]
 
 
 @pytest.mark.parametrize("run", sorted(RUNS))
